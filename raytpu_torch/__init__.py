@@ -1,0 +1,52 @@
+"""raytpu_torch: the PyTorch + CUDA port of raytpu, for an NVIDIA H100.
+
+This slice serves Llama through the paged inference engine:
+
+- :mod:`raytpu_torch.ops` — flash attention forward and paged attention,
+  each a CUDA kernel written by hand for Hopper beside a plain PyTorch
+  version;
+- :mod:`raytpu_torch.models` — the Llama decoder's inference forwards and
+  the converter that carries JAX weights across;
+- :mod:`raytpu_torch.inference` — paged KV cache, prefix cache,
+  continuous-batching scheduler, sampling and :class:`InferenceEngine`.
+
+The port imports nothing from ``raytpu`` or JAX; the host-side modules it
+needs are its own copies. Every entry point runs on ``cuda`` unless the
+caller passes ``device="cpu"``, and raises when there is no card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: ``cuda`` (the current card)
+    unless the caller asks for ``cpu``. Raises when CUDA is asked for,
+    explicitly or by default, and no card is available: the port never
+    moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    if dev.type != "cuda":
+        raise ValueError(f"raytpu_torch runs on 'cuda' or 'cpu', not {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "raytpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+from raytpu_torch.inference import (InferenceEngine, PagedKVCache,  # noqa: E402
+                                    PrefixCache, SamplingParams, Scheduler,
+                                    Sequence, StepOutput)
+from raytpu_torch.models.llama import Llama, LlamaConfig  # noqa: E402
+
+__all__ = ["InferenceEngine", "Llama", "LlamaConfig", "PagedKVCache",
+           "PrefixCache", "SamplingParams", "Scheduler", "Sequence",
+           "StepOutput", "resolve_device"]

@@ -1,0 +1,284 @@
+"""Paged KV cache (reference analogue: vLLM's PagedAttention, SOSP '23);
+the port of ``raytpu/inference/kv_cache.py``, whose bookkeeping is copied
+as it is. Only the pools change: they are device tensors, and the model
+writes into them in place.
+
+The cache for every layer is ONE preallocated tensor shaped
+``[num_pages, page_size, kv_heads, head_dim]`` (one for K, one for V).
+Sequences own pages through a *block table* — an ordered list of page
+ids — so a sequence's logical position ``p`` lives at flat slot
+``table[p // page_size] * page_size + p % page_size``. Growing a
+sequence by one token allocates at most one page; freeing returns the
+pages to a stack. Nothing is ever reallocated or compacted, which is
+what the decode step needs: the kernels see the same cache buffers
+every iteration and only the (tiny, host-built) block tables change.
+
+Page 0 is reserved as *scratch*: it is never handed to a sequence, and
+every padded slot in a bucketed prefill or dummy row in a padded decode
+batch writes there. Garbage lands only in page 0, so real pages are
+never polluted by static-shape padding.
+
+Pages are REFCOUNTED so a prefix cache can share prompt pages across
+sequences copy-on-write-style: ``allocate_shared`` grafts already-filled
+pages into a new block table by bumping their refcount, and ``free``
+only surrenders a page once its last owner releases it. A page whose
+refcount drops to 0 is offered to an optional *retainer* (the prefix
+cache) before returning to the free list; retained pages stay
+reclaimable and are evicted LRU when an allocation would otherwise
+fail, so caching never reduces usable capacity.
+
+Host-side bookkeeping (block tables, free list, refcounts) is plain
+Python — it's O(pages touched) per step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from raytpu_torch import resolve_device
+
+
+class PagedKVCache:
+    """Fixed-page KV pool with per-sequence block tables.
+
+    Args:
+        num_layers: number of transformer layers (one K and one V array
+            per layer).
+        num_pages: total pages INCLUDING the reserved scratch page 0;
+            usable capacity is ``num_pages - 1`` pages.
+        page_size: tokens per page.
+        num_kv_heads: KV heads per token (``n_kv_head`` for GQA Llama,
+            ``n_head`` for MHA GPT-2).
+        head_dim: per-head feature dim.
+        dtype: cache tensor dtype (the model's activation dtype).
+        device: where the pools live (``cuda`` unless ``"cpu"`` is
+            asked for).
+    """
+
+    def __init__(self, num_layers: int, num_pages: int, page_size: int,
+                 num_kv_heads: int, head_dim: int, dtype=None, device=None):
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is scratch)")
+        if page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        self.num_layers = num_layers
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.dtype = dtype or torch.float32
+        self.device = resolve_device(device)
+        shape = (num_pages, page_size, num_kv_heads, head_dim)
+        self.k: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=self.dtype, device=self.device)
+            for _ in range(num_layers)]
+        self.v: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=self.dtype, device=self.device)
+            for _ in range(num_layers)]
+        # LIFO free list over pages 1..num_pages-1 (0 is scratch).
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._tables: Dict[str, List[int]] = {}
+        # page id -> number of block tables referencing it. Pages on
+        # the free list (or retained by the prefix cache) have no entry.
+        self._refs: Dict[int, int] = {}
+        # Optional prefix-cache hook (see PrefixCache): retain(page)
+        # keeps a ref-0 page reclaimable instead of freeing it;
+        # reclaim(n) evicts up to n retained pages back to the free
+        # list; reclaimable() counts pages reclaim could recover.
+        self._retainer = None
+
+    # ---- accounting -------------------------------------------------
+
+    def pages_for(self, num_tokens: int) -> int:
+        """Pages needed to hold ``num_tokens`` tokens."""
+        return max(0, math.ceil(num_tokens / self.page_size))
+
+    @property
+    def total_pages(self) -> int:
+        """Usable pages (excludes scratch)."""
+        return self.num_pages - 1
+
+    def free_pages(self) -> int:
+        """Allocatable pages: the free list plus whatever the retainer
+        could evict on demand (cached-but-unreferenced prefix pages)."""
+        n = len(self._free)
+        if self._retainer is not None:
+            n += self._retainer.reclaimable()
+        return n
+
+    def used_pages(self) -> int:
+        """Pages referenced by at least one live sequence."""
+        return self.total_pages - self.free_pages()
+
+    def utilization(self) -> float:
+        """Fraction of usable pages currently owned by sequences."""
+        return self.used_pages() / self.total_pages
+
+    def num_sequences(self) -> int:
+        return len(self._tables)
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    # ---- allocation -------------------------------------------------
+
+    def allocate(self, seq_id: str, num_tokens: int) -> bool:
+        """Reserve pages for a new sequence of ``num_tokens`` tokens.
+
+        All-or-nothing: returns False (allocating nothing) if the free
+        list cannot cover the request. Raises if ``seq_id`` already has
+        a table — callers must :meth:`free` before re-allocating.
+        """
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already allocated")
+        need = self.pages_for(max(1, num_tokens))
+        if not self._reserve(need):
+            return False
+        self._tables[seq_id] = [self._take_free() for _ in range(need)]
+        return True
+
+    def allocate_shared(self, seq_id: str, num_tokens: int,
+                        prefix_pages: Sequence[int]) -> bool:
+        """Reserve pages for a new sequence whose first
+        ``len(prefix_pages)`` pages are already-filled shared pages (a
+        prefix-cache hit): those are grafted in by refcount bump, and
+        only the tail is drawn from the free list. All-or-nothing —
+        on failure nothing is referenced."""
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already allocated")
+        need = self.pages_for(max(1, num_tokens))
+        tail = need - len(prefix_pages)
+        if tail < 0:
+            raise ValueError(
+                f"prefix of {len(prefix_pages)} pages exceeds the "
+                f"{need}-page allocation of {seq_id!r}")
+        # Pin the shared pages FIRST: reserving the tail may evict
+        # retained pages, and a pinned (referenced) page is never on
+        # the retainer's eviction list.
+        for page in prefix_pages:
+            self._incref(page)
+        if not self._reserve(tail):
+            for page in reversed(prefix_pages):
+                self._decref(page)  # rollback: back to parked/free
+            return False
+        self._tables[seq_id] = list(prefix_pages) + [
+            self._take_free() for _ in range(tail)]
+        return True
+
+    def extend(self, seq_id: str, num_tokens_total: int) -> bool:
+        """Grow ``seq_id``'s allocation to cover ``num_tokens_total``
+        tokens. All-or-nothing; True when capacity is already enough."""
+        table = self._tables.get(seq_id)
+        if table is None:
+            raise KeyError(f"sequence {seq_id!r} has no allocation")
+        need = self.pages_for(num_tokens_total) - len(table)
+        if need <= 0:
+            return True
+        if not self._reserve(need):
+            return False
+        table.extend(self._take_free() for _ in range(need))
+        return True
+
+    def free(self, seq_id: str) -> None:
+        """Release a sequence's pages (idempotent). A page returns to
+        the pool only when its last reference drops; ref-0 pages the
+        retainer claims stay out of the free list but reclaimable."""
+        table = self._tables.pop(seq_id, None)
+        if not table:
+            return
+        # LIFO reuse keeps the hot working set in a few pages.
+        for page in reversed(table):
+            self._decref(page)
+
+    # ---- refcount plumbing ------------------------------------------
+
+    def _take_free(self) -> int:
+        page = self._free.pop()
+        self._refs[page] = 1
+        return page
+
+    def _incref(self, page: int) -> None:
+        n = self._refs.get(page, 0)
+        if n == 0 and self._retainer is not None:
+            # Page was sitting in the retainer's reclaimable set; it is
+            # referenced again and must not be evicted under it.
+            self._retainer.activate(page)
+        self._refs[page] = n + 1
+
+    def _decref(self, page: int) -> None:
+        n = self._refs.get(page, 0) - 1
+        if n > 0:
+            self._refs[page] = n
+            return
+        self._refs.pop(page, None)
+        if self._retainer is not None and self._retainer.retain(page):
+            return  # cached: reclaimable, but its KV stays warm
+        self._free.append(page)
+
+    def _reserve(self, need: int) -> bool:
+        """Ensure ``need`` pages are on the free list, evicting retained
+        prefix pages LRU if that closes the gap."""
+        short = need - len(self._free)
+        if short > 0 and self._retainer is not None:
+            self._retainer.reclaim(short)
+        return need <= len(self._free)
+
+    # ---- addressing -------------------------------------------------
+
+    def block_table(self, seq_id: str) -> List[int]:
+        return list(self._tables[seq_id])
+
+    def num_seq_pages(self, seq_id: str) -> int:
+        """Pages currently allocated to ``seq_id`` (no copy — the
+        engine reads this per step to trim block-table widths)."""
+        return len(self._tables[seq_id])
+
+    def slot(self, seq_id: str, pos: int) -> int:
+        """Flat slot index (into ``[num_pages*page_size]``) of logical
+        token position ``pos`` of sequence ``seq_id``."""
+        table = self._tables[seq_id]
+        page = pos // self.page_size
+        if page >= len(table):
+            raise IndexError(
+                f"pos {pos} beyond allocation of {seq_id!r} "
+                f"({len(table)} pages x {self.page_size})")
+        return table[page] * self.page_size + pos % self.page_size
+
+    def table_array(self, seq_ids: Sequence[str], max_pages: int,
+                    batch: Optional[int] = None) -> np.ndarray:
+        """Stacked block tables ``[batch, max_pages]`` int32, padded
+        with 0 (scratch) — rows past ``len(seq_ids)`` are dummy rows."""
+        b = batch if batch is not None else len(seq_ids)
+        out = np.zeros((b, max_pages), dtype=np.int32)
+        for i, sid in enumerate(seq_ids):
+            table = self._tables[sid]
+            out[i, :len(table)] = table
+        return out
+
+    def prefill_dests(self, seq_id: str, length: int,
+                      bucket: int) -> np.ndarray:
+        """Flat destination slots ``[bucket]`` int32 for writing a
+        prefill of ``length`` real tokens padded to ``bucket``. Padding
+        slots cycle through page 0 so bucketed garbage stays in scratch."""
+        out = np.empty(bucket, dtype=np.int32)
+        for i in range(min(length, bucket)):
+            out[i] = self.slot(seq_id, i)
+        for i in range(length, bucket):
+            out[i] = i % self.page_size  # page 0 slots
+        return out
+
+    def chunk_dests(self, seq_id: str, start: int, take: int,
+                    bucket: int) -> np.ndarray:
+        """Flat destination slots ``[bucket]`` int32 for writing a
+        prefill CHUNK covering logical positions ``[start, start+take)``
+        padded to ``bucket``; padding cycles through page 0."""
+        out = np.empty(bucket, dtype=np.int32)
+        for i in range(min(take, bucket)):
+            out[i] = self.slot(seq_id, start + i)
+        for i in range(take, bucket):
+            out[i] = i % self.page_size  # page 0 slots
+        return out

@@ -1,0 +1,180 @@
+"""Prefix/prompt cache over the paged KV pool (reference analogue:
+vLLM's automatic prefix caching, SOSP '23 §4.3); a copy of
+``raytpu/inference/prefix_cache.py`` whose metrics counters are plain
+integers of the cache, reported by :meth:`PrefixCache.stats`. Its
+``adopt`` and ``summary`` (for the KV handoff and prefix-aware routing)
+come with the serving plane (ROADMAP.md).
+
+Prompt KV is cached at *page* granularity under a content hash CHAINED
+over token ids: page ``i`` of a prompt hashes ``H(hash_of_page_{i-1} ||
+tokens[i*ps:(i+1)*ps])``, so two prompts map to the same page hash iff
+they agree on EVERY token up to and including that page. A lookup walks
+the chain page by page and stops at the first miss — the matched run is
+handed to :meth:`PagedKVCache.allocate_shared` as a block-table pointer
+copy (refcount bump, no KV moved, no prefill compute), and only the
+unmatched tail is prefilled.
+
+Lifecycle is retain-on-release: when the last sequence referencing a
+registered page frees it, the page is NOT returned to the free list —
+it parks here, hash intact and KV warm, in an LRU order. Allocation
+pressure reclaims parked pages oldest-hit-first (the cache never makes
+the pool smaller, it only keeps otherwise-idle pages useful). Pages are
+registered only once their KV is fully written (whole pages covered by
+a finished prefill chunk), so a shared page is immutable by
+construction: writers always append past the shared prefix into private
+pages — copy-on-write where the "copy" is the tail allocation itself.
+
+Everything here is host-side Python over page ids; the model never
+sees the cache.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence
+
+from raytpu_torch.inference.kv_cache import PagedKVCache
+
+
+def _page_hash(prev: bytes, tokens: Sequence[int]) -> bytes:
+    h = hashlib.blake2b(prev, digest_size=16)
+    h.update(b"".join(int(t).to_bytes(8, "little", signed=True)
+                      for t in tokens))
+    return h.digest()
+
+
+def chain_hashes(tokens: Sequence[int], page_size: int) -> List[bytes]:
+    """Chain hashes for every FULL page of ``tokens``.
+
+    Module-level so routers and the disaggregation plane can compute a
+    prompt's page chain without holding a cache (the hashes depend only
+    on the token ids and the page size, never on pool state) — a client
+    and every replica therefore agree on the chain byte-for-byte.
+    """
+    out: List[bytes] = []
+    prev = b"raytpu-prefix"
+    for i in range(len(tokens) // page_size):
+        prev = _page_hash(prev, tokens[i * page_size:(i + 1) * page_size])
+        out.append(prev)
+    return out
+
+
+class PrefixCache:
+    """Content-addressed index of full prompt pages in a PagedKVCache.
+
+    Installs itself as the cache's *retainer*: ref-0 registered pages
+    are parked here (reclaimable, LRU-evicted under pressure) instead
+    of returning to the free list. One PrefixCache per PagedKVCache.
+    """
+
+    def __init__(self, cache: PagedKVCache):
+        self.cache = cache
+        self.page_size = cache.page_size
+        # chain hash -> page id holding that page's KV
+        self._by_hash: Dict[bytes, int] = {}
+        # page id -> its chain hash (reverse index for eviction)
+        self._hash_of: Dict[int, bytes] = {}
+        # ref-0 registered pages, least-recently-matched first
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # Lookups (one per admitted request), lookups that matched at
+        # least one page, prompt tokens whose prefill a hit skipped, and
+        # cached pages evicted under allocation pressure.
+        self.lookups = 0
+        self.hits = 0
+        self.hit_tokens = 0
+        self.evictions = 0
+        cache._retainer = self
+
+    # ---- lookup / registration --------------------------------------
+
+    def page_hashes(self, tokens: Sequence[int]) -> List[bytes]:
+        """Chain hashes for every FULL page of ``tokens``."""
+        return chain_hashes(tokens, self.page_size)
+
+    def match(self, tokens: Sequence[int],
+              max_pages: Optional[int] = None) -> List[int]:
+        """Longest run of cached pages matching ``tokens`` from the
+        start, capped at ``max_pages``. Touches hits in the LRU."""
+        self.lookups += 1
+        pages: List[int] = []
+        for h in self.page_hashes(tokens):
+            if max_pages is not None and len(pages) >= max_pages:
+                break
+            page = self._by_hash.get(h)
+            if page is None:
+                break
+            pages.append(page)
+        for page in pages:
+            if page in self._lru:  # referenced pages aren't in the LRU
+                self._lru.move_to_end(page)
+        if pages:
+            self.hits += 1
+            self.hit_tokens += len(pages) * self.page_size
+        return pages
+
+    def register(self, seq_id: str, tokens: Sequence[int],
+                 covered_len: int) -> int:
+        """Index every full page of ``tokens`` whose KV is fully
+        written (``covered_len`` tokens cached so far). First writer
+        wins on hash collision-by-content — a page already indexed
+        under the same hash keeps its mapping and the duplicate page
+        stays private. Returns pages newly registered."""
+        table = self.cache.block_table(seq_id)
+        added = 0
+        for i, h in enumerate(self.page_hashes(tokens)):
+            if (i + 1) * self.page_size > covered_len:
+                break
+            if h in self._by_hash:
+                continue
+            page = table[i]
+            if page in self._hash_of:
+                continue  # already registered under an earlier prompt
+            self._by_hash[h] = page
+            self._hash_of[page] = h
+            added += 1
+        return added
+
+    # ---- retainer protocol (driven by PagedKVCache) -----------------
+
+    def retain(self, page: int) -> bool:
+        """A page's refcount hit 0. Park it if registered; else decline
+        (the cache returns it to the free list)."""
+        if page not in self._hash_of:
+            return False
+        self._lru[page] = None
+        self._lru.move_to_end(page)
+        return True
+
+    def activate(self, page: int) -> None:
+        """A parked page is referenced again — stop tracking it for
+        eviction (its KV is live, not reclaimable)."""
+        self._lru.pop(page, None)
+
+    def reclaimable(self) -> int:
+        return len(self._lru)
+
+    def reclaim(self, need: int) -> int:
+        """Evict up to ``need`` parked pages LRU back to the free
+        list, dropping their hash index entries."""
+        freed = 0
+        while freed < need and self._lru:
+            page, _ = self._lru.popitem(last=False)
+            h = self._hash_of.pop(page)
+            self._by_hash.pop(h, None)
+            self.cache._free.append(page)
+            freed += 1
+        self.evictions += freed
+        return freed
+
+    # ---- introspection ----------------------------------------------
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "registered_pages": len(self._by_hash),
+            "reclaimable_pages": len(self._lru),
+            "lookups": self.lookups,
+            "hits": self.hits,
+            "hit_tokens": self.hit_tokens,
+            "evictions": self.evictions,
+        }

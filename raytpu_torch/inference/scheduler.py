@@ -1,0 +1,210 @@
+"""Continuous-batching scheduler (reference analogue: Orca, OSDI '22);
+a copy of ``raytpu/inference/scheduler.py`` without its serving hooks
+(request lifecycle events and the goodput ledger), which belong to the
+serve fabric the port does not have yet.
+
+Scheduling happens at *iteration* granularity: every engine step calls
+:meth:`Scheduler.schedule`, which (1) guarantees each running sequence
+a KV slot for the token it is about to decode — preempting the
+YOUNGEST sequence (latest arrival) to recompute later when pages run
+out, so the oldest requests always make progress and the total
+recomputation bill is minimized — and (2) admits waiting requests
+FIFO while both a sequence slot and enough KV pages for their prompt
+are available. Fresh prefills therefore merge with in-flight decodes
+in the same iteration instead of waiting for the batch to drain
+(the continuous-batching throughput lever).
+
+Preemption is preempt-to-RECOMPUTE (vLLM's default for small
+sequences): the victim's pages are freed, its ``cached_len`` drops to
+0, and it re-enters the FRONT of the waiting queue; when re-admitted,
+its prompt *plus everything it already generated* is re-prefetched in
+one bucketed prefill. Already-sampled tokens are never re-sampled, so
+preemption is invisible in the output stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, List, Optional
+
+import numpy as np
+
+from raytpu_torch.inference.kv_cache import PagedKVCache
+from raytpu_torch.inference.sampling import SamplingParams
+
+WAITING = "waiting"
+RUNNING = "running"
+FINISHED = "finished"
+
+
+@dataclasses.dataclass
+class Sequence:
+    """One request's decode state."""
+
+    request_id: str
+    prompt: List[int]
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    arrival: int = 0
+    generated: List[int] = dataclasses.field(default_factory=list)
+    # Tokens whose K/V currently live in the paged cache. After a
+    # prefill this is len(tokens) - 1 (the newest sampled token's KV is
+    # written by its decode step); 0 means preempted/never prefilled.
+    cached_len: int = 0
+    state: str = WAITING
+    finish_reason: Optional[str] = None
+
+    def __post_init__(self):
+        self.prompt = [int(t) for t in self.prompt]
+        self._rng = np.random.default_rng(self.sampling.seed)
+
+    @property
+    def rng(self) -> np.random.Generator:
+        return self._rng
+
+    @property
+    def tokens(self) -> List[int]:
+        return self.prompt + self.generated
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.prompt) + len(self.generated)
+
+    @property
+    def prefill_len(self) -> int:
+        """Tokens a (re-)prefill must process: everything known except
+        the newest generated token, whose KV the next decode writes.
+        A fresh prompt prefills fully (its last logit samples token 0)."""
+        return self.num_tokens - (1 if self.generated else 0)
+
+
+@dataclasses.dataclass
+class ScheduleOutput:
+    """One iteration's work: prefills run first, then every decode is
+    batched into a single padded step. ``preempted`` is informational
+    (those sequences are already back in the waiting queue)."""
+
+    prefills: List[Sequence]
+    decodes: List[Sequence]
+    preempted: List[Sequence]
+
+
+class Scheduler:
+    def __init__(self, cache: PagedKVCache, max_num_seqs: int = 8,
+                 max_model_len: int = 2048, prefix_cache=None):
+        self.cache = cache
+        self.max_num_seqs = max_num_seqs
+        self.max_model_len = max_model_len
+        # Optional raytpu_torch.inference.prefix_cache.PrefixCache: admission
+        # then grafts cached prompt pages instead of allocating them.
+        self.prefix_cache = prefix_cache
+        self.waiting: Deque[Sequence] = deque()
+        self.running: List[Sequence] = []
+        self.num_preemptions = 0
+        self._arrivals = 0
+
+    # ---- request lifecycle -----------------------------------------
+
+    def add(self, seq: Sequence) -> None:
+        seq.arrival = self._arrivals
+        self._arrivals += 1
+        seq.state = WAITING
+        self.waiting.append(seq)
+
+    def abort(self, request_id: str) -> bool:
+        """Drop a request wherever it is; frees its pages. Idempotent."""
+        for seq in list(self.waiting):
+            if seq.request_id == request_id:
+                self.waiting.remove(seq)
+                seq.state = FINISHED
+                seq.finish_reason = "aborted"
+                return True
+        for seq in self.running:
+            if seq.request_id == request_id:
+                self.finish(seq, "aborted")
+                return True
+        return False
+
+    def finish(self, seq: Sequence, reason: str) -> None:
+        seq.state = FINISHED
+        seq.finish_reason = reason
+        self.cache.free(seq.request_id)
+        if seq in self.running:
+            self.running.remove(seq)
+
+    def has_unfinished(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    # ---- the per-iteration decision --------------------------------
+
+    def schedule(self) -> ScheduleOutput:
+        preempted: List[Sequence] = []
+
+        # 1) Secure a KV slot for every DECODING sequence's next token,
+        #    oldest first. Under page pressure evict the youngest
+        #    running sequence; if a sequence must evict itself, it just
+        #    waits (it's already the lowest-priority survivor).
+        #    Sequences still mid-prefill (chunked) skip this: their
+        #    admission already reserved pages for the whole prompt.
+        for seq in sorted(self.running, key=lambda s: s.arrival):
+            if seq.state != RUNNING:
+                continue  # preempted by an earlier turn of this loop
+            if seq.cached_len < seq.prefill_len:
+                continue  # mid-prefill: allocation covers prefill_len
+            while not self.cache.extend(seq.request_id, seq.cached_len + 1):
+                victim = max(self.running, key=lambda s: s.arrival)
+                self._preempt(victim)
+                preempted.append(victim)
+                if victim is seq:
+                    break
+
+        decodes = [s for s in self.running if s.state == RUNNING
+                   and s.cached_len >= s.prefill_len]
+        # Running sequences whose prompt isn't fully cached yet keep
+        # prefilling (one chunk per engine step) alongside the decodes.
+        prefills: List[Sequence] = [
+            s for s in self.running if s.state == RUNNING
+            and s.cached_len < s.prefill_len]
+
+        # 2) Admit waiting requests FIFO — but never in an iteration
+        #    that preempted (we'd thrash: admitting took the very pages
+        #    the preemption just freed for older sequences).
+        if not preempted:
+            while self.waiting and len(self.running) < self.max_num_seqs:
+                seq = self.waiting[0]
+                if not self._admit(seq):
+                    break  # FIFO head-of-line: don't skip ahead
+                self.waiting.popleft()
+                seq.state = RUNNING
+                self.running.append(seq)
+                prefills.append(seq)
+
+        return ScheduleOutput(prefills=prefills, decodes=decodes,
+                              preempted=preempted)
+
+    def _admit(self, seq: Sequence) -> bool:
+        """Allocate KV for a waiting sequence. With a prefix cache,
+        fully-matched prompt pages are grafted (pointer copy + ref
+        bump) and ``cached_len`` jumps past them so the engine only
+        prefills the tail. The match is capped one token short of
+        ``prefill_len`` — at least one token must run through the model
+        so there are logits to sample the next token from."""
+        if self.prefix_cache is None:
+            return self.cache.allocate(seq.request_id, seq.prefill_len)
+        ps = self.cache.page_size
+        cap = (seq.prefill_len - 1) // ps
+        matched = (self.prefix_cache.match(seq.tokens, max_pages=cap)
+                   if cap > 0 else [])
+        if not self.cache.allocate_shared(seq.request_id,
+                                          seq.prefill_len, matched):
+            return False
+        seq.cached_len = len(matched) * ps
+        return True
+
+    def _preempt(self, seq: Sequence) -> None:
+        self.cache.free(seq.request_id)
+        seq.cached_len = 0
+        seq.state = WAITING
+        self.running.remove(seq)
+        self.waiting.appendleft(seq)
+        self.num_preemptions += 1

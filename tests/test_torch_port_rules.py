@@ -1,0 +1,109 @@
+"""Rules of the port (raytpu_torch/, chip_smoke.py): it imports neither
+JAX nor the JAX package, its entry points never move to the CPU on their
+own, and its CUDA kernels are built from the repo's sources for Hopper."""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import raytpu_torch
+from raytpu_torch.ops import _native
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+# Run in a fresh interpreter: this test process has JAX loaded
+# (tests/conftest.py imports it).
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+before = set(sys.modules)
+import raytpu_torch
+for m in pkgutil.walk_packages(raytpu_torch.__path__, "raytpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "raytpu")
+
+
+def test_port_imports_no_jax_and_nothing_of_raytpu():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "raytpu_torch.inference.engine" in loaded
+    assert "chip_smoke" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_name_no_jax_or_raytpu_import(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not [n for n in names if _forbidden(n)], (path, names)
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from raytpu_torch.inference import InferenceEngine, PagedKVCache
+    from raytpu_torch.models.llama import Llama, LlamaConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        raytpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Llama(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(2, 4, 8, 2, 32)
+    model = Llama(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(model)
+    assert InferenceEngine(model, device="cpu").device.type == "cpu"
+
+
+def test_engine_refuses_what_is_not_ported():
+    from raytpu_torch.inference import InferenceEngine
+    from raytpu_torch.models.llama import Llama, LlamaConfig
+
+    model = Llama(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(model, tp=2, device="cpu")
+
+
+def test_kernel_sources_and_hopper_build_command():
+    for name in _native.KERNELS:
+        assert (_native.CSRC / f"{name}.cu").is_file()
+    for header in _native.HEADERS:
+        assert (_native.CSRC / header).is_file()
+    cmd = _native.nvcc_command("nvcc", _native.CSRC / "x.cu",
+                               pathlib.Path("libx.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-O3" in cmd
+    # The build lands in a directory .gitignore lists.
+    rel = _native.BUILD_DIR.relative_to(REPO).as_posix()
+    assert f"{rel}/" in (REPO / ".gitignore").read_text().split()
+    # The library name follows the sources: editing one rebuilds.
+    assert _native.library_path("paged_attention").parent == _native.BUILD_DIR
+
+
+def test_kernel_sources_name_the_tpu_kernel_they_replace():
+    for name, tpu in (("flash_attention", "_flash_kernel"),
+                      ("paged_attention", "_paged_kernel")):
+        text = (_native.CSRC / f"{name}.cu").read_text()
+        assert f"raytpu/ops/{name}.py::{tpu}" in text
