@@ -6,22 +6,36 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. device: the card's name and power limit; no card, no run;
-2. build: both CUDA kernels, from ``raytpu_torch/ops/csrc``;
+2. build: every CUDA kernel, from ``raytpu_torch/ops/csrc``, one ``nvcc``
+   per source, all at once;
 3. kernels: each kernel against its plain PyTorch version, in bf16, at
-   Llama-2-7B widths and the serve phase's shapes (plus one GQA case),
-   with the kernel's, the plain version's and (flash only) the
-   ``scaled_dot_product_attention`` yardstick's times and the bound;
+   Llama-2-7B widths and the serve phase's shapes (plus one GQA case)
+   and at the GPT-2 train shape (plus a full-attention, a D=128 and a
+   cross-length case for the backward kernels), with the kernel's, the
+   plain version's and (attention only) the ``scaled_dot_product_
+   attention`` yardstick's times and the bound; two faults planted in the
+   backward kernels' output, which the gradient limits must see; and one
+   gradient through the autograd path against the plain one;
 4. serve: Llama-2-7B at full width and depth (random weights from a
    seed) behind ``InferenceEngine``, eight greedy requests with a shared
    prefix, a prompt longer than the prefill chunk and late arrivals;
-   the kernels' launch counters must move during this run; then a
-   decode batch of eight 1024-token sequences is timed and profiled
+   the serving kernels' launch counters must move during this run; then
+   a decode batch of eight 1024-token sequences is timed and profiled
    (kernel time by name, device busy share);
 5. end to end: prefill logits with the kernels against the plain
-   versions at full width, and greedy-token agreement over a short run.
+   versions at full width, and greedy-token agreement over a short run;
+6. train: GPT-2 124M at full width and depth (random weights from a
+   seed, fp32 parameters, bf16 compute, full remat) takes AdamW steps on
+   one fixed batch of 8 x 1024 random tokens; the three flash kernels'
+   launch counters must move, the loss must be finite and fall; the tied
+   LM head's logits and gradients on the card's route are held against
+   JAX's function; one step is profiled;
+7. train end to end: one step's loss and gradients with the kernels
+   against the plain attention, from the same weights and tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches, error, times and bound.
+is the card's name and power limit, and the one before that lists every
+kernel with its launches, error, times and bound.
 """
 
 from __future__ import annotations
@@ -49,7 +63,54 @@ KERNEL_TOL = 3e-2
 # roundings over 32 layers grow as sqrt(32) * 3.9e-3 = 2.2e-2 of the
 # logits' scale. The bound is that with a margin of about two.
 E2E_TOL = 5e-2
+# Attention gradients in bf16, kernel against the plain backward. Both
+# accumulate every product in fp32 and round once to bf16, so an element
+# may differ by one bf16 step (2**-8 relative) where its sum lies near a
+# rounding boundary, and by nothing else. Each gradient tensor is held
+# elementwise to one step, 2**-7 |plain|, plus 1e-3 for elements near
+# zero (a typical element at the train shape is 0.05-0.07), and in norm,
+# ||kernel - plain|| / ||plain||, to GRAD_NORM_TOL. Both limits are set
+# from the readings on an H100: 0 at D=64; at D=128 and through autograd
+# (where the forward's one-step differences reach delta) at most 8.8e-5
+# in norm and 0.78 of the elementwise limit, one step. The norm limit is
+# ten times that. Two planted faults must read above the limits: a dQ
+# block that skips its first key tile read 0.77 in norm, and the dK/dV
+# block with the smallest gradients never written read 0.021 in norm and
+# 69 times the elementwise limit.
+GRAD_ELT_REL = 2 ** -7
+GRAD_ELT_ABS = 1e-3
+GRAD_NORM_TOL = 1e-3
+# The tied LM head on the card against the same function with the
+# operands rounded to bf16 and multiplied in fp32 (JAX's dot_general with
+# preferred_element_type=f32, and its transpose), in norm. Logits: fp32
+# sums of the same exact products in another order, 7.6e-7 on an H100;
+# rounding them to bf16 would read about 1e-3. Gradients: both sides
+# round to bf16 sums that differ by the order and by the split of the
+# logits' gradient into two bf16 parts (2**-16 of it), 5.4e-4 (dx) and
+# 2.2e-4 (dw); rounding that gradient to bf16 instead, as one bf16
+# product would, read 2.6e-3 in both and must fail.
+HEAD_LOGITS_TOL = 1e-5
+HEAD_GRAD_TOL = 1e-3
 SERVE_NEW_TOKENS = 32
+TRAIN_BATCH = 8        # bench.py's first autotune candidate: batch 8, full remat
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+# One GPT-2 124M step (batch 8 x 1024, bf16 compute) with the kernels
+# against the plain attention, from the same weights and tokens; written
+# before the first full run. The two attention paths differ only in the
+# order of their fp32 sums (~1e-7 relative), so an output or gradient
+# element rounds to another bf16 value (one step, 2**-8 = 3.9e-3
+# relative) only where its fp32 value lies within that much of a rounding
+# boundary: roughly one element in 1e3 to 1e4 per attention call. The
+# differences then spread through 12 layers of bf16 matmuls forward and
+# backward, each of which rounds again. Predicted: the loss (a mean over
+# 8184 positions in fp32) within 1e-4 relative; the worst parameter's
+# gradient within about 1e-2 in ||g_kernel - g_plain|| / ||g_plain||,
+# largest for small tensors whose gradient is a sum with cancellation
+# (LayerNorm and bias vectors). The bounds are those with a margin of ten
+# and of five.
+TRAIN_E2E_LOSS_TOL = 1e-3
+TRAIN_E2E_GRAD_TOL = 5e-2
 
 
 def log(*args) -> None:
@@ -124,22 +185,22 @@ def _randn(shape, gen, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def flash_case(t: int, gen, h: int = 32, d: int = 128) -> dict:
+def flash_case(t: int, gen, h: int = 32, d: int = 128, b: int = 1) -> dict:
     import torch.nn.functional as F
 
     from raytpu_torch.ops.flash_attention import flash_attention
 
-    q, k, v = (_randn((1, h, t, d), gen) for _ in range(3))
+    q, k, v = (_randn((b, h, t, d), gen) for _ in range(3))
     o_k, lse_k = flash_attention(q, k, v, causal=True)
     o_p, lse_p = flash_attention(q, k, v, causal=True, force="reference")
     torch.cuda.synchronize()
     err = (o_k.float() - o_p.float()).abs().max().item()
     lse_err = (lse_k - lse_p).abs().max().item()
     nbytes = 4 * q.numel() * q.element_size() + lse_k.numel() * 4
-    flops = 4.0 * h * d * t * (t + 1) / 2  # visible (query, key) pairs
+    flops = 4.0 * b * h * d * t * (t + 1) / 2  # visible (query, key) pairs
     bound, by = bound_ms(nbytes, flops)
     return {
-        "case": f"flash B=1 H={h} T={t} D={d} causal",
+        "case": f"flash B={b} H={h} T={t} D={d} causal",
         "max_abs_err": max(err, lse_err),
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
         "plain_ms": time_ms(lambda: flash_attention(
@@ -200,11 +261,159 @@ def paged_case(b: int, t: int, h: int, kv: int, gen, rng, q_start=None,
     }
 
 
+def _agreement(got, want) -> dict:
+    """How far ``got`` lies from ``want``: the largest |got - want|, the
+    norm ||got - want|| / ||want||, and the largest share of the
+    elementwise limit GRAD_ELT_REL |want| + GRAD_ELT_ABS."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return {"max_abs_err": err.max().item(),
+            "rel_norm": (err.norm() / want.norm()).item(),
+            "elt_share": (err / (GRAD_ELT_REL * want.abs() + GRAD_ELT_ABS)
+                          ).max().item()}
+
+
+def _agrees(a: dict) -> bool:
+    return a["rel_norm"] <= GRAD_NORM_TOL and a["elt_share"] <= 1.0
+
+
+def _worst(readings) -> dict:
+    return {key: max(r[key] for r in readings) for key in readings[0]}
+
+
+def planted_faults(q, k, v, g, lse, delta, scale, got, want) -> dict:
+    """Readings of two faults planted in the kernels' causal gradients
+    (``got``, self-attention), which the limits must see: dQ without the
+    first key tile's share, as from a dQ block that skips one tile of its
+    loop, and dK, dV with the last key tile's rows zeroed, as from the
+    dK/dV block with the smallest gradients never writing."""
+    tile = 64
+    t = q.shape[2]
+    kt, vt = k[:, :, :tile].float(), v[:, :, :tile].float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kt) * scale
+    seen = (torch.arange(tile, device=q.device)[None, :]
+            <= torch.arange(t, device=q.device)[:, None])
+    p = torch.where(seen, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), vt)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = got[0].float() - torch.einsum("bhqk,bhkd->bhqd", ds, kt)
+    dk, dv = (x.clone() for x in got[1:])
+    dk[:, :, -tile:] = 0
+    dv[:, :, -tile:] = 0
+    return {"dq_skips_first_key_tile": _agreement(dq, want[0]),
+            "dkv_last_key_tile_unwritten": _worst(
+                [_agreement(dk, want[1]), _agreement(dv, want[2])])}
+
+
+def _visible_pairs(t_q: int, t_kv: int, causal: bool) -> int:
+    """(query, key) pairs under the bottom-aligned causal mask."""
+    if not causal:
+        return t_q * t_kv
+    off = t_kv - t_q
+    return sum(min(t_kv, i + off + 1) for i in range(t_q))
+
+
+def flash_bwd_cases(b: int, h: int, t_q: int, t_kv: int, d: int,
+                    causal: bool, gen, plant: bool = False) -> dict:
+    """The dQ and the dK/dV kernels against the plain backward on the
+    same inputs (the forward kernel's o and lse, a random output
+    gradient); the plain and the SDPA times are of all three gradients.
+    With ``plant``, also the readings of :func:`planted_faults`."""
+    import torch.nn.functional as F
+
+    from raytpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_bwd_dkv,
+        flash_bwd_dq)
+
+    q, g = (_randn((b, h, t_q, d), gen) for _ in range(2))
+    k, v = (_randn((b, h, t_kv, d), gen) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = flash_attention(q, k, v, causal=causal)
+    delta = torch.sum(g.float() * o.float(), dim=-1)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
+    want = flash_attention_backward(q, k, v, o, lse, g, causal=causal,
+                                    sm_scale=scale, force="reference")
+    torch.cuda.synchronize()
+    checks = [_agreement(x, y) for x, y in zip((dq, dk, dv), want)]
+    rows = {}
+    if plant:
+        rows["planted"] = planted_faults(q, k, v, g, lse, delta, scale,
+                                         (dq, dk, dv), want)
+    plain_ms = time_ms(lambda: flash_attention_backward(
+        q, k, v, o, lse, g, causal=causal, sm_scale=scale,
+        force="reference"), iters=5)
+    # Yardstick: the backward of one SDPA call, fwd+bwd minus fwd. A
+    # cross-length causal mask is bottom-aligned here and top-left in
+    # SDPA's is_causal, so that case passes the mask itself.
+    mask = None
+    if causal and t_q != t_kv:
+        mask = torch.ones((t_q, t_kv), dtype=torch.bool,
+                          device="cuda").tril(t_kv - t_q)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=mask, is_causal=causal and mask is None)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qr, kr, vr), g)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(sdpa)
+    library_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
+    pairs = b * h * _visible_pairs(t_q, t_kv, causal)
+    es = q.element_size()
+    q_bytes, kv_bytes = b * h * t_q * d * es, b * h * t_kv * d * es
+    row_bytes = 2 * b * h * t_q * 4  # lse and delta, fp32
+    shape = (f"B={b} H={h} T_q={t_q} T_kv={t_kv} D={d} "
+             f"{'causal' if causal else 'full'}")
+    for name, reading, fn, nbytes, flops in (
+            ("flash_bwd_dq", checks[0],
+             lambda: flash_bwd_dq(q, k, v, g, lse, delta, causal, scale),
+             3 * q_bytes + 2 * kv_bytes + row_bytes, 6.0 * d * pairs),
+            ("flash_bwd_dkv", _worst(checks[1:]),
+             lambda: flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale),
+             2 * q_bytes + 4 * kv_bytes + row_bytes, 8.0 * d * pairs)):
+        bound, by = bound_ms(nbytes, flops)
+        rows[name] = {
+            "case": f"{name} {shape}", **reading, "ms": time_ms(fn),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by,
+        }
+    return rows
+
+
+def autograd_check(gen) -> dict:
+    """Gradients through ``flash_attention`` under autograd (forward, dQ
+    and dK/dV kernels) against the same through the plain versions, at
+    the GPT-2 train shape."""
+    from raytpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, g = (_randn((TRAIN_BATCH, 12, 1024, 64), gen) for _ in range(4))
+    grads = []
+    for force in (None, "reference"):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o, _ = flash_attention(*leaves, causal=True, force=force)
+        grads.append(torch.autograd.grad(o, leaves, g))
+    torch.cuda.synchronize()
+    return {"case": "autograd dq, dk, dv B=8 H=12 T=1024 D=64 causal",
+            **_worst([_agreement(a, b) for a, b in zip(*grads)])}
+
+
 def phase_kernels(card_line: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
+    bwd = [flash_bwd_cases(TRAIN_BATCH, 12, 1024, 1024, 64, True, gen,
+                           plant=True),
+           flash_bwd_cases(TRAIN_BATCH, 12, 1024, 1024, 64, False, gen),
+           flash_bwd_cases(4, 12, 1024, 1024, 128, True, gen),
+           flash_bwd_cases(2, 4, 256, 1024, 64, True, gen)]
     cases = {
-        "flash_forward": [flash_case(t, gen) for t in (128, 512, 1024)],
+        "flash_forward": [flash_case(t, gen) for t in (128, 512, 1024)]
+        + [flash_case(1024, gen, h=12, d=64, b=TRAIN_BATCH)],  # train shape
+        "flash_bwd_dq": [c["flash_bwd_dq"] for c in bwd],
+        "flash_bwd_dkv": [c["flash_bwd_dkv"] for c in bwd],
         "paged_attention": [
             paged_case(8, 1, 32, 32, gen, rng),                 # decode
             paged_case(1, 512, 32, 32, gen, rng, q_start=1024),  # chunk
@@ -215,10 +424,27 @@ def phase_kernels(card_line: str) -> dict:
     for name, rows in cases.items():
         for row in rows:
             log(f"[kernels] {name}: {json.dumps(row)} | {card_line}")
-            if not row["max_abs_err"] <= KERNEL_TOL:
+            if "rel_norm" in row:  # gradients
+                if not _agrees(row):
+                    raise AssertionError(
+                        f"{name} {row['case']}: kernel differs from the "
+                        f"plain backward beyond {GRAD_NORM_TOL} in norm or "
+                        f"one bf16 step elementwise: {row}")
+            elif not row["max_abs_err"] <= KERNEL_TOL:
                 raise AssertionError(
                     f"{name} {row['case']}: kernel differs from its plain "
                     f"version by {row['max_abs_err']} > {KERNEL_TOL}")
+    planted = bwd[0]["planted"]
+    log(f"[kernels] planted faults: {json.dumps(planted)} | {card_line}")
+    seen = {fault: not _agrees(r) for fault, r in planted.items()}
+    if not all(seen.values()):
+        raise AssertionError(f"the gradient limits miss a planted fault: "
+                             f"{seen}")
+    auto = autograd_check(gen)
+    log(f"[kernels] autograd: {json.dumps(auto)} | {card_line}")
+    if not _agrees(auto):
+        raise AssertionError(f"autograd through the kernels differs from "
+                             f"the plain path: {auto}")
     return cases
 
 
@@ -302,6 +528,35 @@ def phase_serve(model, card_line: str) -> dict:
     return result
 
 
+def device_kernels(prof) -> list:
+    """(name, device microseconds, launches) of every kernel in a profile;
+    user annotations (such as the optimizer's step range) are left out,
+    since their device time is that of the kernels inside them."""
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if "CUDA" in str(e.device_type) and e.self_device_time_total
+            and not e.is_user_annotation]
+
+
+# Kernel classes of a train step's profile, by substrings of kernel names
+# (cuBLAS's Hopper GEMMs are "nvjet_*"; torch's foreach AdamW runs
+# "multi_tensor_apply_kernel"s); everything else is elementwise, norm,
+# reduction, embedding and copy work.
+KERNEL_CLASSES = (("flash_attention", ("flash_",)),
+                  ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "splitK")),
+                  ("optimizer", ("multi_tensor_apply",)))
+
+
+def kernel_classes_ms(kernels) -> dict:
+    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out["other"] = 0.0
+    for key, us, _ in kernels:
+        cls = next((name for name, subs in KERNEL_CLASSES
+                    if any(x in key for x in subs)), "other")
+        out[cls] += us / 1e3
+    return out
+
+
 def phase_profile(model, card_line: str) -> dict:
     """Where a decode step's time goes: eight sequences with 1024-token
     prompts decoding together, timed over eight steps, then profiled
@@ -332,10 +587,9 @@ def phase_profile(model, card_line: str) -> dict:
             eng.step()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if "CUDA" in str(e.device_type) and e.self_device_time_total]
-    busy_us = sum(t for _, t in kernels)
-    attn_us = sum(t for k, t in kernels if "attention_kernel" in k)
+    kernels = device_kernels(prof)
+    busy_us = sum(t for _, t, _ in kernels)
+    attn_us = sum(t for k, t, _ in kernels if "attention_kernel" in k)
     top = sorted(kernels, key=lambda kt: -kt[1])[:8]
     result = {
         "batch": 8, "context": "1024+", "decode_step_ms": step_ms,
@@ -344,7 +598,7 @@ def phase_profile(model, card_line: str) -> dict:
         "not measured",
         "paged_attention_ms_per_step": attn_us / n / 1e3,
         "top_kernels": [{"kernel": k[:90], "ms_per_step": t / n / 1e3,
-                         "share_of_busy": t / busy_us} for k, t in top],
+                         "share_of_busy": t / busy_us} for k, t, _ in top],
     }
     log(f"[profile] {json.dumps(result)} | {card_line}")
     del eng
@@ -394,15 +648,225 @@ def phase_e2e(model, card_line: str) -> dict:
     return result
 
 
+# ---- phase 6: train -------------------------------------------------
+
+
+def _flash_counters() -> dict:
+    from raytpu_torch.ops.flash_attention import (BWD_DKV_LAUNCHES,
+                                                  BWD_DQ_LAUNCHES, LAUNCHES)
+
+    return {"flash_forward": LAUNCHES, "flash_bwd_dq": BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": BWD_DKV_LAUNCHES}
+
+
+def head_check(model, tokens: int, card_line: str) -> dict:
+    """The tied LM head at the train shape on the card's route (bf16
+    products with fp32 output) against the operands rounded to bf16 and
+    multiplied in fp32, JAX's function: the logits and both gradients
+    for a random fp32 logits' gradient. The route's forward and backward
+    are timed, beside a backward of fp32 products and one that rounds the
+    logits' gradient to bf16 (a planted fault: it must read above
+    HEAD_GRAD_TOL)."""
+    import torch.nn.functional as F
+
+    from raytpu_torch.models.gpt2 import tied_logits
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w = model.wte.weight.detach()
+    wb = w.to(bf16)
+    x = _randn((tokens, w.shape[1]), gen)
+    g = torch.randn((tokens, w.shape[0]), generator=gen, device="cuda")
+    out = []
+    for head in (lambda a, b: tied_logits(a, b, bf16),
+                 lambda a, b: F.linear(a.float(), b.to(bf16).float())):
+        leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+        logits = head(*leaves)
+        out.append((logits.detach(), *torch.autograd.grad(logits, leaves, g)))
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).norm() / b.norm()).item()
+
+    rel_norm = {name: rel(a, b)
+                for name, a, b in zip(("logits", "dx", "dw"), *out)}
+    gb = g.to(bf16)
+    rounded_g = {
+        "dx": rel(torch.mm(gb, wb), out[1][1]),
+        "dw": rel(torch.mm(gb.t(), x, out_dtype=torch.float32).to(bf16),
+                  out[1][2])}
+    leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+    result = {
+        "head_rel_norm": rel_norm, "head_bf16_grad_rel_norm": rounded_g,
+        "head_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            tied_logits(*leaves, bf16), leaves, g), iters=5),
+        "head_fwd_ms": time_ms(lambda: tied_logits(x, w, bf16), iters=5),
+        "head_bwd_fp32_ms": time_ms(lambda: (
+            torch.mm(g, wb.float()).to(bf16),
+            torch.mm(g.t(), x.float()).to(bf16)), iters=5),
+        "head_bwd_bf16_grad_ms": time_ms(lambda: (
+            torch.mm(gb, wb), torch.mm(gb.t(), x, out_dtype=torch.float32)),
+            iters=5),
+    }
+    log(f"[train-head] {json.dumps(result)} | {card_line}")
+    if not (rel_norm["logits"] <= HEAD_LOGITS_TOL
+            and rel_norm["dx"] <= HEAD_GRAD_TOL
+            and rel_norm["dw"] <= HEAD_GRAD_TOL):
+        raise AssertionError(f"tied head: the card's route differs from "
+                             f"JAX's function: {rel_norm}")
+    if not max(rounded_g.values()) > HEAD_GRAD_TOL:
+        raise AssertionError(f"tied head: the limit misses a logits' "
+                             f"gradient rounded to bf16: {rounded_g}")
+    return result
+
+
+def flops_per_token(cfg) -> float:
+    """Training FLOPs per token as bench.py counts them, 6 N + 12 L E T
+    (N the approximate parameter count; remat's recompute not counted)."""
+    return (6.0 * cfg.n_params_approx
+            + 12.0 * cfg.n_layer * cfg.n_embd * cfg.block_size)
+
+
+def phase_train(card_line: str):
+    """GPT-2 124M training steps; returns (result, model, tokens)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytpu_torch.models.gpt2 import GPT2, GPT2Config, make_train_step
+
+    cfg = GPT2Config.small()
+    t0 = time.perf_counter()
+    model = GPT2(cfg, device="cuda", seed=0)
+    # optax.adamw(3e-4, weight_decay=0.1)'s settings over every parameter
+    # (bench.py); the default multi-tensor (foreach) implementation.
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1, foreach=True)
+    step = make_train_step(model, opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.block_size))).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] GPT-2 124M random weights: {n_params} parameters in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    counters = _flash_counters()
+    for counter in counters.values():
+        counter.reset()
+    losses = [step(tokens) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(tokens) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    losses = [x.item() for x in losses]
+    n_tokens = TRAIN_BATCH * cfg.block_size
+    tokens_per_s = n_tokens * TRAIN_STEPS / wall
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    result = {
+        "model": "GPT-2 124M", "batch": TRAIN_BATCH, "seq": cfg.block_size,
+        "remat": cfg.remat, "optimizer": "AdamW foreach",
+        "step_ms": wall / TRAIN_STEPS * 1e3, "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * flops_per_token(cfg) / PEAK_BF16_FLOPS,
+        "flops_per_token": flops_per_token(cfg),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+    }
+    log(f"[train] {json.dumps(result)} | {card_line}")
+    if not all(launches.values()):
+        raise AssertionError(f"a flash kernel was never launched in "
+                             f"training: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    result["head"] = head_check(model, n_tokens, card_line)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    busy_us = sum(t for _, t, _ in kernels)
+    top = sorted(kernels, key=lambda kt: -kt[1])[:10]
+    profiled = {
+        "profiled_step_ms": window_us / 1e3,
+        # The host issues each of these, one by one, every step.
+        "device_kernel_launches": sum(n for _, _, n in kernels),
+        "device_busy_share": busy_us / window_us if busy_us else
+        "not measured",
+        "device_busy_ms": busy_us / 1e3,
+        # The profiler slows the host, not the card: the busy time over
+        # the unprofiled step time estimates the unprofiled busy share.
+        "device_busy_over_unprofiled_step": busy_us / 1e3
+        / result["step_ms"] if busy_us else "not measured",
+        "flash_ms": {name: sum(t for k, t, _ in kernels if kernel in k) / 1e3
+                     for name, kernel in (
+                         ("forward", "flash_forward_kernel"),
+                         ("bwd_dq", "flash_bwd_dq_kernel"),
+                         ("bwd_dkv", "flash_bwd_dkv_kernel"))},
+        "by_class_ms": kernel_classes_ms(kernels),
+        "top_kernels": [{"kernel": k[:90], "ms": t / 1e3,
+                         "share_of_busy": t / busy_us} for k, t, _ in top],
+    }
+    log(f"[train-profile] {json.dumps(profiled)} | {card_line}")
+    result["profile"] = profiled
+    return result, model, tokens
+
+
+# ---- phase 7: train end to end against the plain attention -----------
+
+
+def phase_train_e2e(model, tokens, card_line: str) -> dict:
+    from raytpu_torch.models.gpt2 import gpt2_loss_fn
+
+    plain = copy.copy(model)  # the same parameters, plain attention
+    plain.config = dataclasses.replace(model.config, attn_impl="reference")
+    out = []
+    for m in (model, plain):
+        m.zero_grad(set_to_none=True)
+        loss = gpt2_loss_fn(m, tokens)
+        loss.backward()
+        out.append((loss.item(), {n: p.grad.clone()
+                                  for n, p in m.named_parameters()}))
+    model.zero_grad(set_to_none=True)
+    (lk, gk), (lp, gp) = out
+    rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in gp}
+    worst = max(rel, key=rel.get)
+    result = {"batch": tokens.shape[0], "seq": tokens.shape[1],
+              "loss_kernels": lk, "loss_plain": lp,
+              "loss_rel_diff": abs(lk - lp) / abs(lp),
+              "grad_rel_diff_worst": rel[worst], "worst_tensor": worst,
+              "grad_rel_diff_median": float(np.median(list(rel.values()))),
+              "tensors": len(rel)}
+    log(f"[train-e2e] {json.dumps(result)} | {card_line}")
+    if not result["loss_rel_diff"] <= TRAIN_E2E_LOSS_TOL:
+        raise AssertionError(f"train loss: kernels differ from the plain "
+                             f"path by {result['loss_rel_diff']} > "
+                             f"{TRAIN_E2E_LOSS_TOL}")
+    if not rel[worst] <= TRAIN_E2E_GRAD_TOL:
+        raise AssertionError(f"gradient of {worst}: kernels differ from the "
+                             f"plain path by {rel[worst]} > "
+                             f"{TRAIN_E2E_GRAD_TOL}")
+    return result
+
+
 def kernel_line(cases: dict, launches: dict) -> dict:
-    """One entry per kernel at the shape the serve phase runs most:
-    flash at the 512-token prefill bucket, paged attention at decode
-    with a batch of eight."""
+    """One entry per kernel at the shape its main path runs most: flash
+    forward and backward at the GPT-2 train shape (launches of the train
+    run), paged attention at decode with a batch of eight (launches of
+    the serve run)."""
     meta = {
         "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
-                          "raytpu/ops/flash_attention.py:159", 1),
+                          "raytpu/ops/flash_attention.py:159", 3),
         "paged_attention": ("raytpu_torch/ops/csrc/paged_attention.cu",
                             "raytpu/ops/paged_attention.py:175", 0),
+        "flash_bwd_dq": ("raytpu_torch/ops/csrc/flash_bwd_dq.cu",
+                         "raytpu/ops/flash_attention.py:297", 0),
+        "flash_bwd_dkv": ("raytpu_torch/ops/csrc/flash_bwd_dkv.cu",
+                          "raytpu/ops/flash_attention.py:347", 0),
     }
     out = []
     for name, (source, replaces, pick) in meta.items():
@@ -433,7 +897,13 @@ def main() -> int:
     serve = phase_serve(model, card_line)
     phase_profile(model, card_line)
     phase_e2e(model, card_line)
-    log(json.dumps(kernel_line(cases, serve["launches"])))
+    del model
+    torch.cuda.empty_cache()
+    train, gpt2, tokens = phase_train(card_line)
+    phase_train_e2e(gpt2, tokens, card_line)
+    launches = {"paged_attention": serve["launches"]["paged_attention"],
+                **train["launches"]}
+    log(json.dumps(kernel_line(cases, launches)))
     log(card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """raytpu_torch: the PyTorch + CUDA port of raytpu, for an NVIDIA H100.
 
-This slice serves Llama through the paged inference engine:
+Two slices are ported: serving Llama through the paged inference engine,
+and training GPT-2:
 
-- :mod:`raytpu_torch.ops` — flash attention forward and paged attention,
-  each a CUDA kernel written by hand for Hopper beside a plain PyTorch
-  version;
-- :mod:`raytpu_torch.models` — the Llama decoder's inference forwards and
-  the converter that carries JAX weights across;
+- :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
+  two kernels, dQ and dK/dV) and paged attention, each a CUDA kernel
+  written by hand for Hopper beside a plain PyTorch version;
+- :mod:`raytpu_torch.models` — the Llama decoder's inference forwards,
+  GPT-2 with its loss and train step, and the converters that carry JAX
+  weights across;
 - :mod:`raytpu_torch.inference` — paged KV cache, prefix cache,
   continuous-batching scheduler, sampling and :class:`InferenceEngine`.
 
@@ -45,8 +47,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 from raytpu_torch.inference import (InferenceEngine, PagedKVCache,  # noqa: E402
                                     PrefixCache, SamplingParams, Scheduler,
                                     Sequence, StepOutput)
+from raytpu_torch.models.gpt2 import (GPT2, GPT2Config,  # noqa: E402
+                                      make_train_step)
 from raytpu_torch.models.llama import Llama, LlamaConfig  # noqa: E402
 
-__all__ = ["InferenceEngine", "Llama", "LlamaConfig", "PagedKVCache",
-           "PrefixCache", "SamplingParams", "Scheduler", "Sequence",
-           "StepOutput", "resolve_device"]
+__all__ = ["GPT2", "GPT2Config", "InferenceEngine", "Llama", "LlamaConfig",
+           "PagedKVCache", "PrefixCache", "SamplingParams", "Scheduler",
+           "Sequence", "StepOutput", "make_train_step", "resolve_device"]

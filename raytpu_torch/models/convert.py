@@ -1,13 +1,16 @@
-"""Carry weights across from the JAX package's Llama parameter tree.
+"""Carry weights across from the JAX package's parameter trees.
 
-:func:`llama_state_from_jax` takes the tree that
-``raytpu.models.llama.init_params`` (or a checkpoint) gives, with its
-leaves already turned into numpy arrays, and returns a ``state_dict`` for
-:class:`raytpu_torch.models.llama.Llama`. It reads both layouts of the
-layer parameters: scanned (``"layers"``, every leaf with a leading layer
-axis; the default ``scan_layers=True``) and unrolled (``"layers_{i}"``).
-Flax ``Dense`` kernels are ``[in, out]`` and become ``nn.Linear`` weights
-``[out, in]``; the embedding and the norm scales carry over as they are.
+:func:`llama_state_from_jax` and :func:`gpt2_state_from_jax` take the tree
+that ``raytpu.models.{llama,gpt2}.init_params`` (or a checkpoint) gives,
+with its leaves already turned into numpy arrays, and return a
+``state_dict`` for :class:`raytpu_torch.models.llama.Llama` or
+:class:`raytpu_torch.models.gpt2.GPT2`. Both read the two layouts of the
+layer parameters: scanned (``"layers"`` / ``"h"``, every leaf with a
+leading layer axis; the default ``scan_layers=True``) and unrolled
+(``"layers_{i}"`` / ``"h_{i}"``). Flax ``Dense`` kernels are
+``[in, out]`` and become weights ``[out, in]``; biases, embeddings and
+norm parameters carry over as they are. The same maps carry gradients,
+which have the tree's structure.
 """
 
 from __future__ import annotations
@@ -32,12 +35,12 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _layer(params: Mapping, i: int) -> Mapping:
+def _layer(params: Mapping, i: int, name: str = "layers") -> Mapping:
     """Layer ``i``'s parameters from either layout (the JAX package's
     ``layer_params``)."""
-    if "layers" in params:
-        return _index(params["layers"], i)
-    return params[f"layers_{i}"]
+    if name in params:
+        return _index(params[name], i)
+    return params[f"{name}_{i}"]
 
 
 def llama_state_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
@@ -56,4 +59,29 @@ def llama_state_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
                 kernel = _tensor(lp[group][name]["kernel"])
                 state[f"layers.{i}.{group}.{name}.weight"] = \
                     kernel.T.contiguous()
+    return state
+
+
+_GPT2_DENSE = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"),
+               ("mlp", "c_proj"))
+
+
+def gpt2_state_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``GPT2(config)`` from a numpy Flax tree."""
+    state = {
+        "wte.weight": _tensor(params["wte"]["embedding"]),
+        "wpe.weight": _tensor(params["wpe"]["embedding"]),
+        "ln_f.scale": _tensor(params["ln_f"]["scale"]),
+        "ln_f.bias": _tensor(params["ln_f"]["bias"]),
+    }
+    for i in range(config.n_layer):
+        lp = _layer(params, i, "h")
+        for ln in ("ln_1", "ln_2"):
+            for leaf in ("scale", "bias"):
+                state[f"h.{i}.{ln}.{leaf}"] = _tensor(lp[ln][leaf])
+        for group, name in _GPT2_DENSE:
+            dense = lp[group][name]
+            state[f"h.{i}.{group}.{name}.weight"] = \
+                _tensor(dense["kernel"]).T.contiguous()
+            state[f"h.{i}.{group}.{name}.bias"] = _tensor(dense["bias"])
     return state

@@ -1,0 +1,311 @@
+"""GPT-2 for training, the port of the training half of
+:mod:`raytpu.models.gpt2`.
+
+Parameters are fp32 and compute runs in ``config.dtype`` (bf16 by
+default), as with Flax's default ``param_dtype``: every layer casts its
+fp32 weights at use, so gradients reach the fp32 parameters through the
+casts and the optimizer updates fp32 values. Parameter names follow the
+JAX tree (``wte``, ``h.{i}.attn.c_attn`` ...) so
+:func:`raytpu_torch.models.convert.gpt2_state_from_jax` maps one onto the
+other. Attention is :func:`raytpu_torch.ops.flash_attention`, whose
+backward runs the hand-written dQ and dK/dV kernels on the card.
+
+- :class:`GPT2` — the model; ``GPT2(config)(tokens)`` gives fp32 logits
+  from the weight-tied head;
+- :func:`gpt2_loss_fn` — next-token cross-entropy (``loss_chunk > 0``
+  computes the head a chunk of rows at a time, each chunk recomputed in
+  the backward pass);
+- :func:`make_train_step` — one step of loss, backward and optimizer.
+
+In torch the model and the optimizer hold the state, so the train step
+is ``train_step(tokens) -> loss`` where the JAX package passes
+``(params, opt_state)`` through a pure function.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from raytpu_torch import resolve_device
+from raytpu_torch.ops.flash_attention import flash_attention
+
+# Standard deviation of a standard normal truncated to (-2, 2): JAX's
+# lecun_normal divides by it so the truncated draw keeps variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50304  # padded to a multiple of 128
+    block_size: int = 1024
+    n_layer: int = 12
+    n_head: int = 12
+    n_embd: int = 768
+    dtype: torch.dtype = torch.bfloat16
+    # Rematerialization per block: True/"full" saves nothing and recomputes
+    # the block in the backward pass (torch.utils.checkpoint); False/"none"
+    # saves every activation. "dots" (and dropout) are not ported.
+    remat: Any = True
+    # Attention implementation: None runs the CUDA kernels on a CUDA
+    # tensor and the plain versions on a CPU tensor; "reference" runs the
+    # plain versions on either (to compare the two on the card).
+    attn_impl: Optional[str] = None
+    # Cross-entropy chunking: 0 = one [B, T, V] fp32 logits buffer; N > 0 =
+    # the head N rows at a time, recomputed in the backward pass.
+    loss_chunk: int = 0
+
+    def __post_init__(self):
+        if self.remat == "dots":
+            raise NotImplementedError("GPT2Config: remat='dots' is not ported")
+
+    @classmethod
+    def small(cls) -> "GPT2Config":  # 124M
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "GPT2Config":
+        return cls(vocab_size=512, block_size=128, n_layer=2, n_head=2,
+                   n_embd=128)
+
+    @property
+    def n_params_approx(self) -> int:
+        c = self
+        per_block = 12 * c.n_embd * c.n_embd
+        return c.vocab_size * c.n_embd + c.block_size * c.n_embd + \
+            c.n_layer * per_block + 2 * c.n_embd
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense(dtype=...)``: fp32 ``weight`` ``[out, in]`` and
+    ``bias``, both cast with the input to the compute dtype at use."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in))
+        self.bias = nn.Parameter(torch.empty(n_out))
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(dtype=...)``: statistics in fp32 with the fast
+    variance E[x^2] - E[x]^2 (clipped at 0), eps 1e-6, fp32 ``scale`` and
+    ``bias``, the result cast to the compute dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mu) * mul + self.bias).to(self.dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, c: GPT2Config):
+        super().__init__()
+        self.n_head = c.n_head
+        self.c_attn = Dense(c.n_embd, 3 * c.n_embd, c.dtype)
+        self.c_proj = Dense(c.n_embd, c.n_embd, c.dtype)
+
+    def forward(self, x, attn_impl: Optional[str] = None):
+        b, t, e = x.shape
+        h = self.n_head
+        q, k, v = self.c_attn(x).split(e, dim=-1)
+        # [B, T, E] -> [B, H, T, D], contiguous for the kernels.
+        q, k, v = (y.reshape(b, t, h, e // h).transpose(1, 2).contiguous()
+                   for y in (q, k, v))
+        y, _ = flash_attention(q, k, v, causal=True, force=attn_impl)
+        return self.c_proj(y.transpose(1, 2).reshape(b, t, e))
+
+
+class MLP(nn.Module):
+    def __init__(self, c: GPT2Config):
+        super().__init__()
+        self.c_fc = Dense(c.n_embd, 4 * c.n_embd, c.dtype)
+        self.c_proj = Dense(4 * c.n_embd, c.n_embd, c.dtype)
+
+    def forward(self, x):
+        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, c: GPT2Config):
+        super().__init__()
+        self.ln_1 = LayerNorm(c.n_embd, c.dtype)
+        self.attn = CausalSelfAttention(c)
+        self.ln_2 = LayerNorm(c.n_embd, c.dtype)
+        self.mlp = MLP(c)
+
+    def forward(self, x, attn_impl: Optional[str] = None):
+        x = x + self.attn(self.ln_1(x), attn_impl)
+        return x + self.mlp(self.ln_2(x))
+
+
+class _Bf16TiedHead(torch.autograd.Function):
+    """``x [N, E] @ w [V, E]^T`` for bf16 ``x`` and ``w`` with fp32 logits
+    (fp32 accumulation, no bf16 rounding of the product), as
+    ``dot_general(..., preferred_element_type=f32)``. JAX's transpose
+    multiplies the logits' fp32 gradient ``g`` by the bf16 operands in
+    fp32 and rounds each result to bf16. Here ``g`` is split into two bf16
+    parts, ``hi + lo``, which hold it to 2**-16 of its value, so each
+    gradient is two bf16 products with fp32 output, far cheaper than one
+    fp32 product, and is then rounded to bf16 as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        hi = g.to(torch.bfloat16)
+        lo = (g - hi).to(torch.bfloat16)
+
+        def split_mm(a_hi, a_lo, b):  # (a_hi + a_lo) @ b, rounded to bf16
+            return (torch.mm(a_hi, b, out_dtype=torch.float32)
+                    + torch.mm(a_lo, b, out_dtype=torch.float32)
+                    ).to(torch.bfloat16)
+
+        return split_mm(hi, lo, w), split_mm(hi.t(), lo.t(), x)
+
+
+def tied_logits(x, wte: torch.Tensor, dtype: torch.dtype):
+    """fp32 logits ``x @ wte.to(dtype)^T`` for ``x`` ``[..., E]``. On the
+    card in bf16, bf16 products with fp32 output (``torch.mm``'s
+    ``out_dtype``, which has no CPU backend); elsewhere the operands
+    rounded to ``dtype`` and multiplied in fp32, the same function: a
+    product of two bf16 numbers is exact in fp32."""
+    w = wte.to(dtype)
+    if x.is_cuda and dtype == torch.bfloat16:
+        return _Bf16TiedHead.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+class GPT2(nn.Module):
+    """GPT-2 with its weights made on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``) from ``seed``, by the JAX package's init
+    scheme: Dense kernels lecun-normal (truncated at two standard
+    deviations), biases 0, embeddings normal with std ``n_embd**-0.5``,
+    LayerNorm scales 1 and biases 0; all fp32."""
+
+    def __init__(self, config: GPT2Config, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = c = config
+        with torch.device("meta"):
+            self.wte = nn.Embedding(c.vocab_size, c.n_embd)
+            self.wpe = nn.Embedding(c.block_size, c.n_embd)
+            self.h = nn.ModuleList(Block(c) for _ in range(c.n_layer))
+            self.ln_f = LayerNorm(c.n_embd, c.dtype)
+        self.to_empty(device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith(".scale"):
+                    p.fill_(1.0)
+                elif name.endswith(".bias"):
+                    p.zero_()
+                elif name.startswith(("wte.", "wpe.")):
+                    p.normal_(0.0, c.n_embd ** -0.5, generator=g)
+                else:
+                    std = p.shape[1] ** -0.5 / _TRUNC_STD
+                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                          generator=g)
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    def forward(self, tokens, return_hidden: bool = False):
+        """``tokens`` [B, T] -> fp32 logits [B, T, V] (or, with
+        ``return_hidden``, the final LayerNorm's output [B, T, E])."""
+        c = self.config
+        t = tokens.shape[1]
+        x = (F.embedding(tokens, self.wte.weight).to(c.dtype)
+             + self.wpe.weight[:t].to(c.dtype))
+        remat = bool(c.remat) and c.remat != "none"
+        for block in self.h:
+            if remat:
+                x = checkpoint(block, x, c.attn_impl, use_reentrant=False)
+            else:
+                x = block(x, c.attn_impl)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return tied_logits(x, self.wte.weight, c.dtype)
+
+
+def gpt2_loss_fn(model: GPT2, tokens):
+    """Mean next-token cross-entropy in fp32: ``logsumexp(logits) -
+    label logit`` over the first T-1 positions."""
+    c = model.config
+    targets = tokens[:, 1:]
+    if c.loss_chunk:
+        x = model(tokens, return_hidden=True)
+        return _chunked_xent(x[:, :-1], targets, model.wte.weight, c)
+    logits = model(tokens)[:, :-1]
+    lse = torch.logsumexp(logits, dim=-1)
+    label = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (lse - label).mean()
+
+
+def _chunked_xent(x, targets, wte, c: GPT2Config):
+    """Mean next-token NLL with the head computed ``loss_chunk`` rows at a
+    time; each chunk is checkpointed, so the backward pass recomputes its
+    logits and peak memory holds one [chunk, V] fp32 buffer."""
+    b, t, e = x.shape
+    n = b * t
+    chunk = min(c.loss_chunk, n)
+    pad = (-n) % chunk
+    xf = F.pad(x.reshape(n, e), (0, 0, 0, pad))
+    tf = F.pad(targets.reshape(n), (0, pad))
+    mask = (torch.arange(n + pad, device=x.device) < n).float()
+
+    def chunk_nll(xc, tc, mc, w):
+        logits = tied_logits(xc, w, c.dtype)
+        lse = torch.logsumexp(logits, dim=-1)
+        label = torch.gather(logits, -1, tc[:, None])[:, 0]
+        return ((lse - label) * mc).sum()
+
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, n + pad, chunk):
+        sl = slice(i, i + chunk)
+        total = total + checkpoint(chunk_nll, xf[sl], tf[sl], mask[sl], wte,
+                                   use_reentrant=False)
+    return total / n
+
+
+def make_train_step(model: GPT2, optimizer: torch.optim.Optimizer
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``train_step(tokens) -> loss``: loss and gradients of
+    :func:`gpt2_loss_fn`, then one optimizer step, updating the model's
+    parameters in place. The returned loss is detached and stays on the
+    device (reading it waits for the step)."""
+
+    def train_step(tokens):
+        optimizer.zero_grad(set_to_none=True)
+        loss = gpt2_loss_fn(model, tokens)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+

@@ -26,7 +26,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
-HEADERS = ("attention_tile.cuh",)
+# Headers the kernels include; every library's name hashes all of them.
+HEADERS = ("attention_tile.cuh", "flash_bwd_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (32, 64, 128)
@@ -40,6 +41,12 @@ KERNELS = {
     "paged_attention": ("rt_paged_attention",
                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _F, _P]),
+    "flash_bwd_dq": ("rt_flash_bwd_dq",
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                      _P]),
+    "flash_bwd_dkv": ("rt_flash_bwd_dkv",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _F, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

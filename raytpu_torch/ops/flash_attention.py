@@ -1,19 +1,26 @@
-"""Flash attention forward, the port of :mod:`raytpu.ops.flash_attention`.
+"""Flash attention, the port of :mod:`raytpu.ops.flash_attention`.
 
 :func:`flash_attention` takes ``q`` ``[B, H, T_q, D]`` and ``k``, ``v``
 ``[B, H, T_kv, D]`` and returns ``(o, lse)``: ``o`` ``[B, H, T_q, D]`` in
-q's dtype and the log-sum-exp ``lse`` ``[B, H, T_q, 1]`` in fp32 (kept
-for the backward pass of a later training slice). The causal diagonal
-is bottom-aligned (``key <= query + T_kv - T_q``), as in the JAX
-package. The JAX docstring's ill-defined ``T_q > T_kv`` causal case
-(rows that see nothing) is not part of the contract.
+q's dtype and the log-sum-exp ``lse`` ``[B, H, T_q, 1]`` in fp32 (at
+least). It is differentiable in ``q``, ``k`` and ``v`` (``lse`` is not):
+a :class:`torch.autograd.Function`, the counterpart of the JAX package's
+``jax.custom_vjp``, saves ``(q, k, v, o, lse)`` and recomputes the scores
+in the backward pass. The causal diagonal is bottom-aligned
+(``key <= query + T_kv - T_q``), as in the JAX package. The JAX
+docstring's ill-defined ``T_q > T_kv`` causal case (rows that see
+nothing) is not part of the contract.
 
-On a CUDA tensor it launches the hand-written kernel
+On CUDA tensors the forward launches the hand-written kernel
 ``csrc/flash_attention.cu`` (the counterpart of the TPU kernel
-``raytpu/ops/flash_attention.py::_flash_kernel``) or raises; on a CPU
-tensor it runs :func:`flash_attention_reference`, the plain PyTorch
-version. ``force="reference"`` picks the plain version on either device,
-on purpose; nothing falls back to it.
+``raytpu/ops/flash_attention.py::_flash_kernel``) and the backward the
+kernels ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` (for
+``::_flash_bwd_dq_kernel`` and ``::_flash_bwd_dkv_kernel``), or raises;
+on CPU tensors both run the plain PyTorch versions
+(:func:`flash_attention_reference`,
+:func:`flash_attention_backward_reference`). ``force="reference"`` picks
+the plain versions on either device, on purpose; nothing falls back to
+them.
 """
 
 from __future__ import annotations
@@ -25,37 +32,102 @@ import torch
 from raytpu_torch.ops import _native
 
 NEG_INF = -1e30
-LAUNCHES = _native.LaunchCounter()
+LAUNCHES = _native.LaunchCounter()         # forward kernel
+BWD_DQ_LAUNCHES = _native.LaunchCounter()  # backward dQ kernel
+BWD_DKV_LAUNCHES = _native.LaunchCounter()  # backward dK/dV kernel
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the plain versions' accumulation type: fp32, or float64
+    for float64 input (so ``gradcheck`` can run them)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _causal_mask(t_q: int, t_k: int, device) -> torch.Tensor:
+    return torch.ones((t_q, t_k), dtype=torch.bool,
+                      device=device).tril(t_k - t_q)
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
                               sm_scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense fp32 attention, in the op order of the JAX reference
-    (``_attn_fwd_reference``): fp32 einsum, ``where`` mask, logsumexp,
-    exp, fp32 einsum."""
+    """Dense attention in fp32, in the op order of the JAX reference
+    (``_attn_fwd_reference``): einsum, ``where`` mask, logsumexp, exp,
+    einsum."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    s = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) * sm_scale
     if causal:
-        t_q, t_k = q.shape[2], k.shape[2]
-        mask = torch.ones((t_q, t_k), dtype=torch.bool,
-                          device=q.device).tril(t_k - t_q)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s,
+                        NEG_INF)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.exp(s - lse)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    o = torch.einsum("bhqk,bhkd->bhqd", p, _acc(v))
     return o.to(q.dtype), lse
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, g, causal: bool,
+                                       sm_scale: float
+                                       ) -> Tuple[torch.Tensor, ...]:
+    """Gradients ``(dq, dk, dv)`` of the attention output against the
+    output gradient ``g``, dense in fp32, in the op order of the JAX
+    reference (``_attn_bwd_reference``)."""
+    qf, kf, vf, gf = (_acc(x) for x in (q, k, v, g))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    if causal:
+        s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s,
+                        NEG_INF)
+    p = torch.exp(s - lse)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    delta = torch.sum(gf * _acc(o), dim=-1, keepdim=True)
+    ds = p * (dp - delta) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _plain(x: torch.Tensor, force: Optional[str]) -> bool:
+    """True where the plain version runs: on request, or on the CPU."""
+    if force not in (None, "reference"):
+        raise ValueError(f"flash_attention: force={force!r}; use None or "
+                         f"'reference'")
+    return force == "reference" or x.device.type == "cpu"
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``(q, k, v) -> (o, lse)`` with the flash backward: the forward
+    saves ``(q, k, v, o, lse)``; the backward recomputes the scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, force):
+        if _plain(q, force):
+            o, lse = flash_attention_reference(q, k, v, causal, sm_scale)
+        else:
+            o, lse = _flash_cuda(q, k, v, causal, sm_scale)
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale, ctx.force = causal, sm_scale, force
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, g.contiguous(), causal=ctx.causal,
+            sm_scale=ctx.sm_scale, force=ctx.force)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: Optional[float] = None,
                     force: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward on ``[B, H, T, D]``; returns ``(o, lse)``.
+    """Attention on ``[B, H, T, D]``; returns ``(o, lse)``,
+    differentiable in ``q``, ``k`` and ``v``.
 
-    ``force``: ``None`` (the kernel on a CUDA tensor, the plain version
-    on a CPU tensor) or ``"reference"`` (the plain version).
+    ``force``: ``None`` (the kernels on CUDA tensors, the plain versions
+    on CPU tensors) or ``"reference"`` (the plain versions).
     """
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -64,12 +136,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"[B, H, T, D] with matching B, H, D")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if force == "reference" or (force is None and q.device.type == "cpu"):
-        return flash_attention_reference(q, k, v, causal, sm_scale)
-    if force is not None:
-        raise ValueError(f"flash_attention: force={force!r}; use None or "
-                         f"'reference'")
-    return _flash_cuda(q, k, v, causal, sm_scale)
+    return _FlashAttention.apply(q, k, v, causal, float(sm_scale), force)
+
+
+def flash_attention_backward(q, k, v, o, lse, g, *, causal: bool,
+                             sm_scale: float, force: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
+    output gradient ``g``: the two backward kernels on CUDA tensors, the
+    plain version on CPU tensors or with ``force="reference"``."""
+    if _plain(q, force):
+        return flash_attention_backward_reference(q, k, v, o, lse, g, causal,
+                                                  sm_scale)
+    # delta = rowsum(dO * O), outside the kernels as in the JAX package.
+    delta = torch.sum(g.float() * o.float(), dim=-1)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal, sm_scale)
+    return dq, dk, dv
 
 
 def _flash_cuda(q, k, v, causal, sm_scale):
@@ -94,3 +177,62 @@ def _flash_cuda(q, k, v, causal, sm_scale):
     _native.check_launch(lib, rc, what)
     LAUNCHES.count += 1
     return o, lse
+
+
+def _check_bwd(what, q, k, v, g, lse, delta) -> int:
+    """Raise unless the backward kernels take these inputs; returns the
+    dtype code."""
+    code = _native.dtype_code(what, q.dtype)
+    _native.check_inputs(what, q.device, q.dtype, q, k, v, g)
+    _native.check_inputs(what, q.device, torch.float32, lse, delta)
+    b, h, t_q, d = q.shape
+    if d not in _native.HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {_native.HEAD_DIMS}")
+    if g.shape != q.shape or lse.numel() != b * h * t_q \
+            or delta.numel() != b * h * t_q:
+        raise ValueError(f"{what}: g {tuple(g.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    return code
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool, sm_scale: float):
+    """dQ by the CUDA kernel ``csrc/flash_bwd_dq.cu``; ``lse`` and
+    ``delta`` hold one fp32 value per query row."""
+    what = "flash_bwd_dq"
+    code = _check_bwd(what, q, k, v, g, lse, delta)
+    b, h, t_q, d = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    lib = _native.load(what)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.rt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), code, b * h,
+            t_q, k.shape[2], d, int(causal), float(sm_scale), stream)
+    _native.check_launch(lib, rc, what)
+    BWD_DQ_LAUNCHES.count += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool, sm_scale: float):
+    """``(dK, dV)`` by the CUDA kernel ``csrc/flash_bwd_dkv.cu``."""
+    what = "flash_bwd_dkv"
+    code = _check_bwd(what, q, k, v, g, lse, delta)
+    b, h, t_q, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = _native.load(what)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.rt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            code, b * h, t_q, k.shape[2], d, int(causal), float(sm_scale),
+            stream)
+    _native.check_launch(lib, rc, what)
+    BWD_DKV_LAUNCHES.count += 1
+    return dk, dv

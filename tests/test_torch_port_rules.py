@@ -61,6 +61,7 @@ def test_sources_name_no_jax_or_raytpu_import(path):
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from raytpu_torch.inference import InferenceEngine, PagedKVCache
+    from raytpu_torch.models.gpt2 import GPT2, GPT2Config
     from raytpu_torch.models.llama import Llama, LlamaConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,6 +76,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model)
     assert InferenceEngine(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPT2(GPT2Config.tiny())
+    assert GPT2(GPT2Config.tiny(), device="cpu").device.type == "cpu"
 
 
 def test_engine_refuses_what_is_not_ported():
@@ -102,8 +106,31 @@ def test_kernel_sources_and_hopper_build_command():
     assert _native.library_path("paged_attention").parent == _native.BUILD_DIR
 
 
+# Each kernel library and the TPU kernel (file::function) it replaces.
+REPLACES = {
+    "flash_attention": "raytpu/ops/flash_attention.py::_flash_kernel",
+    "paged_attention": "raytpu/ops/paged_attention.py::_paged_kernel",
+    "flash_bwd_dq": "raytpu/ops/flash_attention.py::_flash_bwd_dq_kernel",
+    "flash_bwd_dkv": "raytpu/ops/flash_attention.py::_flash_bwd_dkv_kernel",
+}
+
+
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
-    for name, tpu in (("flash_attention", "_flash_kernel"),
-                      ("paged_attention", "_paged_kernel")):
+    assert set(REPLACES) == set(_native.KERNELS)
+    for name, tpu in REPLACES.items():
         text = (_native.CSRC / f"{name}.cu").read_text()
-        assert f"raytpu/ops/{name}.py::{tpu}" in text
+        assert tpu in text
+        # ... and the TPU kernel exists where the comment says.
+        path, fn = tpu.split("::")
+        assert f"def {fn}(" in (REPO / path).read_text()
+
+
+def test_every_included_header_is_in_the_build_key():
+    # An edited header must rebuild every library that includes it.
+    included = set()
+    for src in _native.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            for line in src.read_text().splitlines():
+                if line.startswith('#include "'):
+                    included.add(line.split('"')[1])
+    assert included == set(_native.HEADERS)
