@@ -9,19 +9,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build: every CUDA kernel, from ``raytpu_torch/ops/csrc``, one ``nvcc``
    per source, all at once;
 3. kernels: each kernel against its plain PyTorch version, in bf16, at
-   Llama-2-7B widths and the serve phase's shapes (plus one GQA case)
-   and at the GPT-2 train shape (plus a full-attention, a D=128 and a
-   cross-length case for the backward kernels), with the kernel's, the
-   plain version's and (attention only) the ``scaled_dot_product_
-   attention`` yardstick's times and the bound; two faults planted in the
-   backward kernels' output, which the gradient limits must see; and one
-   gradient through the autograd path against the plain one;
+   Llama-2-7B widths and the serve phase's shapes (plus one GQA case),
+   at the GPT-2 train shape (plus a full-attention, a D=128 and a
+   cross-length case for the backward kernels) and at the Llama train
+   shape, with the kernel's, the plain version's and the library
+   yardstick's times (``scaled_dot_product_attention``, ``F.rms_norm``)
+   and the bound; RMSNorm also in fp32 and at a D that is not a multiple
+   of 8; three faults planted in the kernels' output, which the limits
+   must see; and gradients through the autograd Functions against the
+   plain ones;
 4. serve: Llama-2-7B at full width and depth (random weights from a
    seed) behind ``InferenceEngine``, eight greedy requests with a shared
    prefix, a prompt longer than the prefill chunk and late arrivals;
-   the serving kernels' launch counters must move during this run; then
-   a decode batch of eight 1024-token sequences is timed and profiled
-   (kernel time by name, device busy share);
+   the serving kernels' launch counters must move during this run, and
+   the RMSNorm kernel's by 65 a forward; then a decode batch of eight
+   1024-token sequences is timed and profiled (kernel time by name,
+   device busy share);
 5. end to end: prefill logits with the kernels against the plain
    versions at full width, and greedy-token agreement over a short run;
 6. train: GPT-2 124M at full width and depth (random weights from a
@@ -31,7 +34,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    LM head's logits and gradients on the card's route are held against
    JAX's function; one step is profiled;
 7. train end to end: one step's loss and gradients with the kernels
-   against the plain attention, from the same weights and tokens.
+   against the plain attention, from the same weights and tokens;
+8. Llama train: Llama-2-7B at full width cut to 8 layers (fp32
+   parameters, bf16 compute, remat "dots") takes AdamW steps on one
+   fixed batch of 2 x 4096 random tokens; the flash and RMSNorm kernels
+   must launch the counts a step that the path implies, the loss must be
+   finite and fall; one step is profiled;
+9. Llama train end to end: one step's loss and gradients with the
+   kernels against the plain attention and RMSNorm, and with remat
+   "full" against "dots", from the same weights and tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -50,9 +61,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
+# on the tensor cores, fp32 outside them.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 # bf16 inputs and outputs; both versions accumulate in fp32, so they
 # differ by the output's rounding and the order of the sums
 # (tests/test_ops.py uses the same bound for bf16 attention).
@@ -91,8 +104,24 @@ GRAD_NORM_TOL = 1e-3
 # product would, read 2.6e-3 in both and must fail.
 HEAD_LOGITS_TOL = 1e-5
 HEAD_GRAD_TOL = 1e-3
+# RMSNorm kernel against its plain version. Both sum the fp32 squares (in
+# other orders), take one rsqrt and round the product once to the output
+# type, so an element may differ by one step of that type (2**-7 |plain|
+# at most, plus 1e-6 near zero) where the two fp32 values straddle a
+# rounding boundary, and by nothing else. Elementwise, a kernel that sums
+# the squares over D - 8 columns stays within one step as well (it moves
+# every element by about 0.1 %, a quarter of a step), so each case is also
+# held in norm, ||kernel - plain|| / ||plain|| <= NORM_NORM_TOL. Readings
+# on an H100: at [8192, 4096] bf16 9.7e-6 in norm and 0.99 of the
+# elementwise limit (one step), the planted fault 2.3e-3 in norm; in fp32
+# 9.5e-7 at most.
+NORM_ELT_REL = 2 ** -7
+NORM_ELT_ABS = 1e-6
+NORM_NORM_TOL = 1e-4
 SERVE_NEW_TOKENS = 32
 TRAIN_BATCH = 8        # bench.py's first autotune candidate: batch 8, full remat
+LLAMA_TRAIN_LAYERS = 8  # of 32: fp32 parameters and AdamW state fit one card
+LLAMA_TRAIN_BATCH = 2   # x 4096 tokens, the model's context
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
 # One GPT-2 124M step (batch 8 x 1024, bf16 compute) with the kernels
@@ -111,6 +140,22 @@ TRAIN_STEPS = 10
 # and of five.
 TRAIN_E2E_LOSS_TOL = 1e-3
 TRAIN_E2E_GRAD_TOL = 5e-2
+# One Llama-2-7B step (8 layers, batch 2 x 4096, bf16 compute, remat
+# "dots") with the kernels against the plain attention and RMSNorm, from
+# the same weights and tokens; written before the first full run. As for
+# GPT-2 above, the two paths differ by one-step roundings of a small share
+# of bf16 elements (attention outputs and gradients; a norm output where
+# the two fp32 sums of squares differ in their last bit), which spread
+# through 8 layers of bf16 matmuls forward and backward, each 4096 to
+# 11008 wide. Predicted: the loss within 1e-4 relative, the worst
+# parameter's gradient within about 1e-2 in relative norm. The limits are
+# GPT-2's, that with a margin of ten and of five. Remat "full" against
+# "dots" runs the same kernels on the same inputs (the recompute must give
+# what the first forward gave), so its gradients are held to
+# GRAD_NORM_TOL, a quarter of one bf16 step, and its loss to the same
+# limit as the loss above.
+LLAMA_E2E_LOSS_TOL = 1e-3
+LLAMA_E2E_GRAD_TOL = 5e-2
 
 
 def log(*args) -> None:
@@ -138,9 +183,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -261,20 +307,21 @@ def paged_case(b: int, t: int, h: int, kv: int, gen, rng, q_start=None,
     }
 
 
-def _agreement(got, want) -> dict:
+def _agreement(got, want, elt_rel: float = GRAD_ELT_REL,
+               elt_abs: float = GRAD_ELT_ABS) -> dict:
     """How far ``got`` lies from ``want``: the largest |got - want|, the
     norm ||got - want|| / ||want||, and the largest share of the
-    elementwise limit GRAD_ELT_REL |want| + GRAD_ELT_ABS."""
+    elementwise limit elt_rel |want| + elt_abs."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     return {"max_abs_err": err.max().item(),
             "rel_norm": (err.norm() / want.norm()).item(),
-            "elt_share": (err / (GRAD_ELT_REL * want.abs() + GRAD_ELT_ABS)
+            "elt_share": (err / (elt_rel * want.abs() + elt_abs)
                           ).max().item()}
 
 
-def _agrees(a: dict) -> bool:
-    return a["rel_norm"] <= GRAD_NORM_TOL and a["elt_share"] <= 1.0
+def _agrees(a: dict, norm_tol: float = GRAD_NORM_TOL) -> bool:
+    return a["rel_norm"] <= norm_tol and a["elt_share"] <= 1.0
 
 
 def _worst(readings) -> dict:
@@ -401,6 +448,57 @@ def autograd_check(gen) -> dict:
             **_worst([_agreement(a, b) for a, b in zip(*grads)])}
 
 
+def rmsnorm_case(rows: int, d: int, dtype, gen, plant: bool = False,
+                 grad: bool = False) -> dict:
+    """The RMSNorm kernel against its plain version on ``[rows, d]``
+    (eps 1e-5, Llama's), held elementwise to one step and in norm; with
+    ``plant``, also the reading of a fault planted in the kernel's
+    output (the squares summed over d - 8 columns); with ``grad``, the
+    autograd Function's gradients against autograd of the plain version
+    for a random output gradient. Times: the kernel, the plain version
+    and ``F.rms_norm`` (scale in x's dtype) on the same inputs."""
+    import torch.nn.functional as F
+
+    from raytpu_torch.ops.fused import rmsnorm, rmsnorm_reference
+
+    eps = 1e-5
+    x = _randn((rows, d), gen, dtype)
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    got = rmsnorm(x, scale, eps=eps)
+    want = rmsnorm(x, scale, eps=eps, force="reference")
+    torch.cuda.synchronize()
+    row = {"case": f"rmsnorm N={rows} D={d} {str(dtype)[6:]}",
+           **_agreement(got, want, NORM_ELT_REL, NORM_ELT_ABS)}
+    if plant:
+        xf = x.float()
+        var = xf[:, :d - 8].square().sum(-1, keepdim=True) / d
+        fault = (xf * torch.rsqrt(var + eps) * scale).to(dtype)
+        row["planted_sum_skips_last_8_columns"] = _agreement(
+            fault, want, NORM_ELT_REL, NORM_ELT_ABS)
+    if grad:
+        g = _randn((rows, d), gen, dtype)
+        grads = []
+        for fn in (lambda a, b: rmsnorm(a, b, eps=eps),
+                   lambda a, b: rmsnorm_reference(a, b, eps)):
+            leaves = [x.detach().requires_grad_(),
+                      scale.detach().requires_grad_()]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+        torch.cuda.synchronize()
+        row["grad"] = _worst([_agreement(a, b) for a, b in zip(*grads)])
+    # x read once, out written once, the fp32 scale read once; about four
+    # fp32 operations an element outside the tensor cores.
+    bound, by = bound_ms(2 * x.numel() * x.element_size() + 4 * d,
+                         4.0 * x.numel(), PEAK_FP32_FLOPS)
+    row.update(
+        ms=time_ms(lambda: rmsnorm(x, scale, eps=eps)),
+        plain_ms=time_ms(lambda: rmsnorm(x, scale, eps=eps,
+                                         force="reference")),
+        library_ms=time_ms(lambda: F.rms_norm(x, (d,), scale.to(dtype),
+                                              eps)),
+        bound_ms=bound, bound_by=by)
+    return row
+
+
 def phase_kernels(card_line: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -411,7 +509,7 @@ def phase_kernels(card_line: str) -> dict:
            flash_bwd_cases(2, 4, 256, 1024, 64, True, gen)]
     cases = {
         "flash_forward": [flash_case(t, gen) for t in (128, 512, 1024)]
-        + [flash_case(1024, gen, h=12, d=64, b=TRAIN_BATCH)],  # train shape
+        + [flash_case(1024, gen, h=12, d=64, b=TRAIN_BATCH)],  # GPT-2 train
         "flash_bwd_dq": [c["flash_bwd_dq"] for c in bwd],
         "flash_bwd_dkv": [c["flash_bwd_dkv"] for c in bwd],
         "paged_attention": [
@@ -421,10 +519,35 @@ def phase_kernels(card_line: str) -> dict:
             paged_case(1, 512, 32, 8, gen, rng, q_start=512),   # GQA chunk
         ],
     }
+    # The cases PRs 2-3 ran keep their inputs: the Llama train shapes and
+    # RMSNorm draw from a generator of their own, and lead their lists.
+    gen_l = torch.Generator(device="cuda").manual_seed(1)
+    lt, bf16 = LLAMA_TRAIN_BATCH, torch.bfloat16
+    llama = flash_bwd_cases(lt, 32, 4096, 4096, 128, True, gen_l)
+    cases["flash_forward"].insert(0, flash_case(4096, gen_l, b=lt))
+    cases["flash_bwd_dq"].insert(0, llama["flash_bwd_dq"])
+    cases["flash_bwd_dkv"].insert(0, llama["flash_bwd_dkv"])
+    cases["rmsnorm"] = [
+        rmsnorm_case(lt * 4096, 4096, bf16, gen_l, plant=True, grad=True),
+        rmsnorm_case(512, 4096, bf16, gen_l),              # serve chunk
+        rmsnorm_case(8, 4096, bf16, gen_l),                # serve decode
+        rmsnorm_case(lt * 4096, 4096, torch.float32, gen_l),
+        rmsnorm_case(64, 4100, bf16, gen_l),               # D % 8 != 0
+    ]
     for name, rows in cases.items():
         for row in rows:
             log(f"[kernels] {name}: {json.dumps(row)} | {card_line}")
-            if "rel_norm" in row:  # gradients
+            if name == "rmsnorm":
+                if not _agrees(row, NORM_NORM_TOL):
+                    raise AssertionError(
+                        f"rmsnorm {row['case']}: kernel differs from its "
+                        f"plain version beyond one step elementwise or "
+                        f"{NORM_NORM_TOL} in norm: {row}")
+                if "grad" in row and not _agrees(row["grad"]):
+                    raise AssertionError(
+                        f"rmsnorm {row['case']}: the Function's gradients "
+                        f"differ from autograd of the plain version: {row}")
+            elif "rel_norm" in row:  # gradients
                 if not _agrees(row):
                     raise AssertionError(
                         f"{name} {row['case']}: kernel differs from the "
@@ -437,6 +560,9 @@ def phase_kernels(card_line: str) -> dict:
     planted = bwd[0]["planted"]
     log(f"[kernels] planted faults: {json.dumps(planted)} | {card_line}")
     seen = {fault: not _agrees(r) for fault, r in planted.items()}
+    norm_fault = cases["rmsnorm"][0]["planted_sum_skips_last_8_columns"]
+    seen["rmsnorm_sum_skips_last_8_columns"] = not _agrees(norm_fault,
+                                                           NORM_NORM_TOL)
     if not all(seen.values()):
         raise AssertionError(f"the gradient limits miss a planted fault: "
                              f"{seen}")
@@ -467,6 +593,7 @@ def serve_prompts(rng, vocab: int):
 def phase_serve(model, card_line: str) -> dict:
     from raytpu_torch.inference import InferenceEngine, SamplingParams
     from raytpu_torch.ops.flash_attention import LAUNCHES as FLASH
+    from raytpu_torch.ops.fused import LAUNCHES as NORM
     from raytpu_torch.ops.paged_attention import LAUNCHES as PAGED
 
     prompts = serve_prompts(np.random.default_rng(1), model.config.vocab_size)
@@ -479,6 +606,7 @@ def phase_serve(model, card_line: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     FLASH.reset()
     PAGED.reset()
+    NORM.reset()
     tokens = {rid: [] for rid in prompts}
     steps = 0
     t0 = time.perf_counter()
@@ -490,9 +618,14 @@ def phase_serve(model, card_line: str) -> dict:
         steps += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_forward": FLASH.count, "paged_attention": PAGED.count}
+    launches = {"flash_forward": FLASH.count, "paged_attention": PAGED.count,
+                "rmsnorm": NORM.count}
     stats = eng.stats()
     pc = stats["prefix_cache"]
+    # Every model forward (prefill, chunk or decode) runs 2 L + 1 norms.
+    forwards = sum(sum(stats[k].values()) for k in (
+        "prefill_calls", "chunk_prefill_calls", "decode_calls"))
+    norms_per_forward = 2 * model.config.n_layer + 1
     result = {
         "steps": steps, "wall_s": wall,
         "prompt_tokens": sum(len(p) for p in prompts.values()),
@@ -510,6 +643,7 @@ def phase_serve(model, card_line: str) -> dict:
         "prefill_calls": stats["prefill_calls"],
         "chunk_prefill_calls": stats["chunk_prefill_calls"],
         "decode_calls": stats["decode_calls"],
+        "forwards": forwards,
     }
     log(f"[serve] {json.dumps(result)} | {card_line}")
     short = {rid: len(t) for rid, t in tokens.items()
@@ -519,6 +653,10 @@ def phase_serve(model, card_line: str) -> dict:
                              f"tokens: {short}")
     if not (launches["flash_forward"] > 0 and launches["paged_attention"] > 0):
         raise AssertionError(f"a kernel was never launched: {launches}")
+    if launches["rmsnorm"] != norms_per_forward * forwards:
+        raise AssertionError(f"rmsnorm launched {launches['rmsnorm']} times "
+                             f"in {forwards} forwards, not "
+                             f"{norms_per_forward} a forward")
     if pc["hit_tokens"] <= 0:
         raise AssertionError("the shared prefix never hit the prefix cache")
     if not stats["chunk_prefill_calls"]:
@@ -543,6 +681,7 @@ def device_kernels(prof) -> list:
 # "multi_tensor_apply_kernel"s); everything else is elementwise, norm,
 # reduction, embedding and copy work.
 KERNEL_CLASSES = (("flash_attention", ("flash_",)),
+                  ("rmsnorm", ("rmsnorm_kernel",)),
                   ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "splitK")),
                   ("optimizer", ("multi_tensor_apply",)))
 
@@ -614,10 +753,12 @@ def phase_e2e(model, card_line: str) -> dict:
     from raytpu_torch.models.llama import llama_prefill
 
     cfg = model.config
-    # Same weights, plain attention chosen through the config fields.
+    # Same weights, plain attention and RMSNorm chosen through the config
+    # fields.
     plain = copy.copy(model)
     plain.config = dataclasses.replace(cfg, attn_impl="reference",
-                                       paged_attn="reference")
+                                       paged_attn="reference",
+                                       norm_impl="reference")
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))).cuda()
     with torch.no_grad():
@@ -651,12 +792,71 @@ def phase_e2e(model, card_line: str) -> dict:
 # ---- phase 6: train -------------------------------------------------
 
 
-def _flash_counters() -> dict:
+def _train_counters() -> dict:
     from raytpu_torch.ops.flash_attention import (BWD_DKV_LAUNCHES,
                                                   BWD_DQ_LAUNCHES, LAUNCHES)
+    from raytpu_torch.ops.fused import LAUNCHES as NORM
 
     return {"flash_forward": LAUNCHES, "flash_bwd_dq": BWD_DQ_LAUNCHES,
-            "flash_bwd_dkv": BWD_DKV_LAUNCHES}
+            "flash_bwd_dkv": BWD_DKV_LAUNCHES, "rmsnorm": NORM}
+
+
+def timed_steps(step, tokens) -> dict:
+    """TRAIN_WARMUP steps, then TRAIN_STEPS timed ones, with every kernel
+    counter set to 0 just before and read just after, and the peak
+    memory over all of them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _train_counters()
+    for counter in counters.values():
+        counter.reset()
+    losses = [step(tokens) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(tokens) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"wall": wall, "losses": [x.item() for x in losses],
+            "launches": {name: c.count for name, c in counters.items()},
+            "max_memory_allocated_gb":
+            torch.cuda.max_memory_allocated() / 1e9}
+
+
+def profile_step(step, tokens, step_ms: float) -> dict:
+    """One step under the profiler: kernel time by class and name, the
+    device's busy share, launches issued."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    busy_us = sum(t for _, t, _ in kernels)
+    top = sorted(kernels, key=lambda kt: -kt[1])[:10]
+    return {
+        "profiled_step_ms": window_us / 1e3,
+        # The host issues each of these, one by one, every step.
+        "device_kernel_launches": sum(n for _, _, n in kernels),
+        "device_busy_share": busy_us / window_us if busy_us else
+        "not measured",
+        "device_busy_ms": busy_us / 1e3,
+        # The profiler slows the host, not the card: the busy time over
+        # the unprofiled step time estimates the unprofiled busy share.
+        "device_busy_over_unprofiled_step": busy_us / 1e3 / step_ms
+        if busy_us else "not measured",
+        "kernel_ms": {name: sum(t for k, t, _ in kernels if kernel in k)
+                      / 1e3 for name, kernel in (
+                          ("flash_forward", "flash_forward_kernel"),
+                          ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+                          ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
+                          ("rmsnorm", "rmsnorm_kernel"))},
+        "by_class_ms": kernel_classes_ms(kernels),
+        "top_kernels": [{"kernel": k[:90], "ms": t / 1e3,
+                         "share_of_busy": t / busy_us} for k, t, _ in top],
+    }
 
 
 def head_check(model, tokens: int, card_line: str) -> dict:
@@ -729,8 +929,6 @@ def flops_per_token(cfg) -> float:
 
 def phase_train(card_line: str):
     """GPT-2 124M training steps; returns (result, model, tokens)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from raytpu_torch.models.gpt2 import GPT2, GPT2Config, make_train_step
 
     cfg = GPT2Config.small()
@@ -747,76 +945,85 @@ def phase_train(card_line: str):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[train] GPT-2 124M random weights: {n_params} parameters in "
         f"{time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
-    counters = _flash_counters()
-    for counter in counters.values():
-        counter.reset()
-    losses = [step(tokens) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [step(tokens) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: c.count for name, c in counters.items()}
-    losses = [x.item() for x in losses]
-    n_tokens = TRAIN_BATCH * cfg.block_size
-    tokens_per_s = n_tokens * TRAIN_STEPS / wall
-    steps = TRAIN_WARMUP + TRAIN_STEPS
-    result = {
-        "model": "GPT-2 124M", "batch": TRAIN_BATCH, "seq": cfg.block_size,
-        "remat": cfg.remat, "optimizer": "AdamW foreach",
-        "step_ms": wall / TRAIN_STEPS * 1e3, "tokens_per_s": tokens_per_s,
-        "mfu": tokens_per_s * flops_per_token(cfg) / PEAK_BF16_FLOPS,
-        "flops_per_token": flops_per_token(cfg),
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "losses": losses, "launches": launches,
-        "launches_per_step": {k: v / steps for k, v in launches.items()},
-    }
+    run = timed_steps(step, tokens)
+    result = train_result("GPT-2 124M", cfg, TRAIN_BATCH, run)
     log(f"[train] {json.dumps(result)} | {card_line}")
-    if not all(launches.values()):
+    launches = result["launches"]
+    flash = {k: v for k, v in launches.items() if k.startswith("flash")}
+    if not all(flash.values()):
         raise AssertionError(f"a flash kernel was never launched in "
                              f"training: {launches}")
+    check_losses(result["losses"])
+    result["head"] = head_check(model, TRAIN_BATCH * cfg.block_size,
+                                card_line)
+    result["profile"] = profile_step(step, tokens, result["step_ms"])
+    log(f"[train-profile] {json.dumps(result['profile'])} | {card_line}")
+    return result, model, tokens
+
+
+def train_result(name: str, cfg, batch: int, run: dict) -> dict:
+    n_tokens = batch * cfg.block_size
+    tokens_per_s = n_tokens * TRAIN_STEPS / run["wall"]
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    return {
+        "model": name, "batch": batch, "seq": cfg.block_size,
+        "n_layer": cfg.n_layer, "remat": cfg.remat,
+        "optimizer": "AdamW foreach",
+        "step_ms": run["wall"] / TRAIN_STEPS * 1e3,
+        "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * flops_per_token(cfg) / PEAK_BF16_FLOPS,
+        "flops_per_token": flops_per_token(cfg),
+        "max_memory_allocated_gb": run["max_memory_allocated_gb"],
+        "losses": run["losses"], "launches": run["launches"],
+        "launches_per_step": {k: v / steps
+                              for k, v in run["launches"].items()},
+    }
+
+
+def check_losses(losses) -> None:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    result["head"] = head_check(model, n_tokens, card_line)
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(tokens)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = device_kernels(prof)
-    busy_us = sum(t for _, t, _ in kernels)
-    top = sorted(kernels, key=lambda kt: -kt[1])[:10]
-    profiled = {
-        "profiled_step_ms": window_us / 1e3,
-        # The host issues each of these, one by one, every step.
-        "device_kernel_launches": sum(n for _, _, n in kernels),
-        "device_busy_share": busy_us / window_us if busy_us else
-        "not measured",
-        "device_busy_ms": busy_us / 1e3,
-        # The profiler slows the host, not the card: the busy time over
-        # the unprofiled step time estimates the unprofiled busy share.
-        "device_busy_over_unprofiled_step": busy_us / 1e3
-        / result["step_ms"] if busy_us else "not measured",
-        "flash_ms": {name: sum(t for k, t, _ in kernels if kernel in k) / 1e3
-                     for name, kernel in (
-                         ("forward", "flash_forward_kernel"),
-                         ("bwd_dq", "flash_bwd_dq_kernel"),
-                         ("bwd_dkv", "flash_bwd_dkv_kernel"))},
-        "by_class_ms": kernel_classes_ms(kernels),
-        "top_kernels": [{"kernel": k[:90], "ms": t / 1e3,
-                         "share_of_busy": t / busy_us} for k, t, _ in top],
-    }
-    log(f"[train-profile] {json.dumps(profiled)} | {card_line}")
-    result["profile"] = profiled
-    return result, model, tokens
 
 
 # ---- phase 7: train end to end against the plain attention -----------
+
+
+def loss_and_grads(model, loss_fn, tokens):
+    """One step's loss and every parameter's gradient (a copy)."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def grad_rel_diffs(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| for each parameter's gradient."""
+    return {n: ((got[n] - want[n]).norm() / want[n].norm()).item()
+            for n in want}
+
+
+def e2e_result(loss_k: float, loss_p: float, rel: dict) -> dict:
+    worst = max(rel, key=rel.get)
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_rel_diff_worst": rel[worst], "worst_tensor": worst,
+            "grad_rel_diff_median": float(np.median(list(rel.values()))),
+            "tensors": len(rel)}
+
+
+def check_e2e(result: dict, loss_tol: float, grad_tol: float) -> None:
+    if not result["loss_rel_diff"] <= loss_tol:
+        raise AssertionError(f"train loss: kernels differ from the plain "
+                             f"path by {result['loss_rel_diff']} > "
+                             f"{loss_tol}")
+    if not result["grad_rel_diff_worst"] <= grad_tol:
+        raise AssertionError(f"gradient of {result['worst_tensor']}: "
+                             f"kernels differ from the plain path by "
+                             f"{result['grad_rel_diff_worst']} > {grad_tol}")
 
 
 def phase_train_e2e(model, tokens, card_line: str) -> dict:
@@ -824,60 +1031,146 @@ def phase_train_e2e(model, tokens, card_line: str) -> dict:
 
     plain = copy.copy(model)  # the same parameters, plain attention
     plain.config = dataclasses.replace(model.config, attn_impl="reference")
-    out = []
-    for m in (model, plain):
-        m.zero_grad(set_to_none=True)
-        loss = gpt2_loss_fn(m, tokens)
-        loss.backward()
-        out.append((loss.item(), {n: p.grad.clone()
-                                  for n, p in m.named_parameters()}))
-    model.zero_grad(set_to_none=True)
-    (lk, gk), (lp, gp) = out
-    rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in gp}
-    worst = max(rel, key=rel.get)
+    lk, gk = loss_and_grads(model, gpt2_loss_fn, tokens)
+    lp, gp = loss_and_grads(plain, gpt2_loss_fn, tokens)
     result = {"batch": tokens.shape[0], "seq": tokens.shape[1],
-              "loss_kernels": lk, "loss_plain": lp,
-              "loss_rel_diff": abs(lk - lp) / abs(lp),
-              "grad_rel_diff_worst": rel[worst], "worst_tensor": worst,
-              "grad_rel_diff_median": float(np.median(list(rel.values()))),
-              "tensors": len(rel)}
+              **e2e_result(lk, lp, grad_rel_diffs(gk, gp))}
     log(f"[train-e2e] {json.dumps(result)} | {card_line}")
-    if not result["loss_rel_diff"] <= TRAIN_E2E_LOSS_TOL:
-        raise AssertionError(f"train loss: kernels differ from the plain "
-                             f"path by {result['loss_rel_diff']} > "
-                             f"{TRAIN_E2E_LOSS_TOL}")
-    if not rel[worst] <= TRAIN_E2E_GRAD_TOL:
-        raise AssertionError(f"gradient of {worst}: kernels differ from the "
-                             f"plain path by {rel[worst]} > "
-                             f"{TRAIN_E2E_GRAD_TOL}")
+    check_e2e(result, TRAIN_E2E_LOSS_TOL, TRAIN_E2E_GRAD_TOL)
     return result
 
 
-def kernel_line(cases: dict, launches: dict) -> dict:
-    """One entry per kernel at the shape its main path runs most: flash
-    forward and backward at the GPT-2 train shape (launches of the train
-    run), paged attention at decode with a batch of eight (launches of
-    the serve run)."""
-    meta = {
-        "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
-                          "raytpu/ops/flash_attention.py:159", 3),
-        "paged_attention": ("raytpu_torch/ops/csrc/paged_attention.cu",
-                            "raytpu/ops/paged_attention.py:175", 0),
-        "flash_bwd_dq": ("raytpu_torch/ops/csrc/flash_bwd_dq.cu",
-                         "raytpu/ops/flash_attention.py:297", 0),
-        "flash_bwd_dkv": ("raytpu_torch/ops/csrc/flash_bwd_dkv.cu",
-                          "raytpu/ops/flash_attention.py:347", 0),
-    }
+# ---- phase 8: Llama train --------------------------------------------
+
+
+def llama_train_config():
+    """Llama-2-7B at full width, cut to LLAMA_TRAIN_LAYERS layers; every
+    other field at its default (bf16 compute, remat "dots")."""
+    from raytpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama2_7b(),
+                               n_layer=LLAMA_TRAIN_LAYERS)
+
+
+def phase_llama_train(card_line: str):
+    """Llama-2-7B (8 layers) training steps; returns (result, model,
+    tokens). The optimizer is dropped on return."""
+    from raytpu_torch.models.llama import Llama, make_train_step
+
+    cfg = llama_train_config()
+    t0 = time.perf_counter()
+    model = Llama(cfg, device="cuda", seed=0, param_dtype=torch.float32)
+    # optax.adamw's settings, as in the GPT-2 phase; foreach.
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1, foreach=True)
+    step = make_train_step(model, opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLAMA_TRAIN_BATCH, cfg.block_size))).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[llama-train] Llama-2-7B, {cfg.n_layer} layers, random weights: "
+        f"{n_params} parameters (approx. {cfg.n_params_approx}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    run = timed_steps(step, tokens)
+    result = train_result(f"Llama-2-7B, {cfg.n_layer} of 32 layers", cfg,
+                          LLAMA_TRAIN_BATCH, run)
+    log(f"[llama-train] {json.dumps(result)} | {card_line}")
+    # A step: each layer's forward and its "dots" recompute launch the
+    # flash forward once each and its two norms once each; the backward
+    # dQ and dK/dV once a layer; the final norm once.
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    per_step = {"flash_forward": 2 * cfg.n_layer,
+                "flash_bwd_dq": cfg.n_layer, "flash_bwd_dkv": cfg.n_layer,
+                "rmsnorm": 4 * cfg.n_layer + 1}
+    want = {k: v * steps for k, v in per_step.items()}
+    if result["launches"] != want:
+        raise AssertionError(f"Llama train launches {result['launches']}, "
+                             f"expected {want} ({per_step} a step)")
+    check_losses(result["losses"])
+    result["profile"] = profile_step(step, tokens, result["step_ms"])
+    log(f"[llama-train-profile] {json.dumps(result['profile'])} | "
+        f"{card_line}")
+    return result, model, tokens
+
+
+# ---- phase 9: Llama train end to end ---------------------------------
+
+
+def phase_llama_train_e2e(model, tokens, card_line: str) -> dict:
+    """One step from the trained weights: the kernels against the plain
+    attention and RMSNorm, and remat "full" against "dots" (the same
+    kernels; the recomputed forward must give what the first gave)."""
+    from raytpu_torch.models.llama import llama_loss_fn
+
+    cfg = model.config
+    torch.cuda.reset_peak_memory_stats()
+
+    def variant(**kw):
+        m = copy.copy(model)  # the same parameters
+        m.config = dataclasses.replace(cfg, **kw)
+        return m
+
+    lk, gk = loss_and_grads(model, llama_loss_fn, tokens)
+    lf, gf = loss_and_grads(variant(remat="full"), llama_loss_fn, tokens)
+    remat = grad_rel_diffs(gf, gk)
+    remat_max_abs = max((gf[n] - gk[n]).abs().max().item() for n in gk)
+    del gf
+    lp, gp = loss_and_grads(variant(attn_impl="reference",
+                                    norm_impl="reference"),
+                            llama_loss_fn, tokens)
+    result = {"batch": tokens.shape[0], "seq": tokens.shape[1],
+              **e2e_result(lk, lp, grad_rel_diffs(gk, gp)),
+              "full_vs_dots": {"loss_full": lf, "loss_dots": lk,
+                               "grad_rel_diff_worst": max(remat.values()),
+                               "grad_max_abs_diff": remat_max_abs},
+              "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[llama-train-e2e] {json.dumps(result)} | {card_line}")
+    check_e2e(result, LLAMA_E2E_LOSS_TOL, LLAMA_E2E_GRAD_TOL)
+    if not (abs(lf - lk) <= LLAMA_E2E_LOSS_TOL * abs(lk)
+            and max(remat.values()) <= GRAD_NORM_TOL):
+        raise AssertionError(f"remat 'full' and 'dots' give other results: "
+                             f"{result['full_vs_dots']}")
+    return result
+
+
+KERNEL_META = {  # name: (source, the TPU kernel it replaces)
+    "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
+                      "raytpu/ops/flash_attention.py:159"),
+    "flash_bwd_dq": ("raytpu_torch/ops/csrc/flash_bwd_dq.cu",
+                     "raytpu/ops/flash_attention.py:297"),
+    "flash_bwd_dkv": ("raytpu_torch/ops/csrc/flash_bwd_dkv.cu",
+                      "raytpu/ops/flash_attention.py:347"),
+    "paged_attention": ("raytpu_torch/ops/csrc/paged_attention.cu",
+                        "raytpu/ops/paged_attention.py:175"),
+    "rmsnorm": ("raytpu_torch/ops/csrc/rmsnorm.cu",
+                "raytpu/ops/fused.py:29"),
+}
+
+
+def kernel_line(cases: dict, runs: dict) -> dict:
+    """One entry per kernel, its numbers at the shape where its main path
+    spends most (the first case of each: the Llama train shape, and
+    decode with a batch of eight for paged attention); ``launches`` sums
+    the runs of the main paths (``launches_by_run``); ``cases`` lists
+    every case the kernels phase held it to."""
     out = []
-    for name, (source, replaces, pick) in meta.items():
-        row = cases[name][pick]
+    for name, (source, replaces) in KERNEL_META.items():
+        row = cases[name][0]
+        by_run = {run: launches.get(name, 0)
+                  for run, launches in runs.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_run.values()),
             "max_abs_err": max(r["max_abs_err"] for r in cases[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"],
+            "launches_by_run": by_run,
+            "cases": [{"case": r["case"], "ms": r["ms"],
+                       "bound_ms": r["bound_ms"],
+                       "max_abs_err": r["max_abs_err"]}
+                      for r in cases[name]],
         })
     return {"kernels": out}
 
@@ -901,9 +1194,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train, gpt2, tokens = phase_train(card_line)
     phase_train_e2e(gpt2, tokens, card_line)
-    launches = {"paged_attention": serve["launches"]["paged_attention"],
-                **train["launches"]}
-    log(json.dumps(kernel_line(cases, launches)))
+    del gpt2, tokens
+    torch.cuda.empty_cache()
+    llama, llama_model, tokens = phase_llama_train(card_line)
+    torch.cuda.empty_cache()  # the optimizer's state is gone
+    phase_llama_train_e2e(llama_model, tokens, card_line)
+    runs = {"serve": serve["launches"], "gpt2_train": train["launches"],
+            "llama_train": llama["launches"]}
+    log(json.dumps(kernel_line(cases, runs)))
     log(card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

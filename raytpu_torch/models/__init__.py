@@ -1,13 +1,16 @@
-"""raytpu_torch.models: the Llama decoder's inference forwards, GPT-2 for
-training, and the converters from the JAX package's parameter trees."""
+"""raytpu_torch.models: the Llama decoder (inference forwards and
+training), GPT-2 for training, and the converters from the JAX package's
+parameter trees."""
 
 from raytpu_torch.models.convert import (gpt2_state_from_jax,
                                          llama_state_from_jax)
 from raytpu_torch.models.gpt2 import (GPT2, GPT2Config, gpt2_loss_fn,
                                       make_train_step)
 from raytpu_torch.models.llama import (Llama, LlamaConfig, llama_decode,
-                                       llama_prefill, llama_prefill_chunk)
+                                       llama_loss_fn, llama_prefill,
+                                       llama_prefill_chunk)
 
 __all__ = ["GPT2", "GPT2Config", "Llama", "LlamaConfig", "gpt2_loss_fn",
-           "gpt2_state_from_jax", "llama_decode", "llama_prefill",
-           "llama_prefill_chunk", "llama_state_from_jax", "make_train_step"]
+           "gpt2_state_from_jax", "llama_decode", "llama_loss_fn",
+           "llama_prefill", "llama_prefill_chunk", "llama_state_from_jax",
+           "make_train_step"]

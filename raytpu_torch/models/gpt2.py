@@ -33,11 +33,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch import resolve_device
+from raytpu_torch.models.common import (lecun_normal_, make_step,
+                                        remat_call, remat_mode)
 from raytpu_torch.ops.flash_attention import flash_attention
-
-# Standard deviation of a standard normal truncated to (-2, 2): JAX's
-# lecun_normal divides by it so the truncated draw keeps variance 1/fan_in.
-_TRUNC_STD = 0.87962566103423978
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +46,10 @@ class GPT2Config:
     n_head: int = 12
     n_embd: int = 768
     dtype: torch.dtype = torch.bfloat16
-    # Rematerialization per block: True/"full" saves nothing and recomputes
-    # the block in the backward pass (torch.utils.checkpoint); False/"none"
-    # saves every activation. "dots" (and dropout) are not ported.
+    # Rematerialization per block (raytpu_torch.models.common): True/"full"
+    # saves nothing and recomputes the block in the backward pass;
+    # "dots" saves the matmul outputs; False/"none" saves every
+    # activation. Dropout is not ported.
     remat: Any = True
     # Attention implementation: None runs the CUDA kernels on a CUDA
     # tensor and the plain versions on a CPU tensor; "reference" runs the
@@ -61,8 +60,7 @@ class GPT2Config:
     loss_chunk: int = 0
 
     def __post_init__(self):
-        if self.remat == "dots":
-            raise NotImplementedError("GPT2Config: remat='dots' is not ported")
+        remat_mode(self.remat)
 
     @classmethod
     def small(cls) -> "GPT2Config":  # 124M
@@ -226,9 +224,7 @@ class GPT2(nn.Module):
                 elif name.startswith(("wte.", "wpe.")):
                     p.normal_(0.0, c.n_embd ** -0.5, generator=g)
                 else:
-                    std = p.shape[1] ** -0.5 / _TRUNC_STD
-                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                          generator=g)
+                    lecun_normal_(p, g)
 
     @property
     def device(self) -> torch.device:
@@ -241,12 +237,8 @@ class GPT2(nn.Module):
         t = tokens.shape[1]
         x = (F.embedding(tokens, self.wte.weight).to(c.dtype)
              + self.wpe.weight[:t].to(c.dtype))
-        remat = bool(c.remat) and c.remat != "none"
         for block in self.h:
-            if remat:
-                x = checkpoint(block, x, c.attn_impl, use_reentrant=False)
-            else:
-                x = block(x, c.attn_impl)
+            x = remat_call(block, c.remat, x, c.attn_impl)
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -261,16 +253,22 @@ def gpt2_loss_fn(model: GPT2, tokens):
     if c.loss_chunk:
         x = model(tokens, return_hidden=True)
         return _chunked_xent(x[:, :-1], targets, model.wte.weight, c)
-    logits = model(tokens)[:, :-1]
+    return mean_nll(model(tokens)[:, :-1], targets)
+
+
+def mean_nll(logits, targets):
+    """Mean of ``logsumexp(logits) - label logit`` over every position."""
     lse = torch.logsumexp(logits, dim=-1)
     label = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (lse - label).mean()
 
 
-def _chunked_xent(x, targets, wte, c: GPT2Config):
-    """Mean next-token NLL with the head computed ``loss_chunk`` rows at a
-    time; each chunk is checkpointed, so the backward pass recomputes its
-    logits and peak memory holds one [chunk, V] fp32 buffer."""
+def _chunked_xent(x, targets, wte, c):
+    """Mean next-token NLL with the head ``x @ wte.T`` (``wte`` ``[V, E]``,
+    GPT-2's tied embedding or Llama's ``lm_head``; fp32 logits) computed
+    ``loss_chunk`` rows at a time; each chunk is checkpointed, so the
+    backward pass recomputes its logits and peak memory holds one
+    [chunk, V] fp32 buffer."""
     b, t, e = x.shape
     n = b * t
     chunk = min(c.loss_chunk, n)
@@ -299,13 +297,5 @@ def make_train_step(model: GPT2, optimizer: torch.optim.Optimizer
     :func:`gpt2_loss_fn`, then one optimizer step, updating the model's
     parameters in place. The returned loss is detached and stays on the
     device (reading it waits for the step)."""
-
-    def train_step(tokens):
-        optimizer.zero_grad(set_to_none=True)
-        loss = gpt2_loss_fn(model, tokens)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    return train_step
+    return make_step(model, optimizer, gpt2_loss_fn)
 

@@ -1,10 +1,22 @@
-"""Llama decoder for inference, the port of :mod:`raytpu.models.llama`.
+"""Llama decoder, the port of :mod:`raytpu.models.llama`.
 
 RMSNorm, rotary embeddings, grouped-query attention and SwiGLU, with the
 parameter names of the JAX tree (``embed_tokens``, ``layers.{i}.attn.
 q_proj`` ...) so :mod:`raytpu_torch.models.convert` maps one onto the
-other. The three inference forwards the engine runs are plain functions
-over a :class:`Llama`, as in the JAX package:
+other. Every norm is :func:`raytpu_torch.ops.rmsnorm` (the CUDA kernel on
+the card). Parameters are stored in ``param_dtype`` and cast to the
+compute dtype ``config.dtype`` at use: fp32 for training, as with Flax's
+default, and bf16 (the compute dtype) for serving by default.
+
+Training, as in the JAX package:
+
+- ``Llama(config)(tokens)`` — the training forward, fp32 logits from the
+  untied head, each block under ``config.remat`` (``"dots"`` by default;
+  :mod:`raytpu_torch.models.common`);
+- :func:`llama_loss_fn` and :func:`make_train_step`, as GPT-2's.
+
+The three inference forwards the engine runs are plain functions over a
+:class:`Llama`:
 
 - :func:`llama_prefill` — a whole prompt, attention by
   :func:`raytpu_torch.ops.flash_attention`;
@@ -19,14 +31,18 @@ port writes the new K/V into the pools in place (:func:`write_kv`).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from raytpu_torch import resolve_device
+from raytpu_torch.models.common import (lecun_normal_, make_step,
+                                        remat_call, remat_mode)
+from raytpu_torch.models.gpt2 import _chunked_xent, mean_nll
 from raytpu_torch.ops.flash_attention import flash_attention
+from raytpu_torch.ops.fused import rmsnorm
 from raytpu_torch.ops.paged_attention import paged_attention
 
 
@@ -41,11 +57,22 @@ class LlamaConfig:
     n_inter: int = 2048              # SwiGLU hidden
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    # Attention implementation: None runs the CUDA kernel on a CUDA
-    # tensor and the plain version on a CPU tensor; "reference" runs the
-    # plain version on either (to compare the two on the card).
+    # Rematerialization per block in training: False/"none" | True/"full"
+    # | "dots" (raytpu_torch.models.common).
+    remat: Any = "dots"
+    # Kernel choice of attention, paged attention and RMSNorm: None runs
+    # the CUDA kernel on a CUDA tensor and the plain version on a CPU
+    # tensor; "reference" runs the plain version on either (to compare the
+    # two on the card).
     attn_impl: Optional[str] = None
     paged_attn: Optional[str] = None
+    norm_impl: Optional[str] = None
+    # Cross-entropy chunking: 0 = one [B, T, V] fp32 logits buffer; N > 0 =
+    # the head N rows at a time, recomputed in the backward pass.
+    loss_chunk: int = 0
+
+    def __post_init__(self):
+        remat_mode(self.remat)
 
     @classmethod
     def tiny(cls) -> "LlamaConfig":
@@ -65,20 +92,48 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
 
+    @property
+    def n_params_approx(self) -> int:
+        c = self
+        attn = c.n_embd * (c.n_head + 2 * c.n_kv_head) * c.head_dim \
+            + c.n_head * c.head_dim * c.n_embd
+        mlp = 3 * c.n_embd * c.n_inter
+        return 2 * c.vocab_size * c.n_embd + c.n_layer * (attn + mlp)
+
 
 class RMSNorm(nn.Module):
-    """fp32 math and an fp32 scale; the result is cast after the scale."""
+    """Flax's ``RMSNorm(dtype=...)`` by :func:`raytpu_torch.ops.rmsnorm`:
+    fp32 math, the scale applied before the cast. The kernel writes x's
+    dtype, which is the compute dtype wherever a Llama calls it."""
 
-    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-5):
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-5,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32))
+        self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype))
         self.dtype = dtype
         self.eps = eps
 
+    def forward(self, x, force: Optional[str] = None):
+        if x.dtype != self.dtype:
+            raise TypeError(f"RMSNorm: x is {x.dtype}, the compute dtype is "
+                            f"{self.dtype}")
+        return rmsnorm(x, self.scale, eps=self.eps, force=force)
+
+
+class Linear(nn.Module):
+    """Flax ``nn.Dense(use_bias=False, dtype=...)``: ``weight`` ``[out,
+    in]`` in the parameter dtype, cast to the compute dtype at use (a
+    no-op where the two are equal)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 param_dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in,
+                                               dtype=param_dtype))
+        self.dtype = dtype
+
     def forward(self, x):
-        xf = x.float()
-        normed = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
-        return (normed * self.scale).to(self.dtype)
+        return F.linear(x, self.weight.to(self.dtype))
 
 
 def rope_tables(head_dim: int, positions: torch.Tensor, theta: float
@@ -119,19 +174,15 @@ def write_kv(pages: torch.Tensor, dests: torch.Tensor,
 class LlamaAttention(nn.Module):
     """GQA attention with the three inference entry points."""
 
-    def __init__(self, c: LlamaConfig):
+    def __init__(self, c: LlamaConfig, param_dtype: torch.dtype):
         super().__init__()
         self.n_head, self.n_kv_head = c.n_head, c.n_kv_head
         self.head_dim, self.rope_theta = c.head_dim, c.rope_theta
         d = c.head_dim
-        self.q_proj = nn.Linear(c.n_embd, c.n_head * d, bias=False,
-                                dtype=c.dtype)
-        self.k_proj = nn.Linear(c.n_embd, c.n_kv_head * d, bias=False,
-                                dtype=c.dtype)
-        self.v_proj = nn.Linear(c.n_embd, c.n_kv_head * d, bias=False,
-                                dtype=c.dtype)
-        self.o_proj = nn.Linear(c.n_head * d, c.n_embd, bias=False,
-                                dtype=c.dtype)
+        self.q_proj = Linear(c.n_embd, c.n_head * d, c.dtype, param_dtype)
+        self.k_proj = Linear(c.n_embd, c.n_kv_head * d, c.dtype, param_dtype)
+        self.v_proj = Linear(c.n_embd, c.n_kv_head * d, c.dtype, param_dtype)
+        self.o_proj = Linear(c.n_head * d, c.n_embd, c.dtype, param_dtype)
 
     def prefill(self, x, attn_impl: Optional[str] = None):
         """Full-sequence causal attention over ``x`` [B, T, E]; returns
@@ -201,80 +252,136 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, c: LlamaConfig):
+    def __init__(self, c: LlamaConfig, param_dtype: torch.dtype):
         super().__init__()
-        self.gate_proj = nn.Linear(c.n_embd, c.n_inter, bias=False,
-                                   dtype=c.dtype)
-        self.up_proj = nn.Linear(c.n_embd, c.n_inter, bias=False,
-                                 dtype=c.dtype)
-        self.down_proj = nn.Linear(c.n_inter, c.n_embd, bias=False,
-                                   dtype=c.dtype)
+        self.gate_proj = Linear(c.n_embd, c.n_inter, c.dtype, param_dtype)
+        self.up_proj = Linear(c.n_embd, c.n_inter, c.dtype, param_dtype)
+        self.down_proj = Linear(c.n_inter, c.n_embd, c.dtype, param_dtype)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, c: LlamaConfig):
+    def __init__(self, c: LlamaConfig, param_dtype: torch.dtype,
+                 scale_dtype: torch.dtype):
         super().__init__()
-        self.input_norm = RMSNorm(c.n_embd, c.dtype)
-        self.attn = LlamaAttention(c)
-        self.post_attn_norm = RMSNorm(c.n_embd, c.dtype)
-        self.mlp = LlamaMLP(c)
+        self.input_norm = RMSNorm(c.n_embd, c.dtype, param_dtype=scale_dtype)
+        self.attn = LlamaAttention(c, param_dtype)
+        self.post_attn_norm = RMSNorm(c.n_embd, c.dtype,
+                                      param_dtype=scale_dtype)
+        self.mlp = LlamaMLP(c, param_dtype)
+
+    def forward(self, x, attn_impl: Optional[str] = None,
+                norm_impl: Optional[str] = None):
+        """The training block (JAX's ``LlamaBlock.__call__``)."""
+        x = x + self.attn.prefill(self.input_norm(x, norm_impl),
+                                  attn_impl)[0]
+        return x + self.mlp(self.post_attn_norm(x, norm_impl))
 
 
 class Llama(nn.Module):
-    """The weights of a Llama decoder, made on ``device`` (``cuda``
-    unless the caller passes ``"cpu"``) from ``seed``: normal with std
-    fan_in**-0.5 for projections, 1 for the embedding, norm scales 1."""
+    """A Llama decoder with its weights made on ``device`` (``cuda``
+    unless the caller passes ``"cpu"``) from ``seed``, by the JAX
+    package's init scheme: projections and the head lecun-normal
+    (truncated at two standard deviations), the embedding normal with
+    std ``n_embd**-0.5``, norm scales 1.
 
-    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+    ``param_dtype``: the parameters' dtype. ``None`` keeps projections,
+    head and embedding in ``config.dtype`` and the norm scales in fp32,
+    the serving layout; training passes ``torch.float32``, Flax's
+    default."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
+        wdt = param_dtype or c.dtype
+        sdt = param_dtype or torch.float32
         with torch.device("meta"):
             self.embed_tokens = nn.Embedding(c.vocab_size, c.n_embd,
-                                             dtype=c.dtype)
-            self.layers = nn.ModuleList(LlamaBlock(c)
+                                             dtype=wdt)
+            self.layers = nn.ModuleList(LlamaBlock(c, wdt, sdt)
                                         for _ in range(c.n_layer))
-            self.final_norm = RMSNorm(c.n_embd, c.dtype)
-            self.lm_head = nn.Linear(c.n_embd, c.vocab_size, bias=False,
-                                     dtype=c.dtype)
+            self.final_norm = RMSNorm(c.n_embd, c.dtype, param_dtype=sdt)
+            self.lm_head = Linear(c.n_embd, c.vocab_size, c.dtype, wdt)
         self.to_empty(device=dev)
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if name.endswith("scale"):
+                if name.endswith(".scale"):
                     p.fill_(1.0)
-                elif name.startswith("embed_tokens"):
-                    p.normal_(0.0, 1.0, generator=g)
+                elif name.startswith("embed_tokens."):
+                    p.normal_(0.0, c.n_embd ** -0.5, generator=g)
                 else:
-                    p.normal_(0.0, p.shape[1] ** -0.5, generator=g)
+                    lecun_normal_(p, g)
 
     @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
+    def embed(self, tokens):
+        """The embedding rows of ``tokens`` in the compute dtype."""
+        return F.embedding(tokens, self.embed_tokens.weight).to(
+            self.config.dtype)
+
+    def forward(self, tokens, return_hidden: bool = False):
+        """``tokens`` [B, T] -> fp32 logits [B, T, V] (or, with
+        ``return_hidden``, the final norm's output [B, T, E]); each block
+        under ``config.remat``."""
+        c = self.config
+        x = self.embed(tokens)
+        for layer in self.layers:
+            x = remat_call(layer, c.remat, x, c.attn_impl, c.norm_impl)
+        x = self.final_norm(x, c.norm_impl)
+        if return_hidden:
+            return x
+        return lm_logits(self, x)
+
 
 def lm_logits(model: Llama, x):
-    """Untied LM head in the activation dtype; fp32 logits."""
-    return F.linear(x, model.lm_head.weight).float()
+    """Untied LM head: a product in the compute dtype, then fp32 (Flax's
+    ``nn.Dense(dtype=bf16)`` then ``.astype(f32)``)."""
+    return model.lm_head(x).float()
+
+
+def llama_loss_fn(model: Llama, tokens):
+    """Mean next-token cross-entropy in fp32; with ``loss_chunk > 0`` the
+    head runs a chunk of rows at a time on the ``lm_head`` weight, with
+    fp32 logits, as the JAX package's GPT-2 ``_chunked_xent``."""
+    c = model.config
+    targets = tokens[:, 1:]
+    if c.loss_chunk:
+        x = model(tokens, return_hidden=True)
+        return _chunked_xent(x[:, :-1], targets, model.lm_head.weight, c)
+    return mean_nll(model(tokens)[:, :-1], targets)
+
+
+def make_train_step(model: Llama, optimizer: torch.optim.Optimizer,
+                    loss_fn: Optional[Callable] = None
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``train_step(tokens) -> loss``: loss and gradients of ``loss_fn``
+    (:func:`llama_loss_fn` by default), then one optimizer step, updating
+    the model's parameters in place."""
+    return make_step(model, optimizer, loss_fn or llama_loss_fn)
 
 
 def llama_prefill(model: Llama, tokens):
     """Prefill forward: ``tokens`` [B, T] -> (fp32 logits [B, T, V],
     per-layer roped K [B, T, KV, D] list, per-layer V list)."""
     c = model.config
-    x = model.embed_tokens(tokens)
+    x = model.embed(tokens)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for layer in model.layers:
-        y, k, v = layer.attn.prefill(layer.input_norm(x), c.attn_impl)
+        y, k, v = layer.attn.prefill(layer.input_norm(x, c.norm_impl),
+                                     c.attn_impl)
         ks.append(k)
         vs.append(v)
         x = x + y
-        x = x + layer.mlp(layer.post_attn_norm(x))
-    return lm_logits(model, model.final_norm(x)), ks, vs
+        x = x + layer.mlp(layer.post_attn_norm(x, c.norm_impl))
+    return lm_logits(model, model.final_norm(x, c.norm_impl)), ks, vs
 
 
 def llama_prefill_chunk(model: Llama, tokens, positions, dests, block_tables,
@@ -284,13 +391,13 @@ def llama_prefill_chunk(model: Llama, tokens, positions, dests, block_tables,
     written into ``k_caches`` / ``v_caches`` (one pool per layer) in
     place. See :meth:`LlamaAttention.prefill_chunk`."""
     c = model.config
-    x = model.embed_tokens(tokens)
+    x = model.embed(tokens)
     for layer, kc, vc in zip(model.layers, k_caches, v_caches):
         x = x + layer.attn.prefill_chunk(
-            layer.input_norm(x), kc, vc, dests, block_tables, positions,
-            c.paged_attn)
-        x = x + layer.mlp(layer.post_attn_norm(x))
-    return lm_logits(model, model.final_norm(x))
+            layer.input_norm(x, c.norm_impl), kc, vc, dests, block_tables,
+            positions, c.paged_attn)
+        x = x + layer.mlp(layer.post_attn_norm(x, c.norm_impl))
+    return lm_logits(model, model.final_norm(x, c.norm_impl))
 
 
 def llama_decode(model: Llama, tokens, positions, dests, block_tables,
@@ -299,10 +406,10 @@ def llama_decode(model: Llama, tokens, positions, dests, block_tables,
     [B, V]; each token's K/V are written into the pools in place. See
     :meth:`LlamaAttention.decode_step`."""
     c = model.config
-    x = model.embed_tokens(tokens)
+    x = model.embed(tokens)
     for layer, kc, vc in zip(model.layers, k_caches, v_caches):
         x = x + layer.attn.decode_step(
-            layer.input_norm(x), kc, vc, dests, block_tables, positions,
-            context_lens, c.paged_attn)
-        x = x + layer.mlp(layer.post_attn_norm(x))
-    return lm_logits(model, model.final_norm(x))
+            layer.input_norm(x, c.norm_impl), kc, vc, dests, block_tables,
+            positions, context_lens, c.paged_attn)
+        x = x + layer.mlp(layer.post_attn_norm(x, c.norm_impl))
+    return lm_logits(model, model.final_norm(x, c.norm_impl))

@@ -47,6 +47,7 @@ KERNELS = {
     "flash_bwd_dkv": ("rt_flash_bwd_dkv",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _P]),
+    "rmsnorm": ("rt_rmsnorm", [_P, _P, _P, _I, _I, _I, _F, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

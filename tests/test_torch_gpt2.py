@@ -143,7 +143,7 @@ def test_pallas_interpret_attention_in_the_jax_model(layout):
     _grads_close(p_grads, grads)
 
 
-@pytest.mark.parametrize("remat", [True, "full"])
+@pytest.mark.parametrize("remat", [True, "full", "dots"])
 def test_remat_gives_the_same_gradients(layout, remat):
     _, _, np_params = layout
     tokens = _tokens(3)
@@ -242,8 +242,8 @@ def test_init_follows_the_jax_scheme():
 
 
 @pytest.mark.parametrize("change, error", [
-    ({"remat": "dots"}, NotImplementedError),
     ({"dropout": 0.1}, TypeError),  # no such field: dropout is not ported
+    ({"remat": "some"}, ValueError),  # no such remat mode
 ])
 def test_unported_options_raise(change, error):
     with pytest.raises(error):

@@ -71,6 +71,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Llama(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        Llama(cfg, param_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
         PagedKVCache(2, 4, 8, 2, 32)
     model = Llama(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -112,6 +114,7 @@ REPLACES = {
     "paged_attention": "raytpu/ops/paged_attention.py::_paged_kernel",
     "flash_bwd_dq": "raytpu/ops/flash_attention.py::_flash_bwd_dq_kernel",
     "flash_bwd_dkv": "raytpu/ops/flash_attention.py::_flash_bwd_dkv_kernel",
+    "rmsnorm": "raytpu/ops/fused.py::_rmsnorm_kernel",
 }
 
 
@@ -123,6 +126,28 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         # ... and the TPU kernel exists where the comment says.
         path, fn = tpu.split("::")
         assert f"def {fn}(" in (REPO / path).read_text()
+
+
+def test_rmsnorm_kernel_is_built_for_hopper_from_its_source():
+    assert "rmsnorm" in _native.KERNELS
+    assert _native.KERNELS["rmsnorm"][0] == "rt_rmsnorm"
+    src = _native.CSRC / "rmsnorm.cu"
+    assert "_rmsnorm_kernel" in src.read_text()
+    cmd = _native.nvcc_command("nvcc", src, pathlib.Path("librmsnorm.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    assert _native.library_path("rmsnorm").name.startswith("librmsnorm-")
+
+
+def test_rmsnorm_off_the_cpu_launches_the_kernel_or_raises():
+    # A tensor that is not on the CPU never reaches the plain version:
+    # here (no card) the wrapper's input checks refuse it.
+    from raytpu_torch.ops import rmsnorm
+
+    x = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm(x, torch.ones(8, device="meta"))
+    with pytest.raises(ValueError, match="force"):
+        rmsnorm(torch.ones(4, 8), torch.ones(8), force="interpret")
 
 
 def test_every_included_header_is_in_the_build_key():
