@@ -54,6 +54,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -76,23 +78,54 @@ KERNEL_TOL = 3e-2
 # roundings over 32 layers grow as sqrt(32) * 3.9e-3 = 2.2e-2 of the
 # logits' scale. The bound is that with a margin of about two.
 E2E_TOL = 5e-2
-# Attention gradients in bf16, kernel against the plain backward. Both
-# accumulate every product in fp32 and round once to bf16, so an element
-# may differ by one bf16 step (2**-8 relative) where its sum lies near a
-# rounding boundary, and by nothing else. Each gradient tensor is held
-# elementwise to one step, 2**-7 |plain|, plus 1e-3 for elements near
-# zero (a typical element at the train shape is 0.05-0.07), and in norm,
-# ||kernel - plain|| / ||plain||, to GRAD_NORM_TOL. Both limits are set
-# from the readings on an H100: 0 at D=64; at D=128 and through autograd
-# (where the forward's one-step differences reach delta) at most 8.8e-5
-# in norm and 0.78 of the elementwise limit, one step. The norm limit is
-# ten times that. Two planted faults must read above the limits: a dQ
-# block that skips its first key tile read 0.77 in norm, and the dK/dV
-# block with the smallest gradients never written read 0.021 in norm and
-# 69 times the elementwise limit.
+# Attention gradients in bf16, the kernels against the mirror backward
+# (flash_attention_backward_reference with round_operands: P rounded to
+# bf16 before the dV product, dS before the dQ and dK products, where the
+# TPU kernels and the tensor-core kernels round them). Both multiply the
+# same bf16 operands exactly, sum the products in fp32 in another order
+# (tensor cores against cuBLAS's fp32 GEMM) and round each gradient once
+# to bf16, so an element may differ by one bf16 step (2**-8 to 2**-7 of
+# it) where its sum lies near a rounding boundary. One term is new: a P
+# or dS element whose two fp32 values (scores from the tensor cores and
+# from the fp32 GEMM, about 1e-7 apart) straddle a bf16 rounding boundary
+# rounds to neighbouring values on the two sides, about one element in
+# 4e4 (2e-7 over a step of 2**-7). Such a flip moves one term of a sum
+# over up to 4096 keys or queries by one step of that term: about 1e-5
+# of the norm limit, and far below one step of the sum unless that term
+# is most of the sum: in the first rows of a causal dQ and the first keys
+# of dK and dV, where a few large P and dS terms make most of a sum, or
+# where larger terms cancel. There it adds up to a step of the term to
+# the one step of the final rounding (on an H100 the cases here read up
+# to 1.39 of the one-step limit, at rows 1 to 108). So each
+# gradient tensor is held elementwise to one step, 2**-7 |mirror|, plus
+# 1e-3 for elements near zero (a typical element at the train shape is
+# 0.05-0.07), plus what flips can move it, flip_allowance(); and in norm,
+# ||kernel - mirror|| / ||mirror||, to GRAD_NORM_TOL. The one-step and
+# norm limits are PR 3's, set then for the same comparison with P and dS
+# unrounded on both sides (0 at D=64, at most 8.8e-5 in norm and 0.78 of
+# one step at D=128).
 GRAD_ELT_REL = 2 ** -7
 GRAD_ELT_ABS = 1e-3
 GRAD_NORM_TOL = 1e-3
+# How far the kernels' fp32 P and dS may lie from the mirror's, for
+# flip_allowance(): a dot product of D terms summed in fp32 in two orders
+# differs by at most 2 gamma_D = D 2**-23 of the sum of the terms'
+# magnitudes (Higham's bound; the tensor cores' fp32 accumulation is taken
+# to keep it), and the few fp32 roundings and the 2-ulp expf after it by
+# at most 2**-21 of the value.
+FP32_DOT_REL = 2 ** -23
+FP32_OPS_REL = 2 ** -21
+# The same gradients against the unrounded plain backward, in norm only.
+# The kernels round P and dS to bf16 once each before a product; one
+# rounding moves a value by up to half a step, 2**-8 of it, uniformly, so
+# by at most 2**-8 / sqrt(3) = 2.3e-3 of it RMS, and over the many
+# independent terms of a gradient's sum the fp32 gradient moves by at
+# most that share of its norm. Both sides then round to bf16: a shift e
+# turns into a one-step difference (step s <= 2**-7 of the value) with
+# probability |e| / s, so the rounded gradients differ in norm by
+# sqrt(s E|e|) <= sqrt(2**-7 * 2.3e-3) = 4.2e-3 of theirs. The limit is
+# one step, 2**-7 = 7.8e-3, about twice that.
+ROUNDING_NORM_TOL = 2 ** -7
 # The tied LM head on the card against the same function with the
 # operands rounded to bf16 and multiplied in fp32 (JAX's dot_general with
 # preferred_element_type=f32, and its transpose), in norm. Logits: fp32
@@ -222,6 +255,34 @@ def phase_build() -> None:
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
+    # The bf16 backward kernels must run on the tensor cores: every
+    # instance holds HMMA instructions in the compiled code.
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        counts = hmma_counts(_native.library_path(name))
+        log(f"[build] {name}: HMMA instructions per kernel {json.dumps(counts)}")
+        tensor_core = [n for f, n in counts.items() if "mma_kernel" in f]
+        if len(tensor_core) != len(_native.HEAD_DIMS) or not all(tensor_core):
+            raise AssertionError(f"{name}: a bf16 instance has no tensor-core "
+                                 f"instruction: {counts}")
+
+
+def hmma_counts(library) -> dict:
+    """HMMA (tensor-core) instructions in each kernel of a built library,
+    from ``cuobjdump -sass``."""
+    from raytpu_torch.ops import _native
+
+    tool = pathlib.Path(_native.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"\d(flash_bwd_\w+?kernelI\w*?Li\d+E)", line)
+            kernel = found.group(1) if found else line.split(":")[-1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and "HMMA" in line:
+            counts[kernel] += 1
+    return counts
 
 
 # ---- phase 3: kernels against their plain versions ------------------
@@ -308,16 +369,69 @@ def paged_case(b: int, t: int, h: int, kv: int, gen, rng, q_start=None,
 
 
 def _agreement(got, want, elt_rel: float = GRAD_ELT_REL,
-               elt_abs: float = GRAD_ELT_ABS) -> dict:
+               elt_abs: float = GRAD_ELT_ABS, allowance=None) -> dict:
     """How far ``got`` lies from ``want``: the largest |got - want|, the
     norm ||got - want|| / ||want||, and the largest share of the
-    elementwise limit elt_rel |want| + elt_abs."""
+    elementwise limit elt_rel |want| + elt_abs (+ ``allowance``, per
+    element)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
+    limit = elt_rel * want.abs() + elt_abs
+    if allowance is not None:
+        limit = limit + allowance
     return {"max_abs_err": err.max().item(),
             "rel_norm": (err.norm() / want.norm()).item(),
-            "elt_share": (err / (elt_rel * want.abs() + elt_abs)
-                          ).max().item()}
+            "elt_share": (err / limit).max().item()}
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def flip_allowance(q, k, v, o, lse, g, causal: bool, scale: float,
+                   chunk: int = 8) -> list:
+    """Per element of (dQ, dK, dV), the most that flips can move it: the
+    sum, over the terms of its product whose bf16 operand (P for dV, dS
+    for dQ and dK) has a rounding boundary within the kernels' possible
+    distance w from the mirror's fp32 value, of the operand's two
+    candidate roundings' distance times |the other factor|. w bounds the
+    fp32 differences (FP32_DOT_REL, FP32_OPS_REL): for P, the scores'
+    sums and the roundings up to expf; for dS, those carried through
+    P (dP - delta) scale and dP's own sum. Zero for almost every term;
+    computed over ``chunk`` (b, h) slices at a time."""
+    b, h, t_q, d = q.shape
+    t_kv = k.shape[2]
+    flat = [x.reshape(b * h, x.shape[2], d).float() for x in (q, k, v, o, g)]
+    lses = lse.reshape(b * h, t_q, 1).float()
+    mask = torch.ones((t_q, t_kv), dtype=torch.bool,
+                      device=q.device).tril(t_kv - t_q)
+    gam = d * FP32_DOT_REL
+    out = [torch.empty((b * h, t, d), device=q.device)
+           for t in (t_q, t_kv, t_kv)]
+
+    def spread(x, w):  # 0 unless a rounding boundary lies within w of x
+        return (_bf16(x + w) - _bf16(x - w)).abs()
+
+    for i in range(0, b * h, chunk):
+        qf, kf, vf, of, gf = (x[i:i + chunk] for x in flat)
+        ls = lses[i:i + chunk]
+        s = torch.bmm(qf, kf.transpose(1, 2)) * scale
+        p = torch.exp(s - ls)
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        w_p = p * (gam * scale * torch.bmm(qf.abs(), kf.abs().transpose(1, 2))
+                   + FP32_OPS_REL * (1 + s.abs() + ls.abs()))
+        dpd = torch.bmm(gf, vf.transpose(1, 2)) - (gf * of).sum(-1, True)
+        ds = p * dpd * scale
+        w_ds = (scale * (w_p * dpd.abs()
+                         + p * gam * torch.bmm(gf.abs(), vf.abs().transpose(1, 2)))
+                + FP32_OPS_REL * ds.abs())
+        a_p, a_ds = spread(p, w_p), spread(ds, w_ds)
+        del s, p, w_p, dpd, ds, w_ds
+        out[0][i:i + chunk] = torch.bmm(a_ds, kf.abs())
+        out[1][i:i + chunk] = torch.bmm(a_ds.transpose(1, 2), qf.abs())
+        out[2][i:i + chunk] = torch.bmm(a_p.transpose(1, 2), gf.abs())
+    return [x.reshape(b, h, -1, d) for x in out]
 
 
 def _agrees(a: dict, norm_tol: float = GRAD_NORM_TOL) -> bool:
@@ -328,12 +442,14 @@ def _worst(readings) -> dict:
     return {key: max(r[key] for r in readings) for key in readings[0]}
 
 
-def planted_faults(q, k, v, g, lse, delta, scale, got, want) -> dict:
+def planted_faults(q, k, v, g, lse, delta, scale, got, mirror, plain,
+                   allowance) -> dict:
     """Readings of two faults planted in the kernels' causal gradients
     (``got``, self-attention), which the limits must see: dQ without the
     first key tile's share, as from a dQ block that skips one tile of its
     loop, and dK, dV with the last key tile's rows zeroed, as from the
-    dK/dV block with the smallest gradients never writing."""
+    dK/dV block with the smallest gradients never writing. Each against
+    the mirror and, in norm, the unrounded plain backward."""
     tile = 64
     t = q.shape[2]
     kt, vt = k[:, :, :tile].float(), v[:, :, :tile].float()
@@ -347,9 +463,43 @@ def planted_faults(q, k, v, g, lse, delta, scale, got, want) -> dict:
     dk, dv = (x.clone() for x in got[1:])
     dk[:, :, -tile:] = 0
     dv[:, :, -tile:] = 0
-    return {"dq_skips_first_key_tile": _agreement(dq, want[0]),
-            "dkv_last_key_tile_unwritten": _worst(
-                [_agreement(dk, want[1]), _agreement(dv, want[2])])}
+    return {"dq_skips_first_key_tile": _readings(
+                [dq], mirror[:1], plain[:1], allowance[:1]),
+            "dkv_last_key_tile_unwritten": _readings(
+                [dk, dv], mirror[1:], plain[1:], allowance[1:])}
+
+
+def _readings(got, mirror, plain, allowance) -> dict:
+    """The worst agreement of the gradients ``got`` with the mirror's
+    (the elementwise share with the flip allowance, and without it:
+    ``elt_share_one_step``, with the row along T of each tensor's worst
+    element), and their worst norm distance from the unrounded plain
+    ones."""
+    one_step, rows = [], []
+    for a, m in zip(got, mirror):
+        share = (a.float() - m.float()).abs() / (
+            GRAD_ELT_REL * m.float().abs() + GRAD_ELT_ABS)
+        one_step.append(share.max().item())
+        rows.append(int(share.flatten().argmax()) // share.shape[-1]
+                    % share.shape[-2])
+    return {**_worst([_agreement(a, m, allowance=w)
+                      for a, m, w in zip(got, mirror, allowance)]),
+            "elt_share_one_step": max(one_step),
+            # The mean flip allowance over the mean one-step limit.
+            "flip_allowance_share": max(
+                (w.mean() / (GRAD_ELT_REL * m.float().abs()
+                             + GRAD_ELT_ABS).mean()).item()
+                for m, w in zip(mirror, allowance)),
+            "worst_one_step_rows": rows,
+            "plain_rel_norm": max(_agreement(a, b)["rel_norm"]
+                                  for a, b in zip(got, plain))}
+
+
+def _within_limits(r: dict) -> bool:
+    """Within one step (plus the flip allowance) and GRAD_NORM_TOL of the
+    mirror, and within ROUNDING_NORM_TOL of the unrounded plain backward
+    in norm."""
+    return _agrees(r) and r["plain_rel_norm"] <= ROUNDING_NORM_TOL
 
 
 def _visible_pairs(t_q: int, t_kv: int, causal: bool) -> int:
@@ -362,14 +512,15 @@ def _visible_pairs(t_q: int, t_kv: int, causal: bool) -> int:
 
 def flash_bwd_cases(b: int, h: int, t_q: int, t_kv: int, d: int,
                     causal: bool, gen, plant: bool = False) -> dict:
-    """The dQ and the dK/dV kernels against the plain backward on the
-    same inputs (the forward kernel's o and lse, a random output
-    gradient); the plain and the SDPA times are of all three gradients.
-    With ``plant``, also the readings of :func:`planted_faults`."""
+    """The dQ and the dK/dV kernels against the mirror backward and the
+    unrounded plain backward on the same inputs (the forward kernel's o
+    and lse, a random output gradient); the plain (the mirror's) and the
+    SDPA times are of all three gradients. With ``plant``, also the
+    readings of :func:`planted_faults`."""
     import torch.nn.functional as F
 
     from raytpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_bwd_dkv,
+        flash_attention, flash_attention_backward_reference, flash_bwd_dkv,
         flash_bwd_dq)
 
     q, g = (_randn((b, h, t_q, d), gen) for _ in range(2))
@@ -379,17 +530,21 @@ def flash_bwd_cases(b: int, h: int, t_q: int, t_kv: int, d: int,
     delta = torch.sum(g.float() * o.float(), dim=-1)
     dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
-    want = flash_attention_backward(q, k, v, o, lse, g, causal=causal,
-                                    sm_scale=scale, force="reference")
+    def mirror_bwd():
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, g, causal, scale, round_operands=True)
+
+    mirror = mirror_bwd()
+    plain = flash_attention_backward_reference(q, k, v, o, lse, g, causal,
+                                               scale)
+    allowance = flip_allowance(q, k, v, o, lse, g, causal, scale)
     torch.cuda.synchronize()
-    checks = [_agreement(x, y) for x, y in zip((dq, dk, dv), want)]
     rows = {}
     if plant:
         rows["planted"] = planted_faults(q, k, v, g, lse, delta, scale,
-                                         (dq, dk, dv), want)
-    plain_ms = time_ms(lambda: flash_attention_backward(
-        q, k, v, o, lse, g, causal=causal, sm_scale=scale,
-        force="reference"), iters=5)
+                                         (dq, dk, dv), mirror, plain,
+                                         allowance)
+    plain_ms = time_ms(mirror_bwd, iters=5)
     # Yardstick: the backward of one SDPA call, fwd+bwd minus fwd. A
     # cross-length causal mask is bottom-aligned here and top-left in
     # SDPA's is_causal, so that case passes the mask itself.
@@ -415,37 +570,52 @@ def flash_bwd_cases(b: int, h: int, t_q: int, t_kv: int, d: int,
     row_bytes = 2 * b * h * t_q * 4  # lse and delta, fp32
     shape = (f"B={b} H={h} T_q={t_q} T_kv={t_kv} D={d} "
              f"{'causal' if causal else 'full'}")
-    for name, reading, fn, nbytes, flops in (
-            ("flash_bwd_dq", checks[0],
+    for name, got, want, fn, nbytes, flops in (
+            ("flash_bwd_dq", [dq], slice(0, 1),
              lambda: flash_bwd_dq(q, k, v, g, lse, delta, causal, scale),
              3 * q_bytes + 2 * kv_bytes + row_bytes, 6.0 * d * pairs),
-            ("flash_bwd_dkv", _worst(checks[1:]),
+            ("flash_bwd_dkv", [dk, dv], slice(1, 3),
              lambda: flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale),
              2 * q_bytes + 4 * kv_bytes + row_bytes, 8.0 * d * pairs)):
         bound, by = bound_ms(nbytes, flops)
+        ms = time_ms(fn)
         rows[name] = {
-            "case": f"{name} {shape}", **reading, "ms": time_ms(fn),
+            "case": f"{name} {shape}",
+            **_readings(got, mirror[want], plain[want], allowance[want]),
+            "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by,
+            "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
         }
     return rows
 
 
 def autograd_check(gen) -> dict:
     """Gradients through ``flash_attention`` under autograd (forward, dQ
-    and dK/dV kernels) against the same through the plain versions, at
-    the GPT-2 train shape."""
-    from raytpu_torch.ops.flash_attention import flash_attention
+    and dK/dV kernels) at the GPT-2 train shape, against the mirror
+    backward fed the forward kernel's own o and lse, and against autograd
+    through the plain versions. The forward kernel is held to its plain
+    version on its own (KERNEL_TOL); its one-step differences in o reach
+    delta = rowsum(dO o), so only the first comparison keeps one bf16 step
+    a bound, and the second is held in norm only."""
+    from raytpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward_reference)
 
     q, k, v, g = (_randn((TRAIN_BATCH, 12, 1024, 64), gen) for _ in range(4))
     grads = []
     for force in (None, "reference"):
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        o, _ = flash_attention(*leaves, causal=True, force=force)
+        o, lse = flash_attention(*leaves, causal=True, force=force)
         grads.append(torch.autograd.grad(o, leaves, g))
+        if force is None:
+            mirror = flash_attention_backward_reference(
+                q, k, v, o.detach(), lse, g, True, 64 ** -0.5,
+                round_operands=True)
+            allowance = flip_allowance(q, k, v, o.detach(), lse, g, True,
+                                       64 ** -0.5)
     torch.cuda.synchronize()
     return {"case": "autograd dq, dk, dv B=8 H=12 T=1024 D=64 causal",
-            **_worst([_agreement(a, b) for a, b in zip(*grads)])}
+            **_readings(grads[0], mirror, grads[1], allowance)}
 
 
 def rmsnorm_case(rows: int, d: int, dtype, gen, plant: bool = False,
@@ -548,18 +718,22 @@ def phase_kernels(card_line: str) -> dict:
                         f"rmsnorm {row['case']}: the Function's gradients "
                         f"differ from autograd of the plain version: {row}")
             elif "rel_norm" in row:  # gradients
-                if not _agrees(row):
+                if not _within_limits(row):
                     raise AssertionError(
                         f"{name} {row['case']}: kernel differs from the "
-                        f"plain backward beyond {GRAD_NORM_TOL} in norm or "
-                        f"one bf16 step elementwise: {row}")
+                        f"mirror backward beyond {GRAD_NORM_TOL} in norm or "
+                        f"one bf16 step elementwise, or from the plain "
+                        f"backward beyond {ROUNDING_NORM_TOL} in norm: "
+                        f"{row}")
             elif not row["max_abs_err"] <= KERNEL_TOL:
                 raise AssertionError(
                     f"{name} {row['case']}: kernel differs from its plain "
                     f"version by {row['max_abs_err']} > {KERNEL_TOL}")
     planted = bwd[0]["planted"]
     log(f"[kernels] planted faults: {json.dumps(planted)} | {card_line}")
-    seen = {fault: not _agrees(r) for fault, r in planted.items()}
+    seen = {fault: not _agrees(r)
+            and r["plain_rel_norm"] > ROUNDING_NORM_TOL
+            for fault, r in planted.items()}
     norm_fault = cases["rmsnorm"][0]["planted_sum_skips_last_8_columns"]
     seen["rmsnorm_sum_skips_last_8_columns"] = not _agrees(norm_fault,
                                                            NORM_NORM_TOL)
@@ -568,9 +742,9 @@ def phase_kernels(card_line: str) -> dict:
                              f"{seen}")
     auto = autograd_check(gen)
     log(f"[kernels] autograd: {json.dumps(auto)} | {card_line}")
-    if not _agrees(auto):
+    if not _within_limits(auto):
         raise AssertionError(f"autograd through the kernels differs from "
-                             f"the plain path: {auto}")
+                             f"the mirror or the plain path: {auto}")
     return cases
 
 
@@ -850,8 +1024,8 @@ def profile_step(step, tokens, step_ms: float) -> dict:
         "kernel_ms": {name: sum(t for k, t, _ in kernels if kernel in k)
                       / 1e3 for name, kernel in (
                           ("flash_forward", "flash_forward_kernel"),
-                          ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-                          ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
+                          ("flash_bwd_dq", "flash_bwd_dq"),
+                          ("flash_bwd_dkv", "flash_bwd_dkv"),
                           ("rmsnorm", "rmsnorm_kernel"))},
         "by_class_ms": kernel_classes_ms(kernels),
         "top_kernels": [{"kernel": k[:90], "ms": t / 1e3,

@@ -27,7 +27,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 # Headers the kernels include; every library's name hashes all of them.
-HEADERS = ("attention_tile.cuh", "flash_bwd_tile.cuh")
+HEADERS = ("attention_tile.cuh", "flash_bwd_mma.cuh", "flash_bwd_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (32, 64, 128)

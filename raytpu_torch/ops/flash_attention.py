@@ -67,21 +67,32 @@ def flash_attention_reference(q, k, v, causal: bool = True,
 
 
 def flash_attention_backward_reference(q, k, v, o, lse, g, causal: bool,
-                                       sm_scale: float
+                                       sm_scale: float, *,
+                                       round_operands: bool = False
                                        ) -> Tuple[torch.Tensor, ...]:
     """Gradients ``(dq, dk, dv)`` of the attention output against the
     output gradient ``g``, dense in fp32, in the op order of the JAX
-    reference (``_attn_bwd_reference``)."""
+    reference (``_attn_bwd_reference``).
+
+    ``round_operands`` gives the mirror of the kernels: P is rounded to
+    the input type before the dV product and dS before the dQ and dK
+    products, where the TPU kernels round them in their default dot mode
+    ``"input"`` (``p.astype(mxu)``, ``ds.astype(mxu)``) and the bf16 CUDA
+    kernels feed them to the tensor cores. A no-op for fp32 input."""
     qf, kf, vf, gf = (_acc(x) for x in (q, k, v, g))
+
+    def operand(x):
+        return x.to(q.dtype).to(x.dtype) if round_operands else x
+
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
     if causal:
         s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s,
                         NEG_INF)
     p = torch.exp(s - lse)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", operand(p), gf)
     dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
     delta = torch.sum(gf * _acc(o), dim=-1, keepdim=True)
-    ds = p * (dp - delta) * sm_scale
+    ds = operand(p * (dp - delta) * sm_scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

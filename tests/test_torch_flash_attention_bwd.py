@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from raytpu.ops.flash_attention import (_attn_bwd_reference,
-                                        _attn_fwd_reference)
+                                        _attn_fwd_reference, _flash_fwd)
 from raytpu.ops.flash_attention import flash_attention as jax_flash
 from raytpu_torch.ops.flash_attention import (
     BWD_DKV_LAUNCHES, BWD_DQ_LAUNCHES, LAUNCHES, flash_attention,
@@ -96,6 +96,52 @@ def test_bf16_backward_matches_pallas_interpret():
     got = _port_grads(q, k, v, g, True, dtype=torch.bfloat16)
     want = _jax_grads(q, k, v, g, True, "interpret", dtype=jnp.bfloat16)
     _close(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("causal,t_q,t_kv,d", [(True, 128, 128, 64),
+                                               (False, 128, 128, 64),
+                                               (True, 64, 128, 32)],
+                         ids=["causal", "full", "cross-length-causal"])
+def test_bf16_rounded_mirror_matches_pallas_interpret(causal, t_q, t_kv, d):
+    # The mirror (P rounded to bf16 before the dV product, dS before the dQ
+    # and dK products) against jax.vjp through the interpreted Pallas
+    # kernels in their default dot mode "input", both fed the o and lse of
+    # the JAX forward. The two round the same fp32 values at the same
+    # points and differ only in the order of their fp32 sums, so each
+    # gradient must lie under a quarter of the unrounded plain backward's
+    # relative norm distance: that one differs by the roundings of P and
+    # dS (each about 2**-8 relative), which the final rounding to bf16
+    # turns into one-step differences in a few elements in a hundred
+    # (about 2.6e-3 in norm at these shapes); a mirror that forgot to
+    # round lands there and fails.
+    scale = d ** -0.5
+    q, k, v, g = (jnp.asarray(x, jnp.bfloat16)
+                  for x in _inputs(31 + t_q + d, 1, 2, t_q, t_kv, d))
+    o, (*_, lse) = _flash_fwd(q, k, v, causal, scale, "interpret")
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=causal,
+                                                force="interpret"), q, k, v)
+    want = [np.asarray(x, np.float32) for x in vjp(g)]
+    args = [torch.from_numpy(np.array(x, np.float32)).bfloat16()
+            for x in (q, k, v, o)] + [torch.from_numpy(np.array(lse))]
+    gt = torch.from_numpy(np.array(g, np.float32)).bfloat16()
+
+    def distances(round_operands):
+        got = flash_attention_backward_reference(
+            *args, gt, causal, scale, round_operands=round_operands)
+        return [np.linalg.norm(x.float().numpy() - w) / np.linalg.norm(w)
+                for x, w in zip(got, want)]
+
+    mirror, plain = distances(True), distances(False)
+    assert all(m < p / 4 for m, p in zip(mirror, plain)), (mirror, plain)
+
+
+def test_rounded_mirror_is_plain_in_fp32():
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(12, 1, 2, 16, 24, 16))
+    o, lse = flash_attention(q, k, v)
+    a = flash_attention_backward_reference(q, k, v, o, lse, g, True, 0.25)
+    b = flash_attention_backward_reference(q, k, v, o, lse, g, True, 0.25,
+                                           round_operands=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_bf16_keeps_gradient_dtypes():
