@@ -27,7 +27,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 # Headers the kernels include; every library's name hashes all of them.
-HEADERS = ("attention_tile.cuh", "flash_bwd_mma.cuh", "flash_bwd_tile.cuh")
+HEADERS = ("attention_mma.cuh", "attention_tile.cuh", "flash_bwd_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (32, 64, 128)
@@ -39,8 +39,8 @@ KERNELS = {
     "flash_attention": ("rt_flash_forward",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_attention": ("rt_paged_attention",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _P]),
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _P]),
     "flash_bwd_dq": ("rt_flash_bwd_dq",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _P]),
@@ -48,6 +48,10 @@ KERNELS = {
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _P]),
     "rmsnorm": ("rt_rmsnorm", [_P, _P, _P, _I, _I, _I, _F, _P]),
+}
+# Measuring kernels on no main path (built and loaded the same way).
+TOOLS = {
+    "mma_probe": ("rt_mma_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -88,11 +92,12 @@ def library_path(name: str) -> pathlib.Path:
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, float]:
-    """Compile the libraries that are not built yet, all at once; returns
-    the seconds each build took (0.0 for one already built). The
-    compiler's report (registers, shared memory, spills) is kept beside
-    each library as ``<library>.log``."""
-    names = list(names or KERNELS)
+    """Compile the libraries that are not built yet (by default every
+    kernel's and every tool's), all at once; returns the seconds each
+    build took (0.0 for one already built). The compiler's report
+    (registers, shared memory, spills) is kept beside each library as
+    ``<library>.log``."""
+    names = list(names or [*KERNELS, *TOOLS])
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
@@ -128,7 +133,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        entry, argtypes = KERNELS[name]
+        entry, argtypes = {**KERNELS, **TOOLS}[name]
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -10,22 +10,30 @@
 // clamps dead blocks in its index map. Here one thread block owns one
 // (b*h, 64-row query tile) and walks K/V in a loop inside the block, up
 // to the last key the tile's last row can see: blocks past the diagonal
-// are neither loaded nor computed.
+// are neither loaded nor computed. Query tiles are issued last-first so
+// the longest walks start earliest.
 //
 // What bounds it on an H100: at short T the bytes (q, k, v and o, each
 // read or written once, 3.35 TB/s); at long T the operations (4*T^2*D/2
 // per head under the causal mask, against 989 TFLOP/s of bf16 tensor
-// cores). This first version computes on the fp32 FMA units from
-// shared-memory tiles (attention_tile.cuh), so at long T it stays far
-// from the tensor-core bound; what it does about the bytes is read each
-// K/V tile once per 64 query rows and never materialise the T x T scores.
-// Query tiles are issued last-first so the longest walks start earliest.
+// cores). So bf16 input runs on the tensor cores (attention_mma.cuh's
+// engine): four warps of 16 query rows, Q's fragments in registers, K and
+// V streamed in 64-key tiles through a two-stage cp.async ring, the score
+// tile kept in registers, and P rounded to bf16 before P V where the TPU
+// kernel rounds it (p.astype(mxu)), with l summed from the fp32 P. Each K/V
+// tile is read once per 64 query rows and the T x T scores never reach
+// memory. fp32 input (the TPU's "f32" dot mode; on no main path) keeps the
+// fp32 FMA engine of attention_tile.cuh.
 
+#include <type_traits>
+
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace {
 
 constexpr int kRows = 64;
+static_assert(rt::mma::kTile == kRows, "both engines own 64 query rows a block");
 
 template <typename T, int D>
 struct FlashRows {
@@ -50,36 +58,64 @@ struct FlashRows {
   __device__ bool visible(int r, int key) const { return !causal || key <= q0 + r + off; }
 };
 
+// The rows of this block: (b*h = blockIdx.x, the query tile of blockIdx.y,
+// latest tiles first).
+template <typename T, int D>
+__device__ FlashRows<T, D> block_rows(const T* q, T* o, float* lse, int t_q, int t_kv,
+                                      int causal) {
+  FlashRows<T, D> pol;
+  pol.q = q;
+  pol.o = o;
+  pol.lse = lse;
+  pol.base = static_cast<long long>(blockIdx.x) * t_q;
+  pol.kv_base = static_cast<long long>(blockIdx.x) * t_kv;
+  pol.t_q = t_q;
+  pol.q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  pol.off = t_kv - t_q;
+  pol.causal = causal != 0;
+  const int q_last = min(pol.q0 + kRows, t_q) - 1;
+  pol.n_keys = pol.causal ? max(0, min(t_kv, q_last + pol.off + 1)) : t_kv;
+  return pol;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(rt::kThreads)
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                      int t_q, int t_kv, int causal, float scale) {
-  const int bh = blockIdx.x;
-  FlashRows<T, D> pol;
-  pol.q = q;
-  pol.o = o;
-  pol.lse = lse;
-  pol.base = static_cast<long long>(bh) * t_q;
-  pol.kv_base = static_cast<long long>(bh) * t_kv;
-  pol.t_q = t_q;
-  pol.q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // latest tiles first
-  pol.off = t_kv - t_q;
-  pol.causal = causal != 0;
-  const int q_last = min(pol.q0 + kRows, t_q) - 1;
-  pol.n_keys = pol.causal ? max(0, min(t_kv, q_last + pol.off + 1)) : t_kv;
-  rt::attend<T, D, kRows>(pol, k, v, scale);
+  rt::attend<T, D, kRows>(block_rows<T, D>(q, o, lse, t_q, t_kv, causal), k, v, scale);
 }
 
+// At least one block an SM: without the bound ptxas holds the D = 64
+// instance to 128 registers and spills; with it, 154 and no spills.
+template <int D>
+__global__ void __launch_bounds__(rt::mma::kThreads, 1)
+flash_forward_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int t_q, int t_kv, int causal, float scale) {
+  rt::mma::attend<D>(block_rows<__nv_bfloat16, D>(q, o, lse, t_q, t_kv, causal), k, v,
+                     scale);
+}
+
+// bf16 runs the tensor-core kernel, float the fp32 FMA one.
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, float* lse,
                          int bh, int t_q, int t_kv, int causal, float scale,
                          cudaStream_t stream) {
   const dim3 grid(bh, (t_q + kRows - 1) / kRows);
-  return rt::launch(flash_forward_kernel<T, D>, grid, rt::TileSmem<D, kRows>::kBytes, stream,
-                    static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), static_cast<T*>(o), lse, t_q, t_kv, causal,
-                    scale);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(o);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const size_t smem = 5 * kRows * D * sizeof(T);  // Q, 2 x K, 2 x V
+    return rt::mma::launch(flash_forward_mma_kernel<D>, grid, smem, stream, qp, kp, vp, op,
+                           lse, t_q, t_kv, causal, scale);
+  } else {
+    return rt::launch(flash_forward_kernel<T, D>, grid, rt::TileSmem<D, kRows>::kBytes, stream,
+                      qp, kp, vp, op, lse, t_q, t_kv, causal, scale);
+  }
 }
 
 template <typename T>
@@ -96,8 +132,9 @@ cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v, voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, o: [bh, t_q, d]; k, v: [bh, t_kv, d];
-// lse: [bh, t_q] float32. All contiguous, on the stream's device.
+// dtype: 0 = float32 (fp32 FMA tiles), 1 = bfloat16 (tensor cores).
+// q, o: [bh, t_q, d]; k, v: [bh, t_kv, d]; lse: [bh, t_q] float32. All
+// contiguous, on the stream's device.
 extern "C" int rt_flash_forward(const void* q, const void* k, const void* v, void* o,
                                 void* lse, int dtype, int bh, int t_q, int t_kv, int d,
                                 int causal, float scale, void* stream) {

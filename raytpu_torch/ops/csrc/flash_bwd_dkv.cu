@@ -27,7 +27,7 @@
 // (query, key) pair against 989 TFLOP/s of bf16 tensor cores, and the
 // bytes of q, k, v, dO, LSE, delta, dK and dV at 3.35 TB/s; the
 // operations bound it at both train shapes. So bf16 input runs on the
-// tensor cores (flash_bwd_mma.cuh): four warps of 16 keys; K and V
+// tensor cores (attention_mma.cuh): four warps of 16 keys; K and V
 // resident in shared memory as bf16, Q, dO, LSE and delta streamed
 // through a two-stage cp.async ring; S^T and dP^T as mma.sync m16n8k16
 // into fp32 registers; P^T and dS^T in registers, masked only on tiles
@@ -44,7 +44,7 @@
 
 #include <type_traits>
 
-#include "flash_bwd_mma.cuh"
+#include "attention_mma.cuh"
 #include "flash_bwd_tile.cuh"
 
 namespace {

@@ -25,7 +25,7 @@
 // bytes of q, k, v, dO, LSE, delta and dQ at 3.35 TB/s; at T = 1024,
 // D = 64 the two are about equal, at T = 4096, D = 128 the operations
 // bound it 20 times over the bytes. So bf16 input runs on the tensor cores
-// (flash_bwd_mma.cuh): four warps of 16 query rows; Q and dO resident in
+// (attention_mma.cuh): four warps of 16 query rows; Q and dO resident in
 // shared memory as bf16, K and V streamed through a two-stage cp.async
 // ring so the next tile's copy overlaps this tile's products; S = Q K^T
 // and dP = dO V^T as mma.sync m16n8k16 into fp32 registers; P and dS in
@@ -38,7 +38,7 @@
 
 #include <type_traits>
 
-#include "flash_bwd_mma.cuh"
+#include "attention_mma.cuh"
 #include "flash_bwd_tile.cuh"
 
 namespace {

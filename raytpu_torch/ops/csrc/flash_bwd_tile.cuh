@@ -1,6 +1,6 @@
 // Tile helpers of the two flash-attention backward kernels' fp32 path
 // (flash_bwd_dq.cu and flash_bwd_dkv.cu; bf16 runs on the tensor cores,
-// flash_bwd_mma.cuh).
+// attention_mma.cuh).
 //
 // Both kernels recompute, for one 64 x 64 tile of (query, key) pairs,
 //

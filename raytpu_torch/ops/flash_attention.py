@@ -20,7 +20,12 @@ on CPU tensors both run the plain PyTorch versions
 (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`). ``force="reference"`` picks
 the plain versions on either device, on purpose; nothing falls back to
-them.
+them. The bf16 kernels run on the tensor cores and round P (forward and
+backward) and dS (backward) to bf16 before their products, where the
+TPU kernels round them; ``flash_attention_reference(...,
+round_operands=True, block_k=64)`` and
+``flash_attention_backward_reference(..., round_operands=True)`` are
+their mirrors.
 """
 
 from __future__ import annotations
@@ -48,18 +53,70 @@ def _causal_mask(t_q: int, t_k: int, device) -> torch.Tensor:
                       device=device).tril(t_k - t_q)
 
 
+def blockwise_attention(q, k, v, visible, sm_scale: float, block_k: int,
+                        round_to: Optional[torch.dtype] = None):
+    """The TPU kernels' online softmax, in plain PyTorch: ``q`` ``[..., T_q,
+    D]`` against ``k``, ``v`` ``[..., T_k, D]`` (all in the accumulation
+    type), the keys walked in blocks of ``block_k`` in the order of
+    ``_flash_kernel`` and ``_paged_kernel``::
+
+        S = Q K^T * scale, masked entries -1e30 (``visible`` False)
+        m' = max(m, rowmax S);  P = exp(S - m');  c = exp(m - m')
+        l = l c + rowsum P      (from the unrounded P)
+        O = O c + P V           (P rounded to ``round_to`` first, if given)
+
+    Returns ``(O / max(l, 1e-30), m + log l)``, unrounded."""
+    m = torch.full((*q.shape[:-1], 1), NEG_INF, dtype=q.dtype,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*q.shape[:-1], v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    for k0 in range(0, k.shape[-2], block_k):
+        s = torch.einsum("...qd,...kd->...qk", q,
+                         k[..., k0:k0 + block_k, :]) * sm_scale
+        if visible is not None:
+            s = torch.where(visible[..., k0:k0 + block_k], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        c = torch.exp(m - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        if round_to is not None:
+            p = p.to(round_to).to(p.dtype)
+        acc = acc * c + torch.einsum("...qk,...kd->...qd", p,
+                                     v[..., k0:k0 + block_k, :])
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    return acc / l, m + torch.log(l)
+
+
 def flash_attention_reference(q, k, v, causal: bool = True,
-                              sm_scale: Optional[float] = None
+                              sm_scale: Optional[float] = None, *,
+                              round_operands: bool = False,
+                              block_k: Optional[int] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense attention in fp32, in the op order of the JAX reference
     (``_attn_fwd_reference``): einsum, ``where`` mask, logsumexp, exp,
-    einsum."""
+    einsum.
+
+    With ``round_operands`` or ``block_k`` it is the mirror of the
+    kernels instead (:func:`blockwise_attention`): the keys walked in
+    blocks of ``block_k`` (all in one if None) in the TPU kernel's order,
+    and with ``round_operands`` P rounded to the input type before P V,
+    where the TPU kernel in its default dot mode ``"input"`` rounds it
+    (``p.astype(mxu)``) and the bf16 CUDA kernel feeds it to the tensor
+    cores; l is summed from the unrounded P. The rounding is a no-op for
+    fp32 input."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    mask = _causal_mask(q.shape[2], k.shape[2], q.device) if causal else None
+    if round_operands or block_k is not None:
+        o, lse = blockwise_attention(
+            _acc(q), _acc(k), _acc(v), mask, sm_scale, block_k or k.shape[2],
+            q.dtype if round_operands else None)
+        return o.to(q.dtype), lse
     s = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) * sm_scale
     if causal:
-        s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s,
-                        NEG_INF)
+        s = torch.where(mask, s, NEG_INF)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.exp(s - lse)
     o = torch.einsum("bhqk,bhkd->bhqd", p, _acc(v))

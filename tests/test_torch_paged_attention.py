@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from raytpu.ops.paged_attention import _paged_pallas
 from raytpu.ops.paged_attention import paged_attention as jax_paged
 from raytpu.ops.paged_attention import \
     paged_attention_reference as jax_paged_reference
-from raytpu_torch.ops.paged_attention import (LAUNCHES, gather_kv_pages,
-                                              paged_attention)
+from raytpu_torch.ops.paged_attention import (
+    LAUNCHES, SPLIT_MIN_SLOTS, gather_kv_pages, paged_attention,
+    paged_attention_reference, paged_decode_split_reference, plan_splits)
 
 # The JAX package's own bound (tests/test_paged_attention.py).
 TOL = 1e-5
@@ -122,3 +124,94 @@ def test_cpu_tensor_takes_plain_version_and_launches_nothing():
         paged_attention(*args, force="interpret")
     with pytest.raises(ValueError):  # positions not [B, T]
         paged_attention(*args[:4], args[4][:, :0])
+
+
+@pytest.mark.parametrize("b,t,heads,kv,page_size", [
+    (4, 1, 4, 4, 8),     # decode
+    (4, 1, 8, 2, 16),    # GQA decode
+    (1, 48, 4, 4, 8),    # chunk
+    (1, 40, 8, 2, 16),   # GQA chunk
+], ids=["decode", "gqa-decode", "chunk", "gqa-chunk"])
+def test_bf16_rounded_mirror_matches_pallas_interpret(b, t, heads, kv,
+                                                      page_size):
+    # The mirror (gathered slots walked a page at a time, the TPU kernel's
+    # block; P rounded to bf16 before P V, l summed from the fp32 P)
+    # against the interpreted Pallas kernel on the same bf16 inputs. They
+    # differ only in the order of their fp32 sums, so the output must lie
+    # under a quarter of the unrounded plain version's relative norm
+    # distance, which carries the rounding of P (as in
+    # test_torch_flash_attention.py); a mirror that forgot to round lands
+    # there and fails.
+    d = 32
+    rng = np.random.default_rng(b * 100 + t + heads)
+    args = _setup(rng, b=b, t=t, heads=heads, kv=kv, d=d,
+                  page_size=page_size, pages_per_seq=12)
+    jargs = [jnp.asarray(x, jnp.bfloat16) for x in args[:3]] + [
+        jnp.asarray(x) for x in args[3:]]
+    want = np.asarray(_paged_pallas(*jargs, sm_scale=d ** -0.5,
+                                    interpret=True), np.float32)
+    targs = [torch.from_numpy(np.array(x, np.float32)).bfloat16()
+             for x in jargs[:3]] + [torch.from_numpy(x) for x in args[3:]]
+
+    def distance(**kw):
+        o = paged_attention_reference(*targs, sm_scale=d ** -0.5, **kw)
+        return np.linalg.norm(o.float().numpy() - want) / np.linalg.norm(want)
+
+    mirror = distance(round_operands=True, block_k=page_size)
+    plain = distance()
+    assert mirror < plain / 4, (mirror, plain)
+
+
+def test_rounded_mirror_in_fp32_is_the_dense_plain_version():
+    rng = np.random.default_rng(21)
+    args = [torch.from_numpy(x) for x in _setup(
+        rng, b=3, t=1, heads=8, kv=2, d=16, page_size=4, pages_per_seq=9)]
+    dense = paged_attention_reference(*args, sm_scale=0.25)
+    mirror = paged_attention_reference(*args, sm_scale=0.25,
+                                       round_operands=True, block_k=4)
+    np.testing.assert_allclose(mirror.numpy(), dense.numpy(), atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_split_plan_puts_every_page_in_one_split(seed, monkeypatch):
+    # The planner is plain host arithmetic: it must not touch the device
+    # (a read would stall the host-bound decode step), so here every CUDA
+    # query raises.
+    def no_device(*_a, **_k):
+        raise AssertionError("plan_splits read the device")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        n_pg = int(rng.integers(0, 600))
+        page_size = int(rng.choice([1, 4, 8, 16, 32]))
+        b, kv = int(rng.integers(1, 65)), int(rng.choice([1, 2, 8, 32]))
+        n_sm = int(rng.choice([1, 16, 132]))
+        n_split, pages = plan_splits(n_pg, page_size, b, kv, n_sm)
+        assert type(n_split) is int and type(pages) is int
+        assert n_split >= 1 and pages >= 1
+        owner = [p // pages for p in range(n_pg)]
+        assert all(0 <= s < n_split for s in owner)
+        assert sorted(set(owner)) == list(range(n_split)) or n_pg == 0
+        if n_split > 1:
+            assert pages * page_size >= SPLIT_MIN_SLOTS
+    # One split where batch x kv heads fill the card; several where not.
+    assert plan_splits(128, 16, 64, 32, 132)[0] == 1
+    assert plan_splits(128, 16, 1, 32, 132)[0] > 1
+
+
+@pytest.mark.parametrize("n_split,pages", [(1, 8), (3, 3), (4, 2), (8, 1)])
+@pytest.mark.parametrize("heads,kv,t", [(4, 4, 1), (8, 2, 1), (4, 1, 3)])
+def test_split_walk_and_combine_match_dense(n_split, pages, heads, kv, t):
+    # Ragged contexts shorter than the table, so that the last splits of
+    # every sequence start past its last visible slot and are dropped.
+    rng = np.random.default_rng(n_split * 10 + heads + t)
+    args = _setup(rng, b=4, t=t, heads=heads, kv=kv, d=16, page_size=4,
+                  pages_per_seq=8, ctx=np.array([1, 5, 17, 19]))
+    targs = [torch.from_numpy(x) for x in args]
+    got = paged_decode_split_reference(*targs, sm_scale=0.25,
+                                       n_split=n_split, pages_per_split=pages)
+    want = paged_attention_reference(*targs, sm_scale=0.25)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
