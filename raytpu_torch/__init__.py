@@ -1,16 +1,17 @@
 """raytpu_torch: the PyTorch + CUDA port of raytpu, for an NVIDIA H100.
 
-Three slices are ported: serving Llama through the paged inference
-engine, training GPT-2, and training Llama:
+Ported so far: serving Llama and GPT-2 through the paged inference
+engine, and training GPT-2, Llama and Mixtral on one card:
 
 - :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
   two kernels, dQ and dK/dV), paged attention and RMSNorm, each a CUDA
   kernel written by hand for Hopper beside a plain PyTorch version;
-- :mod:`raytpu_torch.models` — the Llama decoder (its inference forwards,
-  and its training forward, loss and train step), GPT-2 with its loss
-  and train step, and the converters that carry JAX weights across. The
-  top-level ``make_train_step`` is GPT-2's; Llama's is
-  ``raytpu_torch.models.llama.make_train_step``, as in the JAX package;
+- :mod:`raytpu_torch.models` — the Llama decoder and GPT-2 (each with
+  its inference forwards, training forward, loss and train step),
+  Mixtral (training forward, loss and train step), and the converters
+  that carry JAX weights across. The top-level ``make_train_step`` is
+  GPT-2's; Llama's and Mixtral's are in ``raytpu_torch.models.llama``
+  and ``raytpu_torch.models.mixtral``, as in the JAX package;
 - :mod:`raytpu_torch.inference` — paged KV cache, prefix cache,
   continuous-batching scheduler, sampling and :class:`InferenceEngine`.
 
@@ -53,8 +54,11 @@ from raytpu_torch.models.gpt2 import (GPT2, GPT2Config,  # noqa: E402
                                       make_train_step)
 from raytpu_torch.models.llama import (Llama, LlamaConfig,  # noqa: E402
                                        llama_loss_fn)
+from raytpu_torch.models.mixtral import (Mixtral,  # noqa: E402
+                                         MixtralConfig, mixtral_loss_fn)
 
 __all__ = ["GPT2", "GPT2Config", "InferenceEngine", "Llama", "LlamaConfig",
-           "PagedKVCache", "PrefixCache", "SamplingParams", "Scheduler",
-           "Sequence", "StepOutput", "llama_loss_fn", "make_train_step",
+           "Mixtral", "MixtralConfig", "PagedKVCache", "PrefixCache",
+           "SamplingParams", "Scheduler", "Sequence", "StepOutput",
+           "llama_loss_fn", "make_train_step", "mixtral_loss_fn",
            "resolve_device"]

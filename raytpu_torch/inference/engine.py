@@ -26,7 +26,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence as SequenceT
+from typing import Dict, List, Optional, Sequence as SequenceT, Union
 
 import numpy as np
 import torch
@@ -36,8 +36,11 @@ from raytpu_torch.inference.kv_cache import PagedKVCache
 from raytpu_torch.inference.prefix_cache import PrefixCache
 from raytpu_torch.inference.sampling import SamplingParams, sample_token
 from raytpu_torch.inference.scheduler import Scheduler, Sequence
+from raytpu_torch.models.common import write_kv
+from raytpu_torch.models.gpt2 import (GPT2, gpt2_decode, gpt2_prefill,
+                                      gpt2_prefill_chunk)
 from raytpu_torch.models.llama import (Llama, llama_decode, llama_prefill,
-                                       llama_prefill_chunk, write_kv)
+                                       llama_prefill_chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +76,13 @@ class InferenceEngine:
     Drive it with :meth:`add_request` + :meth:`step` (one scheduler
     iteration per call), or use :meth:`generate` to run a closed batch
     to completion. ``model`` is a :class:`~raytpu_torch.models.llama.
-    Llama` on ``device`` (``cuda`` unless ``"cpu"`` is asked for); its
-    config's ``attn_impl`` / ``paged_attn`` pick the attention versions.
+    Llama` or a :class:`~raytpu_torch.models.gpt2.GPT2` on ``device``
+    (``cuda`` unless ``"cpu"`` is asked for), the two families the JAX
+    engine serves; its config's ``attn_impl`` / ``paged_attn`` pick the
+    attention versions.
     """
 
-    def __init__(self, model: Llama, *, page_size: int = 16,
+    def __init__(self, model: Union[Llama, GPT2], *, page_size: int = 16,
                  num_pages: Optional[int] = None, max_num_seqs: int = 8,
                  max_model_len: Optional[int] = None,
                  prefill_buckets: Optional[SequenceT[int]] = None,
@@ -89,13 +94,23 @@ class InferenceEngine:
         if tp != 1 or mesh is not None:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP.md)")
-        if not isinstance(model, Llama):
+        c = model.config
+        # The forwards by model family, as the JAX engine picks them by
+        # config type (a Mixtral is neither: the engine refuses it).
+        if type(model) is Llama:
+            self._prefill_fwd, self._decode_fwd = llama_prefill, llama_decode
+            self._chunk_fwd = llama_prefill_chunk
+            kv_heads, head_dim = c.n_kv_head, c.head_dim
+        elif type(model) is GPT2:
+            self._prefill_fwd, self._decode_fwd = gpt2_prefill, gpt2_decode
+            self._chunk_fwd = gpt2_prefill_chunk
+            kv_heads, head_dim = c.n_head, c.n_embd // c.n_head
+        else:
             raise TypeError(f"unsupported model: {type(model).__name__} "
-                            f"(this slice of the port serves Llama)")
+                            f"(the engine serves Llama and GPT-2)")
         if model.device != self.device:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
-        c = model.config
         self.model = model
         self.max_model_len = min(max_model_len or c.block_size, c.block_size)
         self.page_size = page_size
@@ -103,7 +118,7 @@ class InferenceEngine:
         if num_pages is None:
             num_pages = max_num_seqs * self.max_pages_per_seq + 1
         self.cache = PagedKVCache(c.n_layer, num_pages, page_size,
-                                  c.n_kv_head, c.head_dim, dtype=c.dtype,
+                                  kv_heads, head_dim, dtype=c.dtype,
                                   device=self.device)
         self.prefix_cache = (PrefixCache(self.cache)
                              if enable_prefix_cache else None)
@@ -215,7 +230,7 @@ class InferenceEngine:
         tokens[0, :plen] = seq.tokens[:plen]
         dests = self._put(self.cache.prefill_dests(
             seq.request_id, plen, bucket).astype(np.int64))
-        logits, ks, vs = llama_prefill(self.model, self._put(tokens))
+        logits, ks, vs = self._prefill_fwd(self.model, self._put(tokens))
         for pool_k, pool_v, k, v in zip(self.cache.k, self.cache.v, ks, vs):
             write_kv(pool_k, dests, k[0])
             write_kv(pool_v, dests, v[0])
@@ -236,13 +251,16 @@ class InferenceEngine:
         bucket = _bucket_for(take, self.chunk_buckets)
         tokens = np.zeros((1, bucket), dtype=np.int64)
         tokens[0, :take] = seq.tokens[start:start + take]
+        # Padding rows keep position 0: GPT-2 looks ``wpe`` up at every
+        # position, and torch, unlike JAX, does not clamp an index out of
+        # range.
         positions = np.zeros(bucket, dtype=np.int32)
         positions[:take] = np.arange(start, start + take)
         dests = self.cache.chunk_dests(seq.request_id, start, take, bucket)
         p_used = _bucket_for(self.cache.num_seq_pages(seq.request_id),
                              self.page_buckets)
         tables = self.cache.table_array([seq.request_id], p_used)
-        logits = llama_prefill_chunk(
+        logits = self._chunk_fwd(
             self.model, self._put(tokens), self._put(positions),
             self._put(dests.astype(np.int64)), self._put(tables),
             self.cache.k, self.cache.v)
@@ -263,7 +281,7 @@ class InferenceEngine:
         P = _bucket_for(max(self.cache.num_seq_pages(s.request_id)
                             for s in seqs), self.page_buckets)
         tokens = np.zeros(bucket, dtype=np.int64)
-        positions = np.zeros(bucket, dtype=np.int32)
+        positions = np.zeros(bucket, dtype=np.int32)  # padding: 0, as above
         dests = np.zeros(bucket, dtype=np.int64)  # page-0 slot 0 = scratch
         context_lens = np.ones(bucket, dtype=np.int32)
         for i, seq in enumerate(seqs):
@@ -274,7 +292,7 @@ class InferenceEngine:
             context_lens[i] = pos + 1
         tables = self.cache.table_array(
             [s.request_id for s in seqs], P, batch=bucket)
-        logits = llama_decode(
+        logits = self._decode_fwd(
             self.model, self._put(tokens), self._put(positions),
             self._put(dests), self._put(tables), self._put(context_lens),
             self.cache.k, self.cache.v)

@@ -1,5 +1,6 @@
 """What the port's models share: the JAX package's init of a projection,
-rematerialisation of a block, and the train step.
+rematerialisation of a block, the train step, and the write of new K/V
+into the paged cache.
 
 Remat follows the JAX package's ``remat`` option:
 
@@ -91,3 +92,12 @@ def make_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return loss.detach()
 
     return train_step
+
+
+def write_kv(pages: torch.Tensor, dests: torch.Tensor,
+             x: torch.Tensor) -> None:
+    """Write ``x`` [N, KV, D] into the flat slots ``dests`` [N] (int64)
+    of ``pages`` [num_pages, page_size, KV, D], IN PLACE: the JAX code's
+    functional ``pages.at[dests].set(x)`` becomes ``index_copy_``.
+    Padding rows all name slots of scratch page 0."""
+    pages.view(-1, *pages.shape[2:]).index_copy_(0, dests, x.to(pages.dtype))

@@ -1,16 +1,19 @@
 """Carry weights across from the JAX package's parameter trees.
 
-:func:`llama_state_from_jax` and :func:`gpt2_state_from_jax` take the tree
-that ``raytpu.models.{llama,gpt2}.init_params`` (or a checkpoint) gives,
-with its leaves already turned into numpy arrays, and return a
-``state_dict`` for :class:`raytpu_torch.models.llama.Llama` or
-:class:`raytpu_torch.models.gpt2.GPT2`. Both read the two layouts of the
-layer parameters: scanned (``"layers"`` / ``"h"``, every leaf with a
-leading layer axis; the default ``scan_layers=True``) and unrolled
+:func:`llama_state_from_jax`, :func:`gpt2_state_from_jax` and
+:func:`mixtral_state_from_jax` take the tree that
+``raytpu.models.{llama,gpt2,mixtral}.init_params`` (or a checkpoint)
+gives, with its leaves already turned into numpy arrays, and return a
+``state_dict`` for the port's :class:`~raytpu_torch.models.llama.Llama`,
+:class:`~raytpu_torch.models.gpt2.GPT2` or
+:class:`~raytpu_torch.models.mixtral.Mixtral`. All read the two layouts
+of the layer parameters: scanned (``"layers"`` / ``"h"``, every leaf with
+a leading layer axis; the default ``scan_layers=True``) and unrolled
 (``"layers_{i}"`` / ``"h_{i}"``). Flax ``Dense`` kernels are
-``[in, out]`` and become weights ``[out, in]``; biases, embeddings and
-norm parameters carry over as they are. The same maps carry gradients,
-which have the tree's structure.
+``[in, out]`` and become weights ``[out, in]``; biases, embeddings, norm
+parameters and Mixtral's stacked expert weights (``wi``, ``wg`` ``[E, D,
+F]``, ``wo`` ``[E, F, D]``) carry over as they are. The same maps carry
+gradients, which have the tree's structure.
 """
 
 from __future__ import annotations
@@ -45,6 +48,27 @@ def _layer(params: Mapping, i: int, name: str = "layers") -> Mapping:
 
 def llama_state_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``Llama(config)`` from a numpy Flax tree."""
+    return _decoder_state(params, config, _LINEARS)
+
+
+def mixtral_state_from_jax(params: Mapping,
+                           config) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``Mixtral(config)`` from a numpy Flax tree: the
+    Llama layout, with each layer's ``moe`` (the router's kernel ``[D, E]``
+    becomes a weight ``[E, D]``) where a Llama layer has its ``mlp``."""
+    state = _decoder_state(params, config, {"attn": _LINEARS["attn"]})
+    for i in range(config.n_layer):
+        moe = _layer(params, i)["moe"]
+        state[f"layers.{i}.moe.router.weight"] = \
+            _tensor(moe["router"]["kernel"]).T.contiguous()
+        for name in ("wi", "wg", "wo"):
+            state[f"layers.{i}.moe.{name}"] = _tensor(moe[name])
+    return state
+
+
+def _decoder_state(params: Mapping, config,
+                   linears: Mapping) -> Dict[str, torch.Tensor]:
+    """Embedding, head, norms and the ``linears`` of every layer."""
     state = {
         "embed_tokens.weight": _tensor(params["embed_tokens"]["embedding"]),
         "final_norm.scale": _tensor(params["final_norm"]["scale"]),
@@ -54,7 +78,7 @@ def llama_state_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
         lp = _layer(params, i)
         for norm in _NORMS:
             state[f"layers.{i}.{norm}.scale"] = _tensor(lp[norm]["scale"])
-        for group, names in _LINEARS.items():
+        for group, names in linears.items():
             for name in names:
                 kernel = _tensor(lp[group][name]["kernel"])
                 state[f"layers.{i}.{group}.{name}.weight"] = \

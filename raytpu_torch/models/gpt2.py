@@ -1,5 +1,5 @@
-"""GPT-2 for training, the port of the training half of
-:mod:`raytpu.models.gpt2`.
+"""GPT-2, the port of :mod:`raytpu.models.gpt2`: training, and the three
+inference forwards the engine runs.
 
 Parameters are fp32 and compute runs in ``config.dtype`` (bf16 by
 default), as with Flax's default ``param_dtype``: every layer casts its
@@ -15,7 +15,15 @@ backward runs the hand-written dQ and dK/dV kernels on the card.
 - :func:`gpt2_loss_fn` — next-token cross-entropy (``loss_chunk > 0``
   computes the head a chunk of rows at a time, each chunk recomputed in
   the backward pass);
-- :func:`make_train_step` — one step of loss, backward and optimizer.
+- :func:`make_train_step` — one step of loss, backward and optimizer;
+- :func:`gpt2_prefill`, :func:`gpt2_prefill_chunk` and
+  :func:`gpt2_decode` — the inference forwards over a :class:`GPT2`, with
+  the signatures of the Llama ones (:mod:`raytpu_torch.models.llama`):
+  a whole prompt through :func:`raytpu_torch.ops.flash_attention`, a
+  chunk of a prompt and one token per sequence through
+  :func:`raytpu_torch.ops.paged_attention`. GPT-2 has no RoPE: ``wpe``
+  is looked up at the absolute positions, and KV heads equal query
+  heads.
 
 In torch the model and the optimizer hold the state, so the train step
 is ``train_step(tokens) -> loss`` where the JAX package passes
@@ -25,7 +33,7 @@ is ``train_step(tokens) -> loss`` where the JAX package passes
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,8 +42,9 @@ from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch import resolve_device
 from raytpu_torch.models.common import (lecun_normal_, make_step,
-                                        remat_call, remat_mode)
+                                        remat_call, remat_mode, write_kv)
 from raytpu_torch.ops.flash_attention import flash_attention
+from raytpu_torch.ops.paged_attention import paged_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +60,12 @@ class GPT2Config:
     # "dots" saves the matmul outputs; False/"none" saves every
     # activation. Dropout is not ported.
     remat: Any = True
-    # Attention implementation: None runs the CUDA kernels on a CUDA
-    # tensor and the plain versions on a CPU tensor; "reference" runs the
-    # plain versions on either (to compare the two on the card).
+    # Kernel choice of attention and of paged attention (serving): None
+    # runs the CUDA kernels on a CUDA tensor and the plain versions on a
+    # CPU tensor; "reference" runs the plain versions on either (to
+    # compare the two on the card).
     attn_impl: Optional[str] = None
+    paged_attn: Optional[str] = None
     # Cross-entropy chunking: 0 = one [B, T, V] fp32 logits buffer; N > 0 =
     # the head N rows at a time, recomputed in the backward pass.
     loss_chunk: int = 0
@@ -115,21 +126,64 @@ class LayerNorm(nn.Module):
 
 
 class CausalSelfAttention(nn.Module):
+    """Multi-head attention: the training forward and the three inference
+    entry points. KV heads equal query heads; no RoPE."""
+
     def __init__(self, c: GPT2Config):
         super().__init__()
         self.n_head = c.n_head
         self.c_attn = Dense(c.n_embd, 3 * c.n_embd, c.dtype)
         self.c_proj = Dense(c.n_embd, c.n_embd, c.dtype)
 
+    def _qkv(self, x):
+        """``x`` [..., E] -> q, k, v, each [..., H, D]."""
+        e = x.shape[-1]
+        return (y.unflatten(-1, (self.n_head, e // self.n_head))
+                for y in self.c_attn(x).split(e, dim=-1))
+
     def forward(self, x, attn_impl: Optional[str] = None):
+        return self.prefill(x, attn_impl)[0]
+
+    def prefill(self, x, attn_impl: Optional[str] = None):
+        """Causal attention over ``x`` [B, T, E]; returns ``(out [B, T, E],
+        k [B, T, H, D], v [B, T, H, D])``, k and v as the paged cache
+        holds them."""
         b, t, e = x.shape
-        h = self.n_head
-        q, k, v = self.c_attn(x).split(e, dim=-1)
-        # [B, T, E] -> [B, H, T, D], contiguous for the kernels.
-        q, k, v = (y.reshape(b, t, h, e // h).transpose(1, 2).contiguous()
-                   for y in (q, k, v))
-        y, _ = flash_attention(q, k, v, causal=True, force=attn_impl)
-        return self.c_proj(y.transpose(1, 2).reshape(b, t, e))
+        q, k, v = self._qkv(x)
+        # [B, T, H, D] -> [B, H, T, D], contiguous for the kernels.
+        y, _ = flash_attention(*(z.transpose(1, 2).contiguous()
+                                 for z in (q, k, v)),
+                               causal=True, force=attn_impl)
+        return self.c_proj(y.transpose(1, 2).reshape(b, t, e)), k, v
+
+    def prefill_chunk(self, x, k_pages, v_pages, dests, block_tables,
+                      positions, paged_attn: Optional[str] = None):
+        """Attention of one prompt CHUNK ``x`` [1, T, E] at absolute
+        ``positions`` [T] (int32) against the paged cache: the chunk's K/V
+        go to ``dests`` [T] first, then each token sees every cached slot
+        <= its position through ``block_tables`` [1, P]. Returns
+        ``out [1, T, E]``."""
+        b, t, e = x.shape
+        q, k, v = self._qkv(x)
+        write_kv(k_pages, dests, k[0])
+        write_kv(v_pages, dests, v[0])
+        o = paged_attention(q.contiguous(), k_pages, v_pages, block_tables,
+                            positions[None, :], force=paged_attn)
+        return self.c_proj(o.reshape(b, t, e))
+
+    def decode_step(self, x, k_pages, v_pages, dests, block_tables,
+                    context_lens, paged_attn: Optional[str] = None):
+        """One token per sequence: ``x`` [B, E]; its K/V go to ``dests``
+        [B], then it attends to slots 0..context_lens-1 (int32) through
+        ``block_tables`` [B, P]. Returns ``out [B, E]``."""
+        b, e = x.shape
+        q, k, v = self._qkv(x)
+        write_kv(k_pages, dests, k)
+        write_kv(v_pages, dests, v)
+        o = paged_attention(q[:, None].contiguous(), k_pages, v_pages,
+                            block_tables, (context_lens - 1)[:, None],
+                            force=paged_attn)
+        return self.c_proj(o[:, 0].reshape(b, e))
 
 
 class MLP(nn.Module):
@@ -151,7 +205,13 @@ class Block(nn.Module):
         self.mlp = MLP(c)
 
     def forward(self, x, attn_impl: Optional[str] = None):
-        x = x + self.attn(self.ln_1(x), attn_impl)
+        return self.run(x, lambda attn, h: attn(h, attn_impl))
+
+    def run(self, x, attend):
+        """The block (the JAX package's ``_block_apply``) with
+        ``attend(attn, h)`` for its attention on the normed input ``h``:
+        the training forward, a prefill, a chunk or a decode step."""
+        x = x + attend(self.attn, self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
 
@@ -230,13 +290,18 @@ class GPT2(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
+    def embed(self, tokens, positions):
+        """``wte[tokens] + wpe[positions]``, both in the compute dtype."""
+        dt = self.config.dtype
+        return (F.embedding(tokens, self.wte.weight).to(dt)
+                + F.embedding(positions, self.wpe.weight).to(dt))
+
     def forward(self, tokens, return_hidden: bool = False):
         """``tokens`` [B, T] -> fp32 logits [B, T, V] (or, with
         ``return_hidden``, the final LayerNorm's output [B, T, E])."""
         c = self.config
-        t = tokens.shape[1]
-        x = (F.embedding(tokens, self.wte.weight).to(c.dtype)
-             + self.wpe.weight[:t].to(c.dtype))
+        x = self.embed(tokens, torch.arange(tokens.shape[1],
+                                            device=tokens.device))
         for block in self.h:
             x = remat_call(block, c.remat, x, c.attn_impl)
         x = self.ln_f(x)
@@ -299,3 +364,54 @@ def make_train_step(model: GPT2, optimizer: torch.optim.Optimizer
     device (reading it waits for the step)."""
     return make_step(model, optimizer, gpt2_loss_fn)
 
+
+def _head(model: GPT2, x):
+    c = model.config
+    return tied_logits(model.ln_f(x), model.wte.weight, c.dtype)
+
+
+def gpt2_prefill(model: GPT2, tokens):
+    """Prefill forward: ``tokens`` [B, T] -> (fp32 logits [B, T, V],
+    per-layer K [B, T, H, D] list, per-layer V list)."""
+    c = model.config
+    t = tokens.shape[1]
+    x = model.embed(tokens, torch.arange(t, device=tokens.device)[None])
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+
+    def attend(attn, h):
+        y, k, v = attn.prefill(h, c.attn_impl)
+        ks.append(k)
+        vs.append(v)
+        return y
+
+    for block in model.h:
+        x = block.run(x, attend)
+    return _head(model, x), ks, vs
+
+
+def gpt2_prefill_chunk(model: GPT2, tokens, positions, dests, block_tables,
+                       k_caches, v_caches):
+    """Chunked-prefill forward: ``tokens`` [1, T] at absolute
+    ``positions`` [T] -> fp32 logits [1, T, V]; positions feed both the
+    ``wpe`` lookup and the causal mask. The chunk's K/V are written into
+    ``k_caches`` / ``v_caches`` (one pool per layer) in place."""
+    c = model.config
+    x = model.embed(tokens, positions[None])
+    for block, kc, vc in zip(model.h, k_caches, v_caches):
+        x = block.run(x, lambda attn, h: attn.prefill_chunk(
+            h, kc, vc, dests, block_tables, positions, c.paged_attn))
+    return _head(model, x)
+
+
+def gpt2_decode(model: GPT2, tokens, positions, dests, block_tables,
+                context_lens, k_caches, v_caches):
+    """Single-token decode forward: ``tokens`` [B] at ``positions`` [B]
+    (the ``wpe`` lookup) -> fp32 logits [B, V]; each token's K/V are
+    written into the pools in place."""
+    c = model.config
+    x = model.embed(tokens, positions)
+    for block, kc, vc in zip(model.h, k_caches, v_caches):
+        x = block.run(x, lambda attn, h: attn.decode_step(
+            h, kc, vc, dests, block_tables, context_lens, c.paged_attn))
+    return _head(model, x)

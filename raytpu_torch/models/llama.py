@@ -25,7 +25,8 @@ The three inference forwards the engine runs are plain functions over a
 - :func:`llama_decode` — one token per sequence against the paged cache.
 
 Where the JAX code returns updated page pools (``.at[dests].set``), the
-port writes the new K/V into the pools in place (:func:`write_kv`).
+port writes the new K/V into the pools in place
+(:func:`raytpu_torch.models.common.write_kv`).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from torch import nn
 
 from raytpu_torch import resolve_device
 from raytpu_torch.models.common import (lecun_normal_, make_step,
-                                        remat_call, remat_mode)
+                                        remat_call, remat_mode, write_kv)
 from raytpu_torch.models.gpt2 import _chunked_xent, mean_nll
 from raytpu_torch.ops.flash_attention import flash_attention
 from raytpu_torch.ops.fused import rmsnorm
@@ -160,15 +161,6 @@ def apply_rope_single(x, cos, sin):
     cos = cos[:, None].to(x.dtype)
     sin = sin[:, None].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def write_kv(pages: torch.Tensor, dests: torch.Tensor,
-             x: torch.Tensor) -> None:
-    """Write ``x`` [N, KV, D] into the flat slots ``dests`` [N] (int64)
-    of ``pages`` [num_pages, page_size, KV, D], IN PLACE: the JAX code's
-    functional ``pages.at[dests].set(x)`` becomes ``index_copy_``.
-    Padding rows all name slots of scratch page 0."""
-    pages.view(-1, *pages.shape[2:]).index_copy_(0, dests, x.to(pages.dtype))
 
 
 class LlamaAttention(nn.Module):
@@ -292,6 +284,9 @@ class Llama(nn.Module):
     the serving layout; training passes ``torch.float32``, Flax's
     default."""
 
+    # Built as ``block_class(config, param_dtype, scale_dtype)`` per layer.
+    block_class = LlamaBlock
+
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -302,7 +297,7 @@ class Llama(nn.Module):
         with torch.device("meta"):
             self.embed_tokens = nn.Embedding(c.vocab_size, c.n_embd,
                                              dtype=wdt)
-            self.layers = nn.ModuleList(LlamaBlock(c, wdt, sdt)
+            self.layers = nn.ModuleList(self.block_class(c, wdt, sdt)
                                         for _ in range(c.n_layer))
             self.final_norm = RMSNorm(c.n_embd, c.dtype, param_dtype=sdt)
             self.lm_head = Linear(c.n_embd, c.vocab_size, c.dtype, wdt)
@@ -310,12 +305,17 @@ class Llama(nn.Module):
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if name.endswith(".scale"):
-                    p.fill_(1.0)
-                elif name.startswith("embed_tokens."):
-                    p.normal_(0.0, c.n_embd ** -0.5, generator=g)
-                else:
-                    lecun_normal_(p, g)
+                self.init_param(name, p, g)
+
+    def init_param(self, name: str, p: torch.Tensor,
+                   g: torch.Generator) -> None:
+        """Draw the parameter ``name`` from ``g`` in place."""
+        if name.endswith(".scale"):
+            p.fill_(1.0)
+        elif name.startswith("embed_tokens."):
+            p.normal_(0.0, self.config.n_embd ** -0.5, generator=g)
+        else:
+            lecun_normal_(p, g)
 
     @property
     def device(self) -> torch.device:

@@ -4,7 +4,8 @@ raytpu.inference.InferenceEngine, on tiny Llama in fp32 with the same
 weights: staggered requests across decode batch buckets, a prefix-cache
 hit, chunked prefill, preemption-resume and seeded temperature sampling
 (the scenarios of tests/test_inference.py and
-tests/test_paged_attention.py)."""
+tests/test_paged_attention.py). tests/test_torch_gpt2_serve.py runs the
+same cases on tiny GPT-2: ``_both`` takes the family from ``weights``."""
 
 import dataclasses
 
@@ -32,11 +33,12 @@ GREEDY = dict(max_new_tokens=8)
 
 @pytest.fixture(scope="module")
 def weights():
+    """(JAX config, JAX params, the port's model with the same weights)."""
     params = init_params(JaxLlama(JCFG), JCFG, seed=0, batch=1)
     model = Llama(PCFG, device="cpu")
     model.load_state_dict(llama_state_from_jax(
         jax.tree_util.tree_map(np.asarray, params), PCFG))
-    return params, model
+    return JCFG, params, model
 
 
 def _run(engine, sampling, arrivals):
@@ -55,8 +57,8 @@ def _run(engine, sampling, arrivals):
 
 
 def _both(weights, arrivals, sampling_kw, sequential=False, **engine_kw):
-    params, model = weights
-    jax_eng = JaxEngine(JCFG, params, **engine_kw)
+    jax_cfg, params, model = weights
+    jax_eng = JaxEngine(jax_cfg, params, **engine_kw)
     port_eng = InferenceEngine(model, device="cpu", **engine_kw)
     runs = []
     for eng, sampling in ((jax_eng, JaxSampling(**sampling_kw)),

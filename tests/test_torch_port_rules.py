@@ -92,6 +92,25 @@ def test_engine_refuses_what_is_not_ported():
         InferenceEngine(model, tp=2, device="cpu")
 
 
+def test_engine_serves_gpt2_on_the_cpu_when_asked():
+    from raytpu_torch.inference import InferenceEngine
+    from raytpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    model = GPT2(GPT2Config.tiny(), device="cpu")
+    eng = InferenceEngine(model, device="cpu")
+    assert eng.device.type == "cpu"
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(model, tp=2, device="cpu")
+
+
+def test_every_model_module_is_held_to_the_rules():
+    # The AST scan and the fresh-interpreter import above cover every
+    # module of the package, the Mixtral port's included.
+    models = {p.name for p in PORT_FILES if p.parent.name == "models"}
+    assert {"gpt2.py", "llama.py", "mixtral.py", "common.py",
+            "convert.py"} <= models
+
+
 def test_kernel_sources_and_hopper_build_command():
     for name in _native.KERNELS:
         assert (_native.CSRC / f"{name}.cu").is_file()
