@@ -7,9 +7,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. device: the card's name and power limit; no card, no run;
 2. build: every CUDA kernel, from ``raytpu_torch/ops/csrc``, one ``nvcc``
-   per source, all at once; each kernel's registers and spills, and the
+   per source, all at once; each kernel's registers and spills, the
    tensor-core (HMMA) instructions of every bf16 instance that must have
-   them;
+   them, and the bulk copies (UBLKCP) of every instance of the RMSNorm
+   ring;
 3. accumulation: the tensor cores' fp32 sums of bf16 products, through
    the kernels' own mma.sync helpers, against exact sums: the rounding
    model that the limits below rest on (``FP32_DOT_REL``);
@@ -19,10 +20,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    full-attention, a D=128 and a cross-length case for the backward
    kernels), at the Llama train shape, at GPT-2 serving's (D = 64, one
    query head a KV head) and at the Mixtral train shape, with the
-   kernel's, the plain version's and the library yardstick's times
-   (``scaled_dot_product_attention``, ``F.rms_norm``) and the bound; the
-   bf16 flash kernels also against their rounding mirrors; RMSNorm also
-   in fp32 and at a D that is not a multiple of 8; six faults planted in
+   kernel's (CUDA events, device time from the profiler, and the
+   wrapper's host time a call), the plain version's and the library
+   yardstick's times (``scaled_dot_product_attention``, ``F.rms_norm``)
+   and the bound; the bf16 flash kernels also against their rounding
+   mirrors; RMSNorm also in fp32 and at a D that is not a multiple of 8
+   (its element path); six faults planted in
    the kernels' output, which the limits must see; and gradients through
    the autograd Functions against the plain ones;
 5. serve: Llama-2-7B at full width and depth (random weights from a
@@ -311,21 +314,55 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
+def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
     """Mean device time of ``fn`` in ms from the profiler: the kernels
-    whose names hold ``kernel``, summed, per call. Unlike time_ms, the
-    host's time between launches is left out, so it reads the kernels
-    themselves where a call's host work outlasts them."""
+    whose names hold ``kernel`` (every kernel for ``""``), summed, per
+    call. Unlike time_ms, the host's time between launches is left out,
+    so it reads the kernels themselves where a call's host work outlasts
+    them. The trace now and then comes back without some of the kernels
+    (all of them once, one in 20 three times in a row, in runs of this
+    script): a reading with fewer kernels than calls is taken again, up
+    to ``tries`` times, and the fullest one is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    best = (0, 0.0)  # (kernels seen, their device µs)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if kernel in e.key and e.self_device_time_total > 0]
+        best = max(best, (sum(e.count for e in found),
+                          sum(e.self_device_time_total for e in found)))
+        if best[0] >= iters:
+            break
+    seen, us = best
+    if not seen:
+        raise AssertionError(f"the profiler saw no kernel named {kernel!r} "
+                             f"in {iters} calls, {tries} times")
+    # A kernel missing from the trace: the mean over the kernels seen,
+    # times the kernels a call launches.
+    return us / seen * max(1, round(seen / iters)) / 1e3
+
+
+def host_us(fn, calls: int = 50, repeats: int = 5) -> float:
+    """The host's time a call of ``fn`` in µs: ``time.perf_counter_ns``
+    over ``calls`` back-to-back calls started on an idle device (too few
+    to fill the launch queue, so the device's time does not enter), the
+    median of ``repeats`` such runs."""
+    fn()
+    runs = []
+    for _ in range(repeats):
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel in e.key) / iters / 1e3
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter_ns() - t0) / calls / 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -359,6 +396,11 @@ def phase_device() -> str:
 # dK/dV.
 TENSOR_CORE_LIBRARIES = ("flash_attention", "paged_attention", "flash_bwd_dq",
                          "flash_bwd_dkv")
+# The SASS of cp.async.bulk from global to shared memory on sm_90a, and
+# the RMSNorm ring's instances: x and the scale each fp32 or bf16, times
+# 1, 2, 4 or any number of 16-byte units a thread.
+BULK_COPY_SASS = "UBLKCP"
+RING_INSTANCES = 16
 
 
 def phase_build() -> dict:
@@ -376,7 +418,7 @@ def phase_build() -> dict:
     # Every bf16 instance of these must hold HMMA instructions in the
     # compiled code.
     for name in TENSOR_CORE_LIBRARIES:
-        counts = hmma_counts(_native.library_path(name))
+        counts = sass_counts(_native.library_path(name), "HMMA")
         log(f"[build] {name}: HMMA instructions per kernel "
             f"{json.dumps(counts)}")
         tensor_core = [n for f, n in counts.items() if "mma_kernel" in f]
@@ -385,6 +427,17 @@ def phase_build() -> dict:
                                  f"instruction: {counts}")
         for f, n in counts.items():
             report[name].setdefault(f, {})["hmma"] = n
+    # Every instance of the RMSNorm ring must fill its stages by the TMA's
+    # bulk copy: cp.async.bulk (global -> shared) compiles to UBLKCP.
+    counts = sass_counts(_native.library_path("rmsnorm"), BULK_COPY_SASS)
+    log(f"[build] rmsnorm: {BULK_COPY_SASS} instructions per kernel "
+        f"{json.dumps(counts)}")
+    ring = [n for f, n in counts.items() if "ring_kernel" in f]
+    if len(ring) != RING_INSTANCES or not all(ring):
+        raise AssertionError(f"rmsnorm: a ring instance has no bulk copy "
+                             f"({BULK_COPY_SASS}): {counts}")
+    for f, n in counts.items():
+        report["rmsnorm"].setdefault(f, {})["bulk_copies"] = n
     return report
 
 
@@ -423,9 +476,9 @@ def ptxas_report(library) -> dict:
     return out
 
 
-def hmma_counts(library) -> dict:
-    """HMMA (tensor-core) instructions in each kernel of a built library,
-    from ``cuobjdump -sass``."""
+def sass_counts(library, opcode: str) -> dict:
+    """Instructions named ``opcode`` (HMMA: the tensor cores) in each
+    kernel of a built library, from ``cuobjdump -sass``."""
     from raytpu_torch.ops import _native
 
     tool = pathlib.Path(_native.find_nvcc()).with_name("cuobjdump")
@@ -436,7 +489,7 @@ def hmma_counts(library) -> dict:
         if "Function :" in line:
             kernel = _kernel_name(line.split(":")[-1].strip())
             counts[kernel] = 0
-        elif kernel is not None and "HMMA" in line:
+        elif kernel is not None and opcode in line:
             counts[kernel] += 1
     return counts
 
@@ -710,11 +763,14 @@ def flash_case(t: int, gen, h: int = 32, d: int = 128, b: int = 1,
     if causal and t != t_kv:
         mask = torch.ones((t, t_kv), dtype=torch.bool,
                           device="cuda").tril(t_kv - t)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+    def fwd():
+        return flash_attention(q, k, v, causal=causal)
+
+    ms = time_ms(fwd)
+    with torch.no_grad():  # as the engine calls it
+        host = host_us(fwd)
     row.update(
-        ms=ms,
-        device_ms=device_ms(lambda: flash_attention(q, k, v, causal=causal),
-                            "flash_forward"),
+        ms=ms, device_ms=device_ms(fwd, "flash_forward"), host_us=host,
         plain_ms=time_ms(lambda: flash_attention(
             q, k, v, causal=causal, force="reference"), iters=5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -731,9 +787,9 @@ def paged_case(b: int, t: int, h: int, kv: int, gen, rng, q_start=None,
     norm); page ids outside the pool must be clamped into it. ``plant``:
     also the readings of the kernel's output without one split's slots
     ("split", the second) or without the first 64 slots ("tile")."""
+    from raytpu_torch.ops import _native
     from raytpu_torch.ops.paged_attention import (
-        DECODE_ROWS, _heads_first, _sm_count, _visible, paged_attention,
-        plan_splits)
+        DECODE_ROWS, _heads_first, _visible, paged_attention, plan_splits)
 
     num_pages = b * n_pg + 1
     k_pages = _randn((num_pages, page_size, kv, d), gen)
@@ -760,7 +816,8 @@ def paged_case(b: int, t: int, h: int, kv: int, gen, rng, q_start=None,
     if not same:
         raise AssertionError("paged attention: out-of-pool page ids are "
                              "not clamped into the pool")
-    n_split, pages = (plan_splits(n_pg, page_size, b, kv, _sm_count(q.device))
+    n_split, pages = (plan_splits(n_pg, page_size, b, kv,
+                                  _native.sm_count(q.get_device()))
                       if t * h // kv <= DECODE_ROWS else (1, n_pg))
 
     def readings(o):
@@ -792,11 +849,12 @@ def paged_case(b: int, t: int, h: int, kv: int, gen, rng, q_start=None,
               + bt.numel() * 4 + pos.numel() * 4)
     flops = 4.0 * h * d * float(seen)
     bound, by = bound_ms(nbytes, flops)
-    ms = time_ms(lambda: paged_attention(q, k_pages, v_pages, bt, pos))
+    def paged():
+        return paged_attention(q, k_pages, v_pages, bt, pos)
+
+    ms = time_ms(paged)
     row.update(
-        ms=ms,
-        device_ms=device_ms(lambda: paged_attention(
-            q, k_pages, v_pages, bt, pos), "paged_"),
+        ms=ms, device_ms=device_ms(paged, "paged_"), host_us=host_us(paged),
         plain_ms=time_ms(lambda: paged_attention(
             q, k_pages, v_pages, bt, pos, force="reference")),
         library_ms=None, bound_ms=bound, bound_by=by,
@@ -1025,7 +1083,8 @@ def flash_bwd_cases(b: int, h: int, t_q: int, t_kv: int, d: int,
         rows[name] = {
             "case": f"{name} {shape}",
             **_readings(got, mirror[want], plain[want], allowance[want]),
-            "ms": ms,
+            "ms": ms, "device_ms": device_ms(fn, name),
+            "host_us": host_us(fn),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by,
             "tflops": flops / ms / 1e9, "share_of_bound": bound / ms,
@@ -1069,8 +1128,11 @@ def rmsnorm_case(rows: int, d: int, dtype, gen, plant: bool = False,
     ``plant``, also the reading of a fault planted in the kernel's
     output (the squares summed over d - 8 columns); with ``grad``, the
     autograd Function's gradients against autograd of the plain version
-    for a random output gradient. Times: the kernel, the plain version
-    and ``F.rms_norm`` (scale in x's dtype) on the same inputs."""
+    for a random output gradient. Times: the kernel (events, device and
+    the wrapper's host time a call, under ``no_grad`` as in serving and
+    with a scale that wants its gradient as in training), the plain
+    version and ``F.rms_norm`` (events and device; the scale cast to x's
+    dtype before the timing) on the same inputs."""
     import torch.nn.functional as F
 
     from raytpu_torch.ops.fused import rmsnorm, rmsnorm_reference
@@ -1103,13 +1165,26 @@ def rmsnorm_case(rows: int, d: int, dtype, gen, plant: bool = False,
     # fp32 operations an element outside the tensor cores.
     bound, by = bound_ms(2 * x.numel() * x.element_size() + 4 * d,
                          4.0 * x.numel(), PEAK_FP32_FLOPS)
+    def kernel():
+        return rmsnorm(x, scale, eps=eps)
+
+    leaf = scale.detach().requires_grad_()
+    scale_x = scale.to(dtype)
+
+    def library():
+        return F.rms_norm(x, (d,), scale_x, eps)
+
+    ms, dev = time_ms(kernel), device_ms(kernel, "rmsnorm")
+    with torch.no_grad():
+        host = host_us(kernel)
     row.update(
-        ms=time_ms(lambda: rmsnorm(x, scale, eps=eps)),
+        ms=ms, device_ms=dev, host_us=host,
+        host_us_grad=host_us(lambda: rmsnorm(x, leaf, eps=eps)),
         plain_ms=time_ms(lambda: rmsnorm(x, scale, eps=eps,
                                          force="reference")),
-        library_ms=time_ms(lambda: F.rms_norm(x, (d,), scale.to(dtype),
-                                              eps)),
-        bound_ms=bound, bound_by=by)
+        library_ms=time_ms(library), library_device_ms=device_ms(library, ""),
+        bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+        device_share_of_bound=bound / dev)
     return row
 
 
@@ -1416,7 +1491,7 @@ def device_kernels(prof) -> list:
 # "multi_tensor_apply_kernel"s); everything else is elementwise, norm,
 # reduction, embedding and copy work.
 KERNEL_CLASSES = (("flash_attention", ("flash_",)),
-                  ("rmsnorm", ("rmsnorm_kernel",)),
+                  ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_ring_kernel")),
                   ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "splitK")),
                   ("optimizer", ("multi_tensor_apply",)))
 
@@ -1462,6 +1537,8 @@ def phase_profile(model, card_line: str) -> dict:
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     kernels = device_kernels(prof)
+    norm_bwd = [e for e in prof.key_averages()
+                if e.key.endswith("_RMSNormBackward")]
     busy_us = sum(t for _, t, _ in kernels)
     # The paged kernels: decode's split and combine, the chunk path.
     attn_us = sum(t for k, t, _ in kernels if "paged_" in k)
@@ -1567,6 +1644,8 @@ def profile_step(step, tokens, step_ms: float, fp32_products=None) -> dict:
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     kernels = device_kernels(prof)
+    norm_bwd = [e for e in prof.key_averages()
+                if e.key.endswith("_RMSNormBackward")]
     busy_us = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda kt: -kt[1])[:10]
     by_class = kernel_classes_ms(kernels)
@@ -1594,7 +1673,14 @@ def profile_step(step, tokens, step_ms: float, fp32_products=None) -> dict:
                           ("flash_forward", "flash_forward"),
                           ("flash_bwd_dq", "flash_bwd_dq"),
                           ("flash_bwd_dkv", "flash_bwd_dkv"),
-                          ("rmsnorm", "rmsnorm_kernel"))},
+                          ("rmsnorm", "rmsnorm_"))},
+        # RMSNorm's backward is plain torch (the JAX package has no kernel
+        # for it): the device time of the kernels its autograd node
+        # launched, and its calls.
+        "rmsnorm_backward": {
+            "ms": max((e.device_time_total for e in norm_bwd), default=0)
+            / 1e3,
+            "calls": max((e.count for e in norm_bwd), default=0)},
         "by_class_ms": by_class,
         "top_kernels": [{"kernel": k[:90], "ms": t / 1e3,
                          "share_of_busy": t / busy_us} for k, t, _ in top],
@@ -2163,6 +2249,11 @@ KERNEL_META = {  # name: (source, the TPU kernel it replaces)
 }
 
 
+# What the kernels line keeps of each case.
+CASE_KEYS = ("case", "ms", "device_ms", "host_us", "host_us_grad", "bound_ms",
+             "library_ms", "library_device_ms", "max_abs_err")
+
+
 def kernel_line(cases: dict, runs: dict) -> dict:
     """One entry per kernel, its numbers at the shape where its main path
     spends most (the first case of each: the Llama train shape, and
@@ -2181,11 +2272,7 @@ def kernel_line(cases: dict, runs: dict) -> dict:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"],
             "launches_by_run": by_run,
-            "cases": [{"case": r["case"], "ms": r["ms"],
-                       **({"device_ms": r["device_ms"]}
-                          if "device_ms" in r else {}),
-                       "bound_ms": r["bound_ms"],
-                       "max_abs_err": r["max_abs_err"]}
+            "cases": [{key: r[key] for key in CASE_KEYS if key in r}
                       for r in cases[name]],
         })
     return {"kernels": out}

@@ -14,6 +14,7 @@ PyTorch versions beside each kernel never touch this module's build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -47,7 +48,8 @@ KERNELS = {
     "flash_bwd_dkv": ("rt_flash_bwd_dkv",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _P]),
-    "rmsnorm": ("rt_rmsnorm", [_P, _P, _P, _I, _I, _I, _F, _P]),
+    "rmsnorm": ("rt_rmsnorm", [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                               _P]),
 }
 # Measuring kernels on no main path (built and loaded the same way).
 TOOLS = {
@@ -55,6 +57,7 @@ TOOLS = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, ctypes._CFuncPtr] = {}
 
 
 class LaunchCounter:
@@ -143,11 +146,44 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str):
+    """The C entry point of the kernel library ``name`` (built and loaded
+    if needed), its argument types declared; kept, so that a launch looks
+    nothing up on the library."""
+    fn = _entries.get(name)
+    if fn is None:
+        entry_point = {**KERNELS, **TOOLS}[name][0]
+        fn = _entries[name] = getattr(load(name), entry_point)
+    return fn
+
+
+def launch(what: str, index: int, *args) -> None:
+    """Call kernel library ``what``'s entry point with ``args`` and the
+    current stream of CUDA device ``index``, and raise if the launch
+    failed. The stream's handle is read on every call and nothing here
+    synchronises or allocates (a graph capture's side stream is honoured);
+    the device is made current only where it is not already."""
+    fn = _entries.get(what) or entry(what)
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        check_launch(_libs[what], rc, what)
+
+
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.rt_error_string(rc).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (asked once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dtype_code(what: str, dtype: torch.dtype) -> int:
@@ -157,16 +193,16 @@ def dtype_code(what: str, dtype: torch.dtype) -> int:
     return DTYPE_CODES[dtype]
 
 
-def check_inputs(what: str, device: torch.device, dtype: torch.dtype,
+def check_inputs(what: str, index: int, dtype: Optional[torch.dtype],
                  *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
-    tensor of ``dtype`` on ``device`` (the kernels load 16-byte
-    vectors)."""
+    tensor on device ``index`` (the kernels load 16-byte vectors), of
+    ``dtype`` unless that is None; one pass, no device objects built."""
     for x in tensors:
-        if x.device.type != "cuda" or x.device != device:
+        if not x.is_cuda or x.get_device() != index:
             raise ValueError(f"{what}: all inputs must be on one CUDA "
-                             f"device, got {x.device} and {device}")
-        if x.dtype != dtype:
+                             f"device, got {x.device} and device {index}")
+        if dtype is not None and x.dtype != dtype:
             raise TypeError(f"{what}: expected {dtype}, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{what}: inputs must be contiguous and "

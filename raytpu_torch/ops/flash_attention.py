@@ -226,7 +226,8 @@ def flash_attention_backward(q, k, v, o, lse, g, *, causal: bool,
 def _flash_cuda(q, k, v, causal, sm_scale):
     what = "flash_attention"
     code = _native.dtype_code(what, q.dtype)
-    _native.check_inputs(what, q.device, q.dtype, q, k, v)
+    index = q.get_device()
+    _native.check_inputs(what, index, q.dtype, q, k, v)
     b, h, t_q, d = q.shape
     t_kv = k.shape[2]
     if d not in _native.HEAD_DIMS:
@@ -235,24 +236,20 @@ def _flash_cuda(q, k, v, causal, sm_scale):
     lse = torch.empty((b, h, t_q, 1), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    lib = _native.load(what)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rt_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), code, b * h, t_q, t_kv, d, int(causal),
-            float(sm_scale), stream)
-    _native.check_launch(lib, rc, what)
+    _native.launch(what, index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   o.data_ptr(), lse.data_ptr(), code, b * h, t_q, t_kv, d,
+                   int(causal), float(sm_scale))
     LAUNCHES.count += 1
     return o, lse
 
 
-def _check_bwd(what, q, k, v, g, lse, delta) -> int:
+def _check_bwd(what, q, k, v, g, lse, delta) -> Tuple[int, int]:
     """Raise unless the backward kernels take these inputs; returns the
-    dtype code."""
+    dtype code and the device index."""
     code = _native.dtype_code(what, q.dtype)
-    _native.check_inputs(what, q.device, q.dtype, q, k, v, g)
-    _native.check_inputs(what, q.device, torch.float32, lse, delta)
+    index = q.get_device()
+    _native.check_inputs(what, index, q.dtype, q, k, v, g)
+    _native.check_inputs(what, index, torch.float32, lse, delta)
     b, h, t_q, d = q.shape
     if d not in _native.HEAD_DIMS:
         raise ValueError(f"{what}: head dim {d} not in {_native.HEAD_DIMS}")
@@ -261,26 +258,22 @@ def _check_bwd(what, q, k, v, g, lse, delta) -> int:
         raise ValueError(f"{what}: g {tuple(g.shape)}, lse "
                          f"{tuple(lse.shape)}, delta {tuple(delta.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    return code
+    return code, index
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool, sm_scale: float):
     """dQ by the CUDA kernel ``csrc/flash_bwd_dq.cu``; ``lse`` and
     ``delta`` hold one fp32 value per query row."""
     what = "flash_bwd_dq"
-    code = _check_bwd(what, q, k, v, g, lse, delta)
+    code, index = _check_bwd(what, q, k, v, g, lse, delta)
     b, h, t_q, d = q.shape
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    lib = _native.load(what)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rt_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), code, b * h,
-            t_q, k.shape[2], d, int(causal), float(sm_scale), stream)
-    _native.check_launch(lib, rc, what)
+    _native.launch(what, index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   dq.data_ptr(), code, b * h, t_q, k.shape[2], d,
+                   int(causal), float(sm_scale))
     BWD_DQ_LAUNCHES.count += 1
     return dq
 
@@ -288,19 +281,14 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool, sm_scale: float):
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool, sm_scale: float):
     """``(dK, dV)`` by the CUDA kernel ``csrc/flash_bwd_dkv.cu``."""
     what = "flash_bwd_dkv"
-    code = _check_bwd(what, q, k, v, g, lse, delta)
+    code, index = _check_bwd(what, q, k, v, g, lse, delta)
     b, h, t_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    lib = _native.load(what)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rt_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            code, b * h, t_q, k.shape[2], d, int(causal), float(sm_scale),
-            stream)
-    _native.check_launch(lib, rc, what)
+    _native.launch(what, index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), code, b * h, t_q,
+                   k.shape[2], d, int(causal), float(sm_scale))
     BWD_DKV_LAUNCHES.count += 1
     return dk, dv

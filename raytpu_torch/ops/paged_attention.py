@@ -31,7 +31,6 @@ block_k=page_size)`` is the mirror of the TPU kernel's walk.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -197,17 +196,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions, *,
                        sm_scale)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _paged_cuda(q, k_pages, v_pages, block_tables, positions, sm_scale):
     what = "paged_attention"
     code = _native.dtype_code(what, q.dtype)
-    _native.check_inputs(what, q.device, q.dtype, q, k_pages, v_pages)
-    _native.check_inputs(what, q.device, torch.int32, block_tables,
-                         positions)
+    index = q.get_device()
+    _native.check_inputs(what, index, q.dtype, q, k_pages, v_pages)
+    _native.check_inputs(what, index, torch.int32, block_tables, positions)
     b, t, h, d = q.shape
     num_pages, page_size, kv, _ = k_pages.shape
     n_pg = block_tables.shape[1]
@@ -221,19 +215,15 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, positions, sm_scale):
     rows = t * (h // kv)
     if q.dtype == torch.bfloat16 and rows <= DECODE_ROWS:
         n_split, pages = plan_splits(n_pg, page_size, b, kv,
-                                     _sm_count(q.device))
+                                     _native.sm_count(index))
         if n_split > 1:  # the splits' partials: acc[d], m, l per row
             workspace = torch.empty(b * kv * n_split * rows * (d + 2),
                                     dtype=torch.float32, device=q.device)
-    lib = _native.load(what)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rt_paged_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            None if workspace is None else workspace.data_ptr(), code, b, t,
-            h, kv, d, num_pages, page_size, n_pg, n_split, pages,
-            float(sm_scale), stream)
-    _native.check_launch(lib, rc, what)
+    _native.launch(what, index, q.data_ptr(), k_pages.data_ptr(),
+                   v_pages.data_ptr(), block_tables.data_ptr(),
+                   positions.data_ptr(), out.data_ptr(),
+                   None if workspace is None else workspace.data_ptr(), code,
+                   b, t, h, kv, d, num_pages, page_size, n_pg, n_split, pages,
+                   float(sm_scale))
     LAUNCHES.count += 1
     return out

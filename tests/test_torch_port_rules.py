@@ -16,7 +16,7 @@ from raytpu_torch.ops import _native
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "ab_wrappers.py", REPO / "rmsnorm_plans.py"]
 
 # Run in a fresh interpreter: this test process has JAX loaded
 # (tests/conftest.py imports it).
