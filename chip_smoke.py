@@ -70,7 +70,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     a second one, at the kernel path's routes and at free routes (how
     far the gradients move with the tokens routed otherwise, also with
     tokens rerouted on purpose), with remat "full" and "dots" equal to
-    the bit.
+    the bit;
+15. GPT-2 dropout: GPT-2 124M's training forward and backward at
+    dropout 0.1: rate 0 and the deterministic forward equal to the bit,
+    the keep share within five standard deviations, survivors divided by
+    1 - p exactly, remat "full" against "none" under one generator seed;
+16. RL PPO: ``raytpu_torch.rllib`` PPO at benchmarks/bench_ppo.py's
+    config (CartPole-v1-vec, 64 envs x 64 steps, minibatch 512, the
+    (256, 256) fcnet): env-steps/s and learner samples/s as bench_ppo
+    counts them, an iteration's split (env step, sampling forward with
+    its copies, update, the rest) and the device's busy share; one
+    rollout update on the card against the same update on the CPU; the
+    same rates with device="cpu" as a CPU reading;
+17. RL pixel PPO: the conv module on Catch-v0 with FrameStack(2), 16
+    envs x 40 steps: iteration times, a greedy evaluation, the card
+    against the CPU;
+18. RL algorithms: IMPALA, APPO, DQN (CartPole), SAC (Pendulum), BC,
+    MARWIL and CQL (offline rows of a hand controller) take three
+    train() calls each; every metric finite, every parameter on the
+    card. The five kernels' counters, set to 0 before phase 16, must
+    read 0 after phase 18.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -2235,6 +2254,451 @@ def phase_mixtral_train_e2e(model, tokens, card_line: str) -> dict:
     return result
 
 
+# ---- phase 15: GPT-2 dropout on the card -------------------------------
+DROPOUT_RATE = 0.1
+DROPOUT_BATCH = 8
+
+
+def phase_gpt2_dropout(card_line: str) -> dict:
+    """GPT-2 124M's training forward and backward at dropout 0.1 on the
+    card (bf16 compute, fp32 parameters, 8 x 1024 tokens): rate 0 and the
+    deterministic forward equal today's to the bit; the masks keep
+    within five standard deviations of 1 - p and the survivors are
+    divided by 1 - p exactly (the first block's residual, read by hooks);
+    remat "full" against "none" under one generator seed, the gradients
+    within GRAD_NORM_TOL in norm (bit-equal reported)."""
+    from raytpu_torch.models.gpt2 import (GPT2, GPT2Config, dropout,
+                                          dropout_keep, mean_nll)
+
+    cfg = GPT2Config.small()
+    rate = DROPOUT_RATE
+    model = GPT2(dataclasses.replace(cfg, dropout=rate), device="cuda",
+                 seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (DROPOUT_BATCH, cfg.block_size))).cuda()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    with torch.no_grad():
+        plain = variant(model, dropout=0.0)
+        want = plain(tokens)
+        rate0_equal = (torch.equal(plain(tokens, deterministic=False,
+                                         generator=gen(1)), want)
+                       and torch.equal(model(tokens), want))
+        seen = {}
+        block = model.h[0]
+        hooks = [block.attn.register_forward_hook(
+                     lambda m, a, out: seen.__setitem__("y", out)),
+                 block.ln_1.register_forward_pre_hook(
+                     lambda m, a: seen.__setitem__("x0", a[0])),
+                 block.ln_2.register_forward_pre_hook(
+                     lambda m, a: seen.__setitem__("x1", a[0]))]
+        dropped = model(tokens, deterministic=False, generator=gen(3))
+        for h in hooks:
+            h.remove()
+        keep = dropout_keep(rate, seen["x0"].shape, gen(3), "cuda")
+        residual_exact = torch.equal(
+            seen["x1"], seen["x0"] + dropout(seen["y"], keep, rate))
+        survivors_exact = torch.equal(
+            dropout(seen["y"], keep, rate)[keep], seen["y"][keep] / (1 - rate))
+    n = keep.numel()
+    kept = int(keep.sum())
+    sigma = float(np.sqrt(n * rate * (1 - rate)))
+
+    def loss_fn(m, t):
+        return mean_nll(m(t, deterministic=False, generator=gen(11))[:, :-1],
+                        t[:, 1:])
+
+    loss_none, g_none = loss_and_grads(variant(model, remat=False), loss_fn,
+                                       tokens)
+    loss_full, g_full = loss_and_grads(variant(model, remat=True), loss_fn,
+                                       tokens)
+    rel = grad_rel_diffs(g_full, g_none)
+    result = {
+        "rate": rate, "batch": DROPOUT_BATCH, "seq": cfg.block_size,
+        "rate0_and_deterministic_bit_equal": rate0_equal,
+        "dropped_differs": not torch.equal(dropped, want),
+        "keep_share": kept / n, "keep_sigmas": abs(kept - n * (1 - rate))
+        / sigma, "residual_exact": residual_exact,
+        "survivors_exact": survivors_exact,
+        "loss_remat_none": loss_none, "loss_remat_full": loss_full,
+        "grad_rel_diff_worst": max(rel.values()),
+        "grads_finite": all(bool(torch.isfinite(g).all())
+                            for g in g_none.values()),
+        "bit_equal": loss_none == loss_full and all(
+            torch.equal(g_full[k], g_none[k]) for k in g_none)}
+    log(f"[gpt2-dropout] {json.dumps(result)} | {card_line}")
+    if not (rate0_equal and result["dropped_differs"] and residual_exact
+            and survivors_exact and result["keep_sigmas"] < 5
+            and result["grads_finite"] and np.isfinite(loss_none)
+            and result["grad_rel_diff_worst"] <= GRAD_NORM_TOL
+            and abs(loss_full - loss_none) <= 1e-6 * abs(loss_none)):
+        raise AssertionError(f"GPT-2 dropout on the card: {result}")
+    return result
+
+
+# ---- phases 16-18: RLlib ---------------------------------------------
+# The card against the CPU: one whole update from the same weights,
+# optimizer state, batch and permutations, in IEEE fp32 on both (the RL
+# path turns TF32 off while it runs, rl_module.ieee_fp32). What is held is
+# each parameter's step (after minus before), not the parameter, whose
+# norm is mostly the shared starting weights: the card's step within
+# RL_STEP_TOL of the CPU's in relative norm. The same update with TF32 on
+# (ieee_fp32 bypassed, a planted fault) must land above it. On an H100 the
+# IEEE steps read 1.4e-5 (PPO) and 4.7e-7 (pixel PPO), the TF32 steps
+# 3.5e-3 and 3.0e-2: the limit lies between, over ten times from each.
+RL_STEP_TOL = 2e-4
+PPO_MIN_WALL_S = 2.0  # benchmarks/bench_ppo.py's timed region
+
+
+def _doubling(step_fn, start: int, min_wall: float = PPO_MIN_WALL_S):
+    """benchmarks/bench_ppo.py's harness: ``step_fn`` (which returns its
+    units) ``start`` times, doubled until the run takes ``min_wall``
+    seconds; returns (units, seconds, calls)."""
+    n = start
+    while True:
+        t0 = time.perf_counter()
+        units = sum(step_fn() for _ in range(n))
+        dt = time.perf_counter() - t0
+        if dt >= min_wall:
+            return units, dt, n
+        n *= 2
+
+
+def _on_device(params, device) -> bool:
+    return all((_on_device(v, device) if isinstance(v, dict)
+                else v.device.type == torch.device(device).type)
+               for v in params.values())
+
+
+def _finite_metrics(result: dict) -> bool:
+    return all(np.isfinite(v) for k, v in result.items()
+               if isinstance(v, float) and k not in (
+                   "episode_return_mean", "episode_return_max"))
+
+
+def _rel_steps(after: dict, before: dict, want: dict) -> dict:
+    """Each parameter's step (``after`` - ``before``) against ``want``'s,
+    in relative norm."""
+    return {k: ((after[k] - before[k] - want[k]).norm()
+                / want[k].norm()).item() for k in want}
+
+
+@contextlib.contextmanager
+def tf32_in_ppo_updates():
+    """PPO's update with TF32 on in cuDNN's convolutions and cuBLAS's fp32
+    products, in place of its ieee_fp32 block: the fault the card check
+    must see."""
+    import raytpu_torch.rllib.algorithms.ppo as ppo
+
+    @contextlib.contextmanager
+    def tf32(device):
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+
+    ieee = ppo.ieee_fp32
+    ppo.ieee_fp32 = tf32
+    try:
+        yield
+    finally:
+        ppo.ieee_fp32 = ieee
+
+
+def card_against_cpu(algo, batch) -> dict:
+    """One rollout update of ``algo``'s learner on its device and of a
+    CPU twin from the same state, with the same permutations: each
+    parameter's step on the card against the CPU's, in relative norm;
+    then the same update on the card from the same state with TF32 on."""
+    learner = algo.learner
+    state = learner.get_state()
+    before = state["params"]
+    twin = type(learner)(learner.module, {**learner.config, "device": "cpu"})
+    twin.set_state(state)
+    perms = learner.permutations(batch["rewards"].size)
+    want = twin.update(batch, perms)
+    cpu_step = {k: v - before[k] for k, v in twin.get_weights().items()}
+    got = learner.update(batch, perms)
+    rel = _rel_steps(learner.get_weights(), before, cpu_step)
+    worst = max(rel, key=rel.get)
+    learner.set_state(state)
+    with tf32_in_ppo_updates():
+        learner.update(batch, perms)
+    tf32 = _rel_steps(learner.get_weights(), before, cpu_step)
+    return {"step_rel_diff_worst": rel[worst], "worst_tensor": worst,
+            "step_rel_diff_worst_tf32": max(tf32.values()),
+            # How far the parameters moved: what a comparison of the
+            # parameters themselves would dilute a fault by.
+            "step_norm_over_param_norm": (sum(
+                float(v.norm()) ** 2 for v in cpu_step.values()) / sum(
+                float(v.norm()) ** 2 for v in before.values())) ** 0.5,
+            "metric_rel_diff": {k: abs(got[k] - want[k]) / max(abs(want[k]),
+                                                                 1e-12)
+                                for k in want},
+            "metrics_card": got, "metrics_cpu": want,
+            "all_on_device": _on_device(learner.params, learner.device)}
+
+
+def _check_card_against_cpu(tag: str, r: dict) -> None:
+    if not (r["step_rel_diff_worst"] <= RL_STEP_TOL
+            < r["step_rel_diff_worst_tf32"] and r["all_on_device"]
+            and _finite_metrics(r["metrics_card"])):
+        raise AssertionError(f"{tag}: the card's update differs from the "
+                             f"CPU's, or TF32's does not: {r}")
+
+
+def iteration_split(algo, iterations: int = 3) -> dict:
+    """Where a training_step's host time goes, over ``iterations`` of
+    them: the numpy env step, the sampling forward with its two copies
+    (obs to the device, actions/logp/values back), the learner's update
+    (to its metrics' copy back) and the rest (buffers, connectors, the
+    weight sync)."""
+    runner = algo.env_runner_group.local_runner
+    spent = {"env_step": 0.0, "sample_forward": 0.0, "update": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    step_batch, act, update = runner._vec.step_batch, runner.act, \
+        algo.learner.update
+    runner._vec.step_batch = timed("env_step", step_batch)
+    runner.act = timed("sample_forward", act)
+    algo.learner.update = timed("update", update)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(iterations):
+            algo.training_step()
+        wall = time.perf_counter() - t0
+    finally:
+        del runner._vec.step_batch, runner.act, algo.learner.update
+    out = {f"{k}_ms": v / iterations * 1e3 for k, v in spent.items()}
+    out["iteration_ms"] = wall / iterations * 1e3
+    out["rest_ms"] = out["iteration_ms"] - sum(
+        out[k] for k in ("env_step_ms", "sample_forward_ms", "update_ms"))
+    return out
+
+
+def ppo_config(device):
+    """benchmarks/bench_ppo.py:33-41: CartPole-v1-vec, 64 envs x 64
+    steps, lr 3e-4, 4 epochs, minibatches of 512, the (256, 256) fcnet."""
+    from raytpu_torch.rllib import PPOConfig
+
+    return (PPOConfig().environment("CartPole-v1-vec")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=64,
+                         rollout_fragment_length=64)
+            .training(lr=3e-4, num_epochs=4, minibatch_size=512)
+            .debugging(seed=0).resources(device=device))
+
+
+def ppo_rates(algo) -> dict:
+    """bench_ppo's two figures: env-steps/s over whole training_steps
+    (after two warm-up ones), and learner samples/s over repeated
+    updates on one fixed rollout."""
+    algo.training_step()
+    algo.training_step()
+    steps, dt, calls = _doubling(
+        lambda: int(algo.training_step()["_env_steps"]), 5)
+    batch = algo._concat_time_major(algo.env_runner_group.sample())
+    size = int(batch["rewards"].size)
+    algo.learner.update(batch)
+    samples, l_dt, l_calls = _doubling(
+        lambda: (algo.learner.update(batch), size)[1], 3)
+    return {"env_steps_per_s": steps / dt, "iterations": calls,
+            "wall_s": dt, "learner_samples_per_s": samples / l_dt,
+            "learner_updates": l_calls, "learner_wall_s": l_dt,
+            "batch": size}
+
+
+def phase_rl_ppo(card_line: str) -> dict:
+    """PPO at the north-star config (bench_ppo's) on the card: the two
+    rates, an iteration's split and the device's busy share; one update
+    on the card against the CPU's; and, labelled as a CPU reading, the
+    same rates with device="cpu" on this machine."""
+    algo = ppo_config("cuda").build()
+    if not (_on_device(algo.learner.params, "cuda") and _on_device(
+            algo.env_runner_group.local_runner.params, "cuda")):
+        raise AssertionError("PPO: a parameter is not on the card")
+    result = {"config": "bench_ppo: CartPole-v1-vec 64 envs x 64 steps, "
+              "lr 3e-4, 4 epochs, minibatch 512, fcnet (256, 256)",
+              **ppo_rates(algo), "split": iteration_split(algo)}
+    r = algo.train()
+    result["train_env_steps_per_s"] = r["env_steps_per_s"]
+    result["metrics_finite"] = _finite_metrics(r)
+    profile = profile_step(lambda _: algo.training_step(), None,
+                           result["split"]["iteration_ms"])
+    result["profile"] = {k: profile[k] for k in (
+        "profiled_step_ms", "device_kernel_launches", "device_busy_ms",
+        "device_busy_share", "device_busy_over_unprofiled_step",
+        "top_kernels")}
+    batch = algo._concat_time_major(algo.env_runner_group.sample())
+    result["card_against_cpu"] = card_against_cpu(algo, batch)
+    algo.stop()
+    cpu = ppo_config("cpu").build()
+    result["cpu_reading"] = {"what": "the same loop with device='cpu' "
+                             "on this machine's host CPU", **ppo_rates(cpu)}
+    cpu.stop()
+    log(f"[rl-ppo] {json.dumps(result)} | {card_line}")
+    if not result["metrics_finite"]:
+        raise AssertionError(f"PPO: a metric is not finite: {r}")
+    _check_card_against_cpu("PPO", result["card_against_cpu"])
+    return result
+
+
+def phase_rl_pixel_ppo(card_line: str) -> dict:
+    """PPO with the conv module on Catch-v0 and FrameStack(2), 16 envs x
+    40 steps (tests/test_rllib.py's pixel config): a warm-up iteration
+    and three timed ones, a greedy evaluation, and one update on the card
+    against the CPU's."""
+    from raytpu_torch.rllib import FrameStack, PPOConfig
+
+    algo = (PPOConfig().environment("Catch-v0")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=16,
+                         rollout_fragment_length=40)
+            .connectors(env_to_module=[FrameStack(2)])
+            .training(lr=1e-3, num_epochs=8, minibatch_size=128,
+                      entropy_coeff=0.01)
+            .debugging(seed=0).resources(device="cuda")).build()
+    if type(algo.module).__name__ != "ConvPolicyModule":
+        raise AssertionError("pixel PPO: not the conv module")
+    algo.train()
+    times = [algo.train()["time_this_iter_s"] * 1e3 for _ in range(3)]
+    result = {"config": "Catch-v0 + FrameStack(2), 16 envs x 40 steps, "
+              "lr 1e-3, 8 epochs, minibatch 128",
+              "iteration_ms": times,
+              "env_steps_per_s": 640 / (np.mean(times) / 1e3),
+              "greedy_return": algo.evaluate()["episode_return_mean"]}
+    batch = algo._concat_time_major(algo.env_runner_group.sample())
+    result["card_against_cpu"] = card_against_cpu(algo, batch)
+    algo.stop()
+    log(f"[rl-pixel-ppo] {json.dumps(result)} | {card_line}")
+    _check_card_against_cpu("pixel PPO", result["card_against_cpu"])
+    return result
+
+
+class _Rows:
+    """An offline dataset: column arrays, served by ``iter_batches`` as
+    BC/MARWIL and CQL read a :mod:`raytpu.data` dataset."""
+
+    def __init__(self, columns: dict):
+        self.columns = columns
+
+    def iter_batches(self, batch_size: int, batch_format: str = "numpy",
+                     drop_last: bool = True):
+        n = len(next(iter(self.columns.values())))
+        for i in range(0, n - batch_size + 1, batch_size):
+            yield {k: v[i:i + batch_size] for k, v in self.columns.items()}
+
+
+def expert_rows(n_episodes: int = 30) -> dict:
+    """tests/test_rllib.py:484-508's hand controller on CartPole (push
+    toward the pole's angle plus half its angular velocity): obs, actions,
+    discounted returns, rewards, next_obs, terminateds."""
+    from raytpu_torch.rllib import CartPoleEnv
+
+    env = CartPoleEnv({"seed": 0})
+    cols = {k: [] for k in ("obs", "actions", "returns", "rewards",
+                            "next_obs", "terminateds")}
+    for ep in range(n_episodes):
+        obs, _ = env.reset(seed=ep)
+        rows, done = [], False
+        while not done:
+            a = 1 if (obs[2] + 0.5 * obs[3]) > 0 else 0
+            nobs, r, term, trunc, _ = env.step(a)
+            rows.append((obs, a, r, nobs, term))
+            obs, done = nobs, term or trunc
+        g, returns = 0.0, []
+        for _ in rows:
+            g = 1.0 + 0.99 * g
+            returns.append(g)
+        for (o, a, r, no, term), ret in zip(rows, reversed(returns)):
+            for k, v in zip(cols, (o, a, ret, r, no, term)):
+                cols[k].append(v)
+    return {"obs": np.asarray(cols["obs"], np.float32),
+            "actions": np.asarray(cols["actions"], np.int32),
+            "returns": np.asarray(cols["returns"], np.float32),
+            "rewards": np.asarray(cols["rewards"], np.float32),
+            "next_obs": np.asarray(cols["next_obs"], np.float32),
+            "terminateds": np.asarray(cols["terminateds"])}
+
+
+def phase_rl_algorithms(card_line: str) -> dict:
+    """A few train() calls each: IMPALA, APPO and DQN on CartPole, SAC on
+    Pendulum, BC and MARWIL on the hand controller's rows (evaluated
+    greedily on CartPole), CQL on the same rows with the action as a 1-D
+    Box in [-1, 1]; every metric finite, every parameter on the card."""
+    from raytpu_torch.rllib import (APPOConfig, BCConfig, CQLConfig,
+                                    DQNConfig, IMPALAConfig, MARWILConfig,
+                                    SACConfig)
+
+    rows = expert_rows()
+    cartpole = {"env": "CartPole-v1", "runners": (4, 32)}
+    configs = {
+        "IMPALA": (IMPALAConfig(), cartpole, {"num_fragments_per_step": 4}),
+        "APPO": (APPOConfig(), cartpole, {"num_fragments_per_step": 4,
+                                          "use_kl_loss": True}),
+        "DQN": (DQNConfig(), {"env": "CartPole-v1", "runners": (8, 32)},
+                {"num_steps_sampled_before_learning_starts": 256,
+                 "train_batch_size": 64, "target_network_update_freq": 256}),
+        "SAC": (SACConfig(), {"env": "Pendulum-v1", "runners": (4, 50)},
+                {"num_steps_sampled_before_learning_starts": 200,
+                 "train_batch_size": 128, "updates_per_step": 8}),
+        "BC": (BCConfig().offline(dataset=_Rows(rows)),
+               {"env": "CartPole-v1"}, {"train_batch_size": 256}),
+        "MARWIL": (MARWILConfig().offline(dataset=_Rows(rows)),
+                   {"env": "CartPole-v1"}, {"train_batch_size": 256}),
+        "CQL": (CQLConfig().offline(
+            dataset=_Rows({**rows, "actions": (2.0 * rows["actions"] - 1.0)
+                           [:, None].astype(np.float32)}),
+            observation_dim=4, action_dim=1, action_low=-1.0,
+            action_high=1.0), {},
+            {"train_batch_size": 256, "updates_per_iteration": 10}),
+    }
+    out = {}
+    for name, (config, env, training) in configs.items():
+        if "env" in env:
+            config = config.environment(env["env"])
+        if "runners" in env:
+            config = config.env_runners(num_env_runners=0,
+                                        num_envs_per_env_runner=env[
+                                            "runners"][0],
+                                        rollout_fragment_length=env[
+                                            "runners"][1])
+        algo = config.training(**training).debugging(seed=0).resources(
+            device="cuda").build()
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(3)]
+        took = time.perf_counter() - t0
+        params = algo.learner.params
+        last = {k: v for k, v in results[-1].items()
+                if isinstance(v, float) and k not in ("time_this_iter_s",)}
+        entry = {"iterations": 3, "ms_per_iteration": took / 3 * 1e3,
+                 "timesteps_total": results[-1]["timesteps_total"],
+                 "finite": all(_finite_metrics(r) for r in results),
+                 "learned": any("loss" in k for k in results[-1]),
+                 "on_device": _on_device(params, "cuda"), "last": last}
+        if algo.env_runner_group is not None:
+            entry["greedy_return"] = algo.evaluate()["episode_return_mean"]
+        algo.stop()
+        out[name] = entry
+        if not (entry["finite"] and entry["learned"] and entry["on_device"]):
+            raise AssertionError(f"{name} on the card: {entry}")
+    log(f"[rl-algorithms] {json.dumps(out)} | {card_line}")
+    return out
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -2320,10 +2784,23 @@ def main() -> int:
     torch.cuda.empty_cache()  # the optimizer's state is gone
     phase_mixtral_train_e2e(mixtral_model, tokens, card_line)
     del mixtral_model, tokens
+    torch.cuda.empty_cache()
+    phase_gpt2_dropout(card_line)
+    torch.cuda.empty_cache()
+    # The RL path reaches none of the five kernels: every counter must
+    # read 0 after it.
+    counters = kernel_counters()
+    for counter in counters.values():
+        counter.reset()
+    phase_rl_ppo(card_line)
+    phase_rl_pixel_ppo(card_line)
+    phase_rl_algorithms(card_line)
+    rllib = {name: c.count for name, c in counters.items()}
+    check_launches(rllib, {name: 0 for name in counters})
     runs = {"serve": serve["launches"], "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],
-            "mixtral_train": mixtral["launches"]}
+            "mixtral_train": mixtral["launches"], "rllib": rllib}
     log(json.dumps(kernel_line(cases, runs)))
     log(card())
     log(json.dumps({"ok": True, "device": {

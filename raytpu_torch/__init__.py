@@ -1,7 +1,8 @@
 """raytpu_torch: the PyTorch + CUDA port of raytpu, for an NVIDIA H100.
 
 Ported so far: serving Llama and GPT-2 through the paged inference
-engine, and training GPT-2, Llama and Mixtral on one card:
+engine, training GPT-2 (with its dropout), Llama and Mixtral on one card,
+and RLlib:
 
 - :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
   two kernels, dQ and dK/dV), paged attention and RMSNorm, each a CUDA
@@ -13,7 +14,12 @@ engine, and training GPT-2, Llama and Mixtral on one card:
   GPT-2's; Llama's and Mixtral's are in ``raytpu_torch.models.llama``
   and ``raytpu_torch.models.mixtral``, as in the JAX package;
 - :mod:`raytpu_torch.inference` — paged KV cache, prefix cache,
-  continuous-batching scheduler, sampling and :class:`InferenceEngine`.
+  continuous-batching scheduler, sampling and :class:`InferenceEngine`;
+- :mod:`raytpu_torch.rllib` — RL modules, learners, the local env runner
+  and PPO, IMPALA, APPO, DQN, SAC, CQL and BC/MARWIL, through the JAX
+  package's entry points (``PPOConfig()...build().train()``), with a
+  converter of the JAX package's RL weights. No kernel: RLlib reaches
+  no TPU kernel.
 
 The port imports nothing from ``raytpu`` or JAX; the host-side modules it
 needs are its own copies. Every entry point runs on ``cuda`` unless the

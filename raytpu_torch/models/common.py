@@ -33,10 +33,11 @@ TRUNC_STD = 0.87962566103423978
 
 
 def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
-    """Fill a weight ``[out, in]`` in place as JAX's ``lecun_normal``:
-    normal with std ``in**-0.5 / TRUNC_STD``, truncated at two of its
-    standard deviations."""
-    std = p.shape[1] ** -0.5 / TRUNC_STD
+    """Fill a weight ``[out, in]`` (or a convolution's ``[out, in, kh,
+    kw]``) in place as JAX's ``lecun_normal``: normal with std
+    ``fan_in**-0.5 / TRUNC_STD``, truncated at two of its standard
+    deviations; ``fan_in`` is ``in`` (``in * kh * kw``)."""
+    std = p[0].numel() ** -0.5 / TRUNC_STD
     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                           generator=generator)
 

@@ -54,11 +54,15 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     n_embd: int = 768
+    # Dropout rate after attention's c_proj and after the MLP, in the
+    # training forward only (``GPT2.forward(..., deterministic=False,
+    # generator=g)``); the loss and the inference forwards never drop.
+    dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     # Rematerialization per block (raytpu_torch.models.common): True/"full"
     # saves nothing and recomputes the block in the backward pass;
     # "dots" saves the matmul outputs; False/"none" saves every
-    # activation. Dropout is not ported.
+    # activation.
     remat: Any = True
     # Kernel choice of attention and of paged attention (serving): None
     # runs the CUDA kernels on a CUDA tensor and the plain versions on a
@@ -72,6 +76,8 @@ class GPT2Config:
 
     def __post_init__(self):
         remat_mode(self.remat)
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout={self.dropout}: use 0 <= rate < 1")
 
     @classmethod
     def small(cls) -> "GPT2Config":  # 124M
@@ -203,16 +209,39 @@ class Block(nn.Module):
         self.attn = CausalSelfAttention(c)
         self.ln_2 = LayerNorm(c.n_embd, c.dtype)
         self.mlp = MLP(c)
+        self.rate = c.dropout
 
-    def forward(self, x, attn_impl: Optional[str] = None):
-        return self.run(x, lambda attn, h: attn(h, attn_impl))
+    def forward(self, x, attn_impl: Optional[str] = None, keep=None):
+        return self.run(x, lambda attn, h: attn(h, attn_impl), keep)
 
-    def run(self, x, attend):
+    def run(self, x, attend, keep=None):
         """The block (the JAX package's ``_block_apply``) with
         ``attend(attn, h)`` for its attention on the normed input ``h``:
-        the training forward, a prefill, a chunk or a decode step."""
-        x = x + attend(self.attn, self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        the training forward, a prefill, a chunk or a decode step.
+        ``keep``: None, or the two dropout masks (:func:`dropout_keep`)
+        of attention's output and the MLP's."""
+        attn_keep, mlp_keep = keep if keep is not None else (None, None)
+        x = x + dropout(attend(self.attn, self.ln_1(x)), attn_keep,
+                        self.rate)
+        return x + dropout(self.mlp(self.ln_2(x)), mlp_keep, self.rate)
+
+
+def dropout_keep(rate: float, shape, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """A dropout mask drawn as Flax's ``nn.Dropout`` draws one: True
+    (kept) where a uniform draw is below ``1 - rate``, the form of
+    ``jax.random.bernoulli``. The draws are torch's, not JAX's."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(y: torch.Tensor, keep: Optional[torch.Tensor],
+            rate: float) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` given its mask: ``where(keep, y / (1 -
+    rate), 0)``, the survivors divided in ``y``'s dtype as JAX divides
+    them; ``keep`` None is the identity."""
+    if keep is None:
+        return y
+    return torch.where(keep, y / (1.0 - rate), y.new_zeros(()))
 
 
 class _Bf16TiedHead(torch.autograd.Function):
@@ -296,14 +325,33 @@ class GPT2(nn.Module):
         return (F.embedding(tokens, self.wte.weight).to(dt)
                 + F.embedding(positions, self.wpe.weight).to(dt))
 
-    def forward(self, tokens, return_hidden: bool = False):
+    def forward(self, tokens, return_hidden: bool = False,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """``tokens`` [B, T] -> fp32 logits [B, T, V] (or, with
-        ``return_hidden``, the final LayerNorm's output [B, T, E])."""
+        ``return_hidden``, the final LayerNorm's output [B, T, E]).
+
+        ``deterministic=False`` with ``config.dropout > 0`` drops after
+        each block's attention and MLP, with masks drawn from
+        ``generator`` (on the tokens' device), which must be given. Each
+        layer's two masks are drawn before the layer runs and passed into
+        it, so a rematerialized block runs again under the same masks.
+        (The JAX package drops only with ``remat=False`` and unrolled
+        layers: its ``nn.remat`` cannot take ``deterministic`` as a traced
+        argument, and its layer scan splits only the ``params`` RNG, so no
+        ``dropout`` RNG reaches a scanned block.)"""
         c = self.config
+        drop = not deterministic and c.dropout > 0
+        if drop and generator is None:
+            raise ValueError("dropout needs an explicit torch.Generator")
         x = self.embed(tokens, torch.arange(tokens.shape[1],
                                             device=tokens.device))
         for block in self.h:
-            x = remat_call(block, c.remat, x, c.attn_impl)
+            keep = None
+            if drop:
+                keep = tuple(dropout_keep(c.dropout, x.shape, generator,
+                                          x.device) for _ in range(2))
+            x = remat_call(block, c.remat, x, c.attn_impl, keep)
         x = self.ln_f(x)
         if return_hidden:
             return x

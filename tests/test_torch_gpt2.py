@@ -242,7 +242,8 @@ def test_init_follows_the_jax_scheme():
 
 
 @pytest.mark.parametrize("change, error", [
-    ({"dropout": 0.1}, TypeError),  # no such field: dropout is not ported
+    # No such field: the port's layers are a loop, not a scan.
+    ({"scan_layers": False}, TypeError),
     ({"remat": "some"}, ValueError),  # no such remat mode
 ])
 def test_unported_options_raise(change, error):

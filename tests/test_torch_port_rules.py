@@ -83,6 +83,41 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert GPT2(GPT2Config.tiny(), device="cpu").device.type == "cpu"
 
 
+def test_rl_entry_points_raise_without_a_card(monkeypatch):
+    from raytpu_torch.rllib import BCConfig, PPOConfig, SACConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for config in (PPOConfig().environment("CartPole-v1"),
+                   SACConfig().environment("Pendulum-v1"),
+                   BCConfig().offline(dataset=object(), observation_dim=4,
+                                      action_dim=2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            config.build()
+    algo = PPOConfig().environment("CartPole-v1").resources(
+        device="cpu").build()
+    assert algo.learner.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in algo.learner.params.values())
+    assert algo.env_runner_group.local_runner.device.type == "cpu"
+
+
+# The JAX package's RL modules, each with its port (raytpu_torch/rllib).
+RL_MODULES = ("env/envs.py", "env/gym_adapter.py", "env/env_runner.py",
+              "utils/replay_buffer.py", "connectors.py", "core/rl_module.py",
+              "core/learner.py", "algorithms/algorithm.py",
+              "algorithms/ppo.py", "algorithms/impala.py",
+              "algorithms/appo.py", "algorithms/dqn.py", "algorithms/sac.py",
+              "algorithms/cql.py", "algorithms/bc.py")
+
+
+def test_every_rl_module_is_ported_and_held_to_the_rules():
+    ported = {p.relative_to(REPO / "raytpu_torch" / "rllib").as_posix()
+              for p in PORT_FILES if "rllib" in p.parts}
+    for name in RL_MODULES:
+        assert (REPO / "raytpu" / "rllib" / name).is_file()
+        assert name in ported
+    assert "convert.py" in ported
+
+
 def test_engine_refuses_what_is_not_ported():
     from raytpu_torch.inference import InferenceEngine
     from raytpu_torch.models.llama import Llama, LlamaConfig
