@@ -89,7 +89,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     MARWIL and CQL (offline rows of a hand controller) take three
     train() calls each; every metric finite, every parameter on the
     card. The five kernels' counters, set to 0 before phase 16, must
-    read 0 after phase 18.
+    read 0 after phase 18;
+19. deployment (run after phase 6, once phase 5's model is freed):
+    Llama-2-7B behind ``LLMDeployment`` with phase 5's engine, phase 5's
+    eight prompts on client threads arriving by events, a stream closed
+    after 4 tokens and one aborted from outside: every stream's tokens,
+    the kernels' launches (RMSNorm 65 a forward), an idle snapshot with
+    no page held, the loop's thread joined at shutdown; TTFT at the
+    client and in the engine, the decode rate, the share of the run the
+    loop held the engine lock and a request thread's waits for it, and
+    token agreement with phase 5; then the same streams with the JAX
+    package's lock under the engine condition;
+20. disagg: a prefill and a decode replica of Llama-2-7B (both seed 0,
+    bit-equal weights) on the card: a 1500-token prompt whose 93 full
+    pages the decode replica pulls, prefilling only the 12-token tail,
+    the grafted pages equal to the source's, the decode replica's tokens
+    equal to the prefill replica's for the same prompt asked again; a
+    prompt under a page never pulls; a pull from a peer lost halfway
+    falls back to a local prefill and leaves nothing pinned. Readings:
+    the handoff's bytes, seconds and GB/s against one pinned copy of
+    the same bytes, page reads a second, TTFT against the colocated
+    replica's, peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -107,6 +127,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1463,9 +1484,14 @@ def drive_engine(model, prompts: dict, arrivals: dict,
         raise AssertionError("the shared prefix never hit the prefix cache")
     if not stats["chunk_prefill_calls"]:
         raise AssertionError("the chunked-prefill path never ran")
+    result["tokens"] = tokens
     del eng
     torch.cuda.empty_cache()
     return result
+
+
+def without_tokens(result: dict) -> dict:
+    return {k: v for k, v in result.items() if k != "tokens"}
 
 
 def phase_serve(model, card_line: str) -> dict:
@@ -1476,7 +1502,7 @@ def phase_serve(model, card_line: str) -> dict:
     result = drive_engine(model, prompts, arrivals,
                           2 * model.config.n_layer + 1,
                           max_model_len=2048, prefill_chunk=512)
-    log(f"[serve] {json.dumps(result)} | {card_line}")
+    log(f"[serve] {json.dumps(without_tokens(result))} | {card_line}")
     return result
 
 
@@ -1491,7 +1517,7 @@ def phase_gpt2_serve(model, card_line: str) -> dict:
     result = drive_engine(model, prompts, arrivals, 0,
                           max_model_len=model.config.block_size,
                           prefill_chunk=GPT2_SERVE_CHUNK)
-    log(f"[gpt2-serve] {json.dumps(result)} | {card_line}")
+    log(f"[gpt2-serve] {json.dumps(without_tokens(result))} | {card_line}")
     return result
 
 
@@ -1622,6 +1648,568 @@ def phase_e2e(model, card_line: str, prefill=None, tag: str = "e2e"
     if not rel <= E2E_TOL:
         raise AssertionError(f"prefill logits: kernel path differs from the "
                              f"plain path by {rel} of scale > {E2E_TOL}")
+    return result
+
+
+# ---- phases 19 and 20: LLMDeployment and the KV handoff ---------------
+
+# Phase 5's engine, behind the replica body.
+DEPLOYMENT_ENGINE = {"page_size": 16, "max_num_seqs": 8,
+                     "max_model_len": 2048, "prefill_chunk": 512}
+CLOSED_AFTER = 4  # tokens the closed stream takes before it closes
+ABORT_AFTER = 2   # tokens the aborted stream takes before the abort
+# New tokens asked of the closed and the aborted streams: far more than
+# they take before their end, so neither can finish first.
+OPEN_ENDED = 1024
+# Every wait of the two phases (a stream's end, the idle snapshot) fails
+# past this: the eight streams end in seconds (phase 5: 1.9 s of wall).
+STREAM_DEADLINE_S = 300.0
+HANDOFF_PROMPT = 1500  # 93 full pages of 16 shipped, a 12-token tail
+SHORT_PROMPT = 10      # under a page: never pulls
+
+
+@contextlib.contextmanager
+def serving(*deps):
+    """Run with ``deps``' stepping loops watched: yields the list that
+    ``threading.excepthook`` fills with the exception of any thread that
+    dies of one; on the way out fails on such a death (with the
+    exception itself) or on a loop thread found dead, and shuts every
+    deployment down, failing unless its loop thread joins."""
+    died = []
+    hook = threading.excepthook
+
+    def record(args):
+        died.append(args.exc_value)
+        hook(args)
+
+    threading.excepthook = record
+    try:
+        yield died
+        check_loops(deps, died)
+    finally:
+        threading.excepthook = hook
+        for dep in deps:
+            dep.shutdown()
+    alive = [dep for dep in deps if dep._step_thread.is_alive()]
+    if alive:
+        raise AssertionError(f"{len(alive)} stepping loops did not join "
+                             f"at shutdown()")
+
+
+def check_loops(deps, died) -> None:
+    if died:
+        raise died[0]
+    if not all(dep._step_thread.is_alive() for dep in deps):
+        raise AssertionError("a stepping loop died before shutdown()")
+
+
+def join_streams(threads, deps, died) -> None:
+    """Wait for the client threads, failing as soon as a stepping loop
+    or a client dies, or past the deadline."""
+    end = time.perf_counter() + STREAM_DEADLINE_S
+    for t in threads:
+        while t.is_alive():
+            check_loops(deps, died)
+            if time.perf_counter() > end:
+                raise AssertionError(f"a stream did not end within "
+                                     f"{STREAM_DEADLINE_S} s")
+            t.join(timeout=0.05)
+    check_loops(deps, died)
+
+
+def wait_idle(dep) -> dict:
+    """The deployment's idle snapshot: nothing running or waiting, no page
+    held. Fails unless every usable page is free or parked in the prefix
+    cache (a leaked pin would hold one)."""
+    end = time.perf_counter() + STREAM_DEADLINE_S
+    while True:
+        p = dep.engine_pressure()
+        if (p["running_requests"], p["waiting_requests"],
+                p["kv_utilization"]) == (0.0, 0.0, 0.0):
+            break
+        if time.perf_counter() > end:
+            raise AssertionError(f"never idle: {p}")
+        time.sleep(0.01)
+    eng = dep._engine
+    with dep._cv:
+        free, parked = len(eng.cache._free), eng.prefix_cache.reclaimable()
+        held = eng.cache.num_sequences()
+    if held or free + parked != eng.cache.total_pages:
+        raise AssertionError(f"pages leaked: {held} sequences hold pages, "
+                             f"{free} free + {parked} parked of "
+                             f"{eng.cache.total_pages}")
+    return {**p, "free_pages": free, "parked_pages": parked}
+
+
+def time_steps(dep) -> list:
+    """Make the deployment's engine sum the seconds of its steps (the loop
+    holds the engine lock through each); returns the one-element sum."""
+    held = [0.0]
+    step = dep._engine.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        try:
+            return step()
+        finally:
+            held[0] += time.perf_counter() - t0
+
+    dep._engine.step = timed_step
+    return held
+
+
+def probe_lock(dep, stop: threading.Event, waits: list) -> threading.Thread:
+    """A thread that takes the engine lock as a request thread does, every
+    5 ms until ``stop``, and keeps how long each acquire waited."""
+    def run():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            with dep._cv:
+                waits.append(time.perf_counter() - t0)
+            stop.wait(0.005)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def quantiles_ms(xs) -> dict:
+    xs = np.asarray(xs) * 1e3
+    return {"p50_ms": float(np.percentile(xs, 50)),
+            "p95_ms": float(np.percentile(xs, 95)),
+            "max_ms": float(xs.max()), "n": int(xs.size)}
+
+
+def token_agreement(got: dict, want: dict) -> dict:
+    """Share of positions equal between two runs' tokens, and each
+    request's first divergence."""
+    same = sum(a == b for rid in want for a, b in zip(got[rid], want[rid]))
+    total = sum(len(t) for t in want.values())
+    first = {rid: next((i for i, (a, b) in enumerate(zip(got[rid], want[rid]))
+                        if a != b), None) for rid in want}
+    return {"share": same / total, "compared": total,
+            "first_divergence": {r: i for r, i in first.items()
+                                 if i is not None}}
+
+
+def deployment_launches(launches: dict, forwards: int, n_layer: int
+                        ) -> None:
+    """The serving path's launches: the flash forward and the paged kernel
+    at least once, RMSNorm 2 L + 1 times a forward (65 for Llama-2-7B),
+    the backward kernels never."""
+    check_launches(launches, {"flash_forward": None, "paged_attention": None,
+                              "rmsnorm": (2 * n_layer + 1) * forwards,
+                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+
+
+def forwards_of(stats: dict) -> int:
+    return sum(sum(stats[k].values()) for k in (
+        "prefill_calls", "chunk_prefill_calls", "decode_calls"))
+
+
+def drive_deployment(dep, died, prompts: dict, extra: dict) -> dict:
+    """Phase 5's traffic through ``dep``: each prompt of ``prompts`` on its
+    own client thread with SERVE_NEW_TOKENS greedy tokens, arriving by
+    events (p0-p3 at once, p4 and p5 at p1's first token, p6 and p7 at
+    p4's), and the ``extra`` streams (``closed``: closed after
+    CLOSED_AFTER tokens; ``aborted``: aborted from outside after
+    ABORT_AFTER) with p4 and p5; with every kernel counter set to 0 just
+    before and read just after, the seconds the loop held the engine lock
+    and the waits of a request thread for it."""
+    from raytpu_torch.inference import serving as serving_mod
+
+    tokens = {rid: [] for rid in [*prompts, *extra]}
+    started, first_at = {}, {}
+    got = {rid: threading.Event() for rid in tokens}
+    held = time_steps(dep)
+    waits, stop = [], threading.Event()
+
+    def consume(rid, prompt, n):
+        if rid == "aborted":  # the id dep.abort names
+            serving_mod._request_context.set({"request_id": rid})
+        gen = dep.generate(prompt, max_new_tokens=n)
+        started[rid] = time.perf_counter()
+        for tok in gen:
+            tokens[rid].append(tok)
+            if len(tokens[rid]) == 1:
+                first_at[rid] = time.perf_counter()
+            if len(tokens[rid]) == {"closed": CLOSED_AFTER,
+                                    "aborted": ABORT_AFTER}.get(rid, 1):
+                got[rid].set()
+            if rid == "closed" and len(tokens[rid]) == CLOSED_AFTER:
+                break
+        gen.close()  # the closed stream's abort; a no-op on the rest
+
+    def arrive(*rids):
+        out = []
+        for rid in rids:
+            prompt = prompts.get(rid) or extra[rid]
+            n = SERVE_NEW_TOKENS if rid in prompts else OPEN_ENDED
+            t = threading.Thread(target=consume, args=(rid, prompt, n),
+                                 daemon=True)
+            t.start()
+            out.append(t)
+        return out
+
+    def wait_for(rid):
+        while not got[rid].wait(0.05):
+            check_loops([dep], died)
+
+    counters = kernel_counters()
+    for counter in counters.values():
+        counter.reset()
+    prober = probe_lock(dep, stop, waits)
+    t0 = time.perf_counter()
+    threads = arrive("p0", "p1", "p2", "p3")
+    wait_for("p1")
+    threads += arrive("p4", "p5", *extra)
+    wait_for("p4")
+    threads += arrive("p6", "p7")
+    aborted = None
+    if "aborted" in extra:
+        wait_for("aborted")
+        aborted = dep.abort("aborted")
+    join_streams(threads, [dep], died)
+    wall = time.perf_counter() - t0
+    stop.set()
+    prober.join(timeout=5)
+    launches = {name: c.count for name, c in counters.items()}
+    ttft = [first_at[r] - started[r] for r in prompts]
+    stats = dep.stats()
+    return {"tokens": tokens, "aborted": aborted, "wall_s": wall,
+            "launches": launches, "forwards": forwards_of(stats),
+            "client_ttft_p50_s": float(np.percentile(ttft, 50)),
+            "client_ttft_p95_s": float(np.percentile(ttft, 95)),
+            "engine_ttft_p50_s": stats["ttft_p50_s"],
+            "engine_ttft_p95_s": stats["ttft_p95_s"],
+            "decode_tokens": stats["decode_tokens"],
+            "decode_tokens_per_s": stats["decode_tokens"]
+            / stats["decode_seconds"],
+            "loop_lock_held_share": held[0] / wall,
+            "request_lock_wait": quantiles_ms(waits)}
+
+
+def phase_deployment(card_line: str, serve: dict) -> dict:
+    """Llama-2-7B behind ``LLMDeployment`` (full width and depth, phase
+    5's engine), driven by ``drive_deployment`` with a closed and an
+    aborted stream: every stream's tokens, the closed and aborted ones
+    ended, the launches, an idle snapshot with no page held, the loop's
+    thread joined at shutdown; TTFT at the client and in the engine, the
+    decode rate beside phase 5's, the loop's lock held and a request
+    thread's waits for it, token agreement with phase 5. Then the same
+    eight streams through a deployment with the JAX package's lock (a
+    plain ``Condition()``), to show what the handed-over lock changes."""
+    from raytpu_torch.inference import LLMDeployment, serving as serving_mod
+    from raytpu_torch.models.llama import LlamaConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig.llama2_7b()
+    prompts = serve_prompts(np.random.default_rng(1), cfg.vocab_size)
+    rng = np.random.default_rng(5)
+    extra = {"closed": rng.integers(0, cfg.vocab_size, 100).tolist(),
+             "aborted": rng.integers(0, cfg.vocab_size, 64).tolist()}
+    dep = LLMDeployment(model="llama", model_config=cfg,
+                        engine_options=DEPLOYMENT_ENGINE, seed=0)
+    with serving(dep) as died:
+        run = drive_deployment(dep, died, prompts, extra)
+        idle = wait_idle(dep)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    handoff_lock = serving_mod._HandoffLock
+    serving_mod._HandoffLock = threading.RLock  # the JAX package's lock
+    try:
+        plain = LLMDeployment(model="llama", model_config=cfg,
+                              engine_options=DEPLOYMENT_ENGINE, seed=0)
+    finally:
+        serving_mod._HandoffLock = handoff_lock
+    with serving(plain) as died:
+        jax_lock = drive_deployment(plain, died, prompts, {})
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = run.pop("tokens")
+    result = {
+        "model": "Llama-2-7B, 32 layers, bf16, random weights (seed 0)",
+        "engine": DEPLOYMENT_ENGINE, **run,
+        "phase5": {k: serve[k] for k in ("wall_s", "ttft_p50_s",
+                                         "ttft_p95_s",
+                                         "decode_tokens_per_s")},
+        "closed_tokens": len(tokens["closed"]),
+        "aborted_tokens": len(tokens["aborted"]), "idle": idle,
+        "max_memory_allocated_gb": peak,
+        "phase5_token_agreement": token_agreement(
+            {r: tokens[r] for r in prompts}, serve["tokens"]),
+        "jax_lock": {k: v for k, v in jax_lock.items()
+                     if k not in ("tokens", "aborted")},
+        "jax_lock_token_agreement": token_agreement(
+            {r: jax_lock["tokens"][r] for r in prompts}, serve["tokens"]),
+    }
+    log(f"[deployment] {json.dumps(result)} | {card_line}")
+    short = {r: len(t[r]) for t in (tokens, jax_lock["tokens"])
+             for r in prompts if len(t[r]) != SERVE_NEW_TOKENS}
+    if short:
+        raise AssertionError(f"streams without {SERVE_NEW_TOKENS} tokens: "
+                             f"{short}")
+    if len(tokens["closed"]) != CLOSED_AFTER:
+        raise AssertionError(f"the closed stream took "
+                             f"{len(tokens['closed'])} tokens")
+    if not (run["aborted"]
+            and ABORT_AFTER <= len(tokens["aborted"]) < OPEN_ENDED):
+        raise AssertionError(f"the abort did not end its stream: returned "
+                             f"{run['aborted']}, {len(tokens['aborted'])} "
+                             f"tokens")
+    deployment_launches(run["launches"], run["forwards"], cfg.n_layer)
+    return result
+
+
+class TimedPeer:
+    """A prefill replica as a decode replica's peer: times each
+    ``kv_export_*`` call and counts the chunk reads; with ``fail_half``
+    set, ``kv_export_read`` raises once half the stream has been read (a
+    peer lost mid-stream)."""
+
+    def __init__(self, dep):
+        self.dep, self.fail_half = dep, False
+        self.begin_s = self.read_s = self.end_s = 0.0
+        self.begins = self.reads = 0
+        self.total = 0
+
+    def kv_export_begin(self, prompt, max_pages=None):
+        t0 = time.perf_counter()
+        meta = self.dep.kv_export_begin(prompt, max_pages)
+        self.begin_s += time.perf_counter() - t0
+        self.begins += 1
+        self.total = meta["total_bytes"] if meta else 0
+        return meta
+
+    def kv_export_read(self, handoff_id, offset, length):
+        if self.fail_half and offset >= self.total // 2:
+            raise ConnectionError("planted: the peer is lost mid-stream")
+        t0 = time.perf_counter()
+        data = self.dep.kv_export_read(handoff_id, offset, length)
+        self.read_s += time.perf_counter() - t0
+        self.reads += 1
+        return data
+
+    def kv_export_end(self, handoff_id):
+        t0 = time.perf_counter()
+        ok = self.dep.kv_export_end(handoff_id)
+        self.end_s += time.perf_counter() - t0
+        return ok
+
+
+def ask(dep, prompt, n: int = SERVE_NEW_TOKENS):
+    """One greedy request from this thread: (TTFT from the generate call
+    to the first token, the tokens)."""
+    t0 = time.perf_counter()
+    out, ttft = [], None
+    for tok in dep.generate(prompt, max_new_tokens=n):
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        out.append(tok)
+    return ttft, out
+
+
+def pinned_copy_gbps(pages: torch.Tensor, repeats: int = 5) -> dict:
+    """The yardstick of the handoff: the same bytes, gathered on the card,
+    in one device-to-host copy into pinned memory (best of ``repeats``)."""
+    host = torch.empty(pages.shape, dtype=pages.dtype, pin_memory=True)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.copy_(pages, non_blocking=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    nbytes = pages.numel() * pages.element_size()
+    if not torch.equal(host.to(pages.device), pages):
+        raise AssertionError("the pinned copy differs from the pages")
+    return {"bytes": nbytes, "best_s": min(times), "times_s": times,
+            "gb_per_s": nbytes / min(times) / 1e9}
+
+
+def grafted_pages_equal(prefill, decode, prompt, n_pages: int) -> dict:
+    """The decode replica's grafted pages against the prefill replica's,
+    every layer, K and V, to the bit."""
+    pages = []
+    for dep in (prefill, decode):
+        with dep._cv:
+            pages.append(dep._engine.prefix_cache.match(
+                prompt, max_pages=n_pages))
+    if not all(len(p) == n_pages for p in pages):
+        raise AssertionError(f"pages cached: {[len(p) for p in pages]} of "
+                             f"{n_pages}")
+    a, b = prefill._engine.cache, decode._engine.cache
+    src, dst = (torch.tensor(p, device=a.device) for p in pages)
+    unequal = [(li, kind) for li in range(a.num_layers)
+               for kind, pa, pb in (("k", a.k, b.k), ("v", a.v, b.v))
+               if not torch.equal(pa[li][src], pb[li][dst])]
+    if unequal:
+        raise AssertionError(f"grafted pages differ from the source's in "
+                             f"(layer, K/V) {unequal[:8]}")
+    return {"pages": n_pages, "layers": a.num_layers, "equal": True}
+
+
+def phase_disagg(card_line: str) -> dict:
+    """A prefill replica and a decode replica of Llama-2-7B (full width
+    and depth, both from seed 0) on the one card: a 1500-token prompt
+    served colocated on the prefill replica, then through the decode
+    replica, which pulls its 93 full pages and prefills only the 12-token
+    tail; the grafted pages equal to the source's; the prefill replica
+    asked again gives the decode replica's tokens to the token; a prompt
+    under a page never pulls; a pull whose peer is lost halfway falls
+    back to a local prefill and leaves nothing pinned. Readings: the
+    handoff's bytes, seconds and GB/s against one pinned copy of the same
+    bytes, page reads a second, TTFT against the colocated one, peak
+    memory."""
+    from raytpu_torch.inference import LLMDeployment, disagg
+    from raytpu_torch.models.llama import LlamaConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig.llama2_7b()
+    prefill = LLMDeployment(model="llama", model_config=cfg,
+                            engine_options=DEPLOYMENT_ENGINE, seed=0,
+                            role="prefill")
+    peer = TimedPeer(prefill)
+    decode = LLMDeployment(model="llama", model_config=cfg,
+                           engine_options=DEPLOYMENT_ENGINE, seed=0,
+                           role="decode", prefill=peer)
+    rng = np.random.default_rng(4)
+    prompt, fresh = (rng.integers(0, cfg.vocab_size,
+                                  HANDOFF_PROMPT).tolist() for _ in range(2))
+    short = rng.integers(0, cfg.vocab_size, SHORT_PROMPT).tolist()
+    ps = DEPLOYMENT_ENGINE["page_size"]
+    n_pages = (HANDOFF_PROMPT - 1) // ps
+    with serving(prefill, decode) as died:
+        same = [torch.equal(a, b) for a, b in zip(
+            prefill._engine.model.state_dict().values(),
+            decode._engine.model.state_dict().values())]
+        if not all(same):
+            raise AssertionError(f"the replicas' weights differ: "
+                                 f"{same.count(False)} of {len(same)} tensors")
+        counters = kernel_counters()
+        for counter in counters.values():
+            counter.reset()
+        colo_ttft, colo = ask(prefill, prompt)
+        pulled = []
+        pull = decode._maybe_pull_prefix
+
+        def timed_pull(p):
+            t0 = time.perf_counter()
+            n = pull(p)
+            pulled.append((n, time.perf_counter() - t0))
+            return n
+
+        decode._maybe_pull_prefix = timed_pull
+        before = disagg.stats()
+        dec_prefill0 = decode.stats()["prefill_tokens"]
+        ho_ttft, handed = ask(decode, prompt)
+        after = disagg.stats()
+        tail = decode.stats()["prefill_tokens"] - dec_prefill0
+        check_loops([prefill, decode], died)
+        graft = grafted_pages_equal(prefill, decode, prompt, n_pages)
+        again_ttft, again = ask(prefill, prompt)
+        # The same bytes in one pinned copy: the prefill replica's pages.
+        with prefill._cv:
+            cache = prefill._engine.cache
+            src = torch.tensor(prefill._engine.prefix_cache.match(
+                prompt, max_pages=n_pages), device=cache.device)
+            gathered = torch.stack([torch.stack([cache.k[li][src],
+                                                 cache.v[li][src]])
+                                    for li in range(cache.num_layers)])
+        yardstick = pinned_copy_gbps(gathered)
+        del gathered
+        reads = (peer.reads, peer.read_s, peer.begin_s, peer.end_s)
+        # A prompt under a page: no pull, nothing exported.
+        begins, pre_tokens = peer.begins, prefill.stats()["prefill_tokens"]
+        _, short_out = ask(decode, short, 8)
+        short_pulled = (disagg.stats() != after or peer.begins != begins
+                        or prefill.stats()["prefill_tokens"] != pre_tokens)
+        # A pull from a peer lost halfway: a fresh prompt prefilled
+        # locally instead; the source's own prefill of it (in
+        # kv_export_begin) samples the token the fallback must give first.
+        sampled = []
+        generate = prefill.generate
+
+        def recording(*a, **kw):
+            for tok in generate(*a, **kw):
+                sampled.append(tok)
+                yield tok
+
+        prefill.generate = recording
+        peer.fail_half = True
+        dec_prefill1 = decode.stats()["prefill_tokens"]
+        fault_before = disagg.stats()
+        fb_ttft, fallback = ask(decode, fresh)
+        fault_after = disagg.stats()
+        del prefill.generate
+        peer.fail_half = False
+        open_exports = prefill._handoff_source.open_exports()
+        idle = {"prefill": wait_idle(prefill), "decode": wait_idle(decode)}
+        launches = {name: c.count for name, c in counters.items()}
+        forwards = sum(forwards_of(d.stats()) for d in (prefill, decode))
+        local = decode.stats()["prefill_tokens"] - dec_prefill1
+    nbytes = after["bytes"] - before["bytes"]
+    page_bytes = ps * cfg.n_kv_head * cfg.head_dim * cfg.dtype.itemsize
+    pull_tokens, pull_s = pulled[0]
+    result = {
+        "model": "Llama-2-7B x 2 replicas, 32 layers, bf16, seed 0",
+        "prompt": HANDOFF_PROMPT, "pages": after["pages"] - before["pages"],
+        "tokens_grafted": pull_tokens, "tail_prefilled": tail,
+        "handoff_bytes": nbytes, "pull_s": pull_s,
+        "pull_gb_per_s": nbytes / pull_s / 1e9,
+        "export_begin_s": reads[2], "export_end_s": reads[3],
+        "chunk_reads": reads[0], "chunk_read_s": reads[1],
+        "page_reads": nbytes // page_bytes,
+        "page_reads_per_s": nbytes // page_bytes / reads[1],
+        "read_gb_per_s": nbytes / reads[1] / 1e9,
+        "pinned_copy": yardstick,
+        "ttft_handoff_s": ho_ttft, "ttft_colocated_s": colo_ttft,
+        "ttft_prefill_replica_again_s": again_ttft,
+        "handoff_tokens_equal_prefill_again": handed == again,
+        "colocated_token_agreement": token_agreement(
+            {"a": handed}, {"a": colo}),
+        "grafted": graft, "short_prompt_pulled": short_pulled,
+        "short_tokens": len(short_out),
+        "fallback": {"tokens": len(fallback), "ttft_s": fb_ttft,
+                     "first_token": fallback[:1], "source_sampled": sampled,
+                     "local_prefill_tokens": local,
+                     "fallbacks": fault_after["fallbacks"]
+                     - fault_before["fallbacks"],
+                     "aborts": fault_after["aborts"]
+                     - fault_before["aborts"],
+                     "open_exports": open_exports},
+        "idle": idle, "launches": launches, "forwards": forwards,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"[disagg] {json.dumps(result)} | {card_line}")
+    if not (result["pages"] == n_pages and pull_tokens == n_pages * ps
+            and nbytes == cfg.n_layer * 2 * n_pages * page_bytes
+            and tail == HANDOFF_PROMPT - n_pages * ps):
+        raise AssertionError("the handoff did not graft the prompt's full "
+                             "pages and prefill only its tail")
+    if handed != again or len(handed) != SERVE_NEW_TOKENS:
+        raise AssertionError("the decode replica's tokens differ from the "
+                             "prefill replica's for the same prompt")
+    if short_pulled or len(short_out) != 8:
+        raise AssertionError("the short prompt went to the peer")
+    fb = result["fallback"]
+    if not (len(fallback) == SERVE_NEW_TOKENS and sampled
+            and fallback[0] == sampled[0] and fb["fallbacks"] == 1
+            and fb["aborts"] == 1 and open_exports == 0
+            and local == HANDOFF_PROMPT):
+        raise AssertionError(f"the lost peer's pull did not fall back to a "
+                             f"clean local prefill: {fb}")
+    deployment_launches(launches, forwards, cfg.n_layer)
+    del prefill, decode, peer
+    gc.collect()
+    torch.cuda.empty_cache()
     return result
 
 
@@ -2761,6 +3349,8 @@ def main() -> int:
     phase_e2e(model, card_line)
     del model
     torch.cuda.empty_cache()
+    deployment = phase_deployment(card_line, serve)
+    disagg = phase_disagg(card_line)
     t0 = time.perf_counter()
     gpt2 = GPT2(GPT2Config.small(), device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -2797,7 +3387,9 @@ def main() -> int:
     phase_rl_algorithms(card_line)
     rllib = {name: c.count for name, c in counters.items()}
     check_launches(rllib, {name: 0 for name in counters})
-    runs = {"serve": serve["launches"], "gpt2_serve": gpt2_serve["launches"],
+    runs = {"serve": serve["launches"], "deployment": deployment["launches"],
+            "disagg": disagg["launches"],
+            "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],
             "mixtral_train": mixtral["launches"], "rllib": rllib}

@@ -1,8 +1,8 @@
 """raytpu_torch: the PyTorch + CUDA port of raytpu, for an NVIDIA H100.
 
 Ported so far: serving Llama and GPT-2 through the paged inference
-engine, training GPT-2 (with its dropout), Llama and Mixtral on one card,
-and RLlib:
+engine and ``LLMDeployment``, training GPT-2 (with its dropout), Llama
+and Mixtral on one card, and RLlib:
 
 - :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
   two kernels, dQ and dK/dV), paged attention and RMSNorm, each a CUDA
@@ -14,7 +14,10 @@ and RLlib:
   GPT-2's; Llama's and Mixtral's are in ``raytpu_torch.models.llama``
   and ``raytpu_torch.models.mixtral``, as in the JAX package;
 - :mod:`raytpu_torch.inference` — paged KV cache, prefix cache,
-  continuous-batching scheduler, sampling and :class:`InferenceEngine`;
+  continuous-batching scheduler, sampling, :class:`InferenceEngine`, and
+  the replica body that serves through it, :class:`LLMDeployment`
+  (stepping loop, streamed tokens, aborts, the prefill-to-decode KV
+  handoff);
 - :mod:`raytpu_torch.rllib` — RL modules, learners, the local env runner
   and PPO, IMPALA, APPO, DQN, SAC, CQL and BC/MARWIL, through the JAX
   package's entry points (``PPOConfig()...build().train()``), with a
@@ -53,7 +56,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-from raytpu_torch.inference import (InferenceEngine, PagedKVCache,  # noqa: E402
+from raytpu_torch.inference import (InferenceEngine,  # noqa: E402
+                                    LLMDeployment, PagedKVCache,
                                     PrefixCache, SamplingParams, Scheduler,
                                     Sequence, StepOutput)
 from raytpu_torch.models.gpt2 import (GPT2, GPT2Config,  # noqa: E402
@@ -63,8 +67,8 @@ from raytpu_torch.models.llama import (Llama, LlamaConfig,  # noqa: E402
 from raytpu_torch.models.mixtral import (Mixtral,  # noqa: E402
                                          MixtralConfig, mixtral_loss_fn)
 
-__all__ = ["GPT2", "GPT2Config", "InferenceEngine", "Llama", "LlamaConfig",
-           "Mixtral", "MixtralConfig", "PagedKVCache", "PrefixCache",
-           "SamplingParams", "Scheduler", "Sequence", "StepOutput",
-           "llama_loss_fn", "make_train_step", "mixtral_loss_fn",
-           "resolve_device"]
+__all__ = ["GPT2", "GPT2Config", "InferenceEngine", "LLMDeployment", "Llama",
+           "LlamaConfig", "Mixtral", "MixtralConfig", "PagedKVCache",
+           "PrefixCache", "SamplingParams", "Scheduler", "Sequence",
+           "StepOutput", "llama_loss_fn", "make_train_step",
+           "mixtral_loss_fn", "resolve_device"]

@@ -8,10 +8,14 @@
   scheduler with preempt-to-recompute;
 - :mod:`~raytpu_torch.inference.sampling` — greedy / temperature / top-k
   sampling with per-request RNGs;
-- :mod:`~raytpu_torch.inference.engine` — :class:`InferenceEngine`.
+- :mod:`~raytpu_torch.inference.engine` — :class:`InferenceEngine`;
+- :mod:`~raytpu_torch.inference.serving` — :class:`LLMDeployment`, the
+  replica body: a stepping loop of its own, streamed tokens, aborts;
+- :mod:`~raytpu_torch.inference.disagg` — the KV-page handoff from a
+  prefill replica to a decode replica.
 
-``serving.py`` (``LLMDeployment``) and ``disagg.py`` need the serve
-fabric and are not ported yet.
+The serve fabric that hosts a deployment (``@deployment``, the router,
+the replica actor) is not ported yet.
 """
 
 from raytpu_torch.inference.kv_cache import PagedKVCache
@@ -19,6 +23,8 @@ from raytpu_torch.inference.prefix_cache import PrefixCache
 from raytpu_torch.inference.sampling import SamplingParams
 from raytpu_torch.inference.scheduler import Scheduler, Sequence
 from raytpu_torch.inference.engine import InferenceEngine, StepOutput
+from raytpu_torch.inference.serving import LLMDeployment
 
-__all__ = ["InferenceEngine", "PagedKVCache", "PrefixCache",
-           "SamplingParams", "Scheduler", "Sequence", "StepOutput"]
+__all__ = ["InferenceEngine", "LLMDeployment", "PagedKVCache",
+           "PrefixCache", "SamplingParams", "Scheduler", "Sequence",
+           "StepOutput"]

@@ -342,12 +342,28 @@ class InferenceEngine:
                     results[o.request_id].append(o.token_id)
         return [results[rid] for rid in ids]
 
+    def note_idle(self) -> None:
+        """Called by the stepping loop when there is no work. In the JAX
+        package it zeroes the throughput gauges and refreshes the load
+        gauges; the port has no metrics yet (ROADMAP.md, Queue 1 item 3),
+        so it does nothing and only keeps its place in the loop."""
+
     def ttft_quantile(self, q: float) -> float:
         """Recent-window TTFT quantile in seconds (0.0 when empty)."""
         if not self._ttft_window:
             return 0.0
         xs = sorted(self._ttft_window)
         return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    def pressure(self) -> Dict[str, float]:
+        """Load snapshot for engine-pressure autoscaling — plain floats
+        so it crosses the serve wire untouched."""
+        return {
+            "waiting_requests": float(len(self.scheduler.waiting)),
+            "running_requests": float(len(self.scheduler.running)),
+            "kv_utilization": float(self.cache.utilization()),
+            "ttft_p95_s": float(self.ttft_quantile(0.95)),
+        }
 
     def stats(self) -> dict:
         return {

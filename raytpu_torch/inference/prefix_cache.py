@@ -1,9 +1,7 @@
 """Prefix/prompt cache over the paged KV pool (reference analogue:
 vLLM's automatic prefix caching, SOSP '23 §4.3); a copy of
 ``raytpu/inference/prefix_cache.py`` whose metrics counters are plain
-integers of the cache, reported by :meth:`PrefixCache.stats`. Its
-``adopt`` and ``summary`` (for the KV handoff and prefix-aware routing)
-come with the serving plane (ROADMAP.md).
+integers of the cache, reported by :meth:`PrefixCache.stats`.
 
 Prompt KV is cached at *page* granularity under a content hash CHAINED
 over token ids: page ``i`` of a prompt hashes ``H(hash_of_page_{i-1} ||
@@ -134,6 +132,39 @@ class PrefixCache:
             self._hash_of[page] = h
             added += 1
         return added
+
+    def adopt(self, pages: Sequence[int], hashes: Sequence[bytes]) -> int:
+        """Index externally-filled pages (a streamed KV handoff) under
+        pre-computed chain hashes. The caller must hold references on
+        ``pages`` (a pin sequence) and have fully written their KV —
+        adoption makes them matchable exactly like locally-prefilled
+        pages, so when the pin is freed they park retained instead of
+        returning to the free list. First writer wins, same as
+        :meth:`register`: a hash already indexed keeps its mapping and
+        the duplicate incoming page simply stays un-indexed (its pin
+        release returns it to the free list). Returns pages adopted."""
+        added = 0
+        for page, h in zip(pages, hashes):
+            if h in self._by_hash or page in self._hash_of:
+                continue
+            self._by_hash[h] = page
+            self._hash_of[page] = h
+            added += 1
+        return added
+
+    def summary(self, max_entries: int = 1024) -> List[str]:
+        """Compact digest list for router-side prefix matching: the
+        first 8 bytes of each registered chain hash, hex-encoded.
+        Truncation keeps probe payloads small; 64 bits of a blake2b
+        chain digest leaves collisions negligible for routing (a wrong
+        route costs one redundant prefill, never correctness). Capped
+        at ``max_entries`` digests, insertion order (oldest first)."""
+        out: List[str] = []
+        for h in self._by_hash:
+            out.append(h[:8].hex())
+            if len(out) >= max_entries:
+                break
+        return out
 
     # ---- retainer protocol (driven by PagedKVCache) -----------------
 

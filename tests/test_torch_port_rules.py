@@ -213,3 +213,47 @@ def test_every_included_header_is_in_the_build_key():
                 if line.startswith('#include "'):
                     included.add(line.split('"')[1])
     assert included == set(_native.HEADERS)
+
+
+def test_serving_plane_modules_are_held_to_the_rules():
+    # The AST scan and the fresh-interpreter import above cover every
+    # module of the package, the serving plane's included.
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    assert {"inference/serving.py", "inference/disagg.py",
+            "cluster/constants.py", "cluster/transfer.py"} <= names
+    for name in ("inference/serving.py", "inference/disagg.py",
+                 "cluster/constants.py", "cluster/transfer.py"):
+        assert (REPO / "raytpu" / name).is_file()
+
+
+def test_deployment_raises_without_a_card(monkeypatch):
+    import threading
+
+    from raytpu_torch.inference import LLMDeployment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    def loops():
+        return {t for t in threading.enumerate() if t.name == "llm-step-loop"}
+
+    before = loops()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMDeployment()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMDeployment(model="gpt2", role="prefill")
+    assert loops() <= before  # no loop was started
+
+
+def test_deployment_on_the_cpu_when_asked():
+    from raytpu_torch.inference import LLMDeployment
+
+    dep = LLMDeployment(device="cpu", engine_options={
+        "page_size": 8, "max_num_seqs": 2, "max_model_len": 32})
+    try:
+        assert dep._engine.device.type == "cpu"
+        assert dep._engine.model.device.type == "cpu"
+        out = list(dep.generate([1, 2, 3], max_new_tokens=3))
+        assert len(out) == 3 and all(isinstance(t, int) for t in out)
+    finally:
+        dep.shutdown()
+    assert not dep._step_thread.is_alive()
