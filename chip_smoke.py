@@ -109,7 +109,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     falls back to a local prefill and leaves nothing pinned. Readings:
     the handoff's bytes, seconds and GB/s against one pinned copy of
     the same bytes, page reads a second, TTFT against the colocated
-    replica's, peak memory.
+    replica's, peak memory;
+21. observability (run after phase 6, on phase 5's model): phase 5's
+    engine and traffic plus a request aborted while it decodes, with
+    request events, tracing and the step profiler on: every request's
+    events in the JAX package's order with none dropped; the
+    ``raytpu_infer_*`` counters against the engine's and the prefix
+    cache's own counts, the gauges against the scheduler and the cache
+    and after ``note_idle``; one ``infer.*`` span a forward by kind and
+    bucket; one step time a decode step, the MFU gauge equal to the
+    analytic FLOPs over the step time over the card's peak (by its name),
+    the device-memory gauges equal to the allocator's; the same traffic
+    with everything off giving the same tokens to the bit and the same
+    launches of all five kernels; two decode steps inside
+    ``tracing.profile`` whose trace names the paged and RMSNorm kernels.
+    Readings: the per-token cost of all hooks and of each alone, each
+    run beside a run with everything off, over ten rounds in turns; the
+    same for single decode steps of eight in one engine; and the hooks'
+    host µs a decode step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -123,10 +140,12 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1414,14 +1433,19 @@ def check_launches(launches: dict, want: dict) -> None:
 
 
 def drive_engine(model, prompts: dict, arrivals: dict,
-                 norms_per_forward: int, **engine_kw) -> dict:
+                 norms_per_forward: int, aborts=None, after=None,
+                 **engine_kw) -> dict:
     """Serve ``prompts`` (request id -> tokens, each arriving before the
     step ``arrivals`` names) through a new InferenceEngine, greedy,
     SERVE_NEW_TOKENS each, with every kernel's launch counter set to 0
-    just before and read just after. Fails unless every request got its
-    tokens, the prefix cache hit, the chunk path ran, the flash forward
-    and the paged kernel launched, RMSNorm ``norms_per_forward`` times a
-    model forward and the backward kernels never."""
+    just before and read just after; the ids ``aborts`` names for a step
+    are aborted before it. Fails unless every request not aborted got
+    its tokens, the prefix cache hit, the chunk path ran, the flash
+    forward and the paged kernel launched, RMSNorm ``norms_per_forward``
+    times a model forward and the backward kernels never. ``after(eng)``,
+    if given, reads the engine once the traffic is done; its result is
+    the result's ``"after"``."""
+    aborts = aborts or {}
     from raytpu_torch.inference import InferenceEngine, SamplingParams
 
     sampling = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
@@ -1431,6 +1455,8 @@ def drive_engine(model, prompts: dict, arrivals: dict,
     gc.collect()
     torch.cuda.empty_cache()
     eng = InferenceEngine(model, page_size=16, max_num_seqs=8, **engine_kw)
+    # The prefix counters are process-wide: this run's are a difference.
+    hits0 = eng.stats()["prefix_cache"]["hit_tokens"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = kernel_counters()
@@ -1440,6 +1466,10 @@ def drive_engine(model, prompts: dict, arrivals: dict,
     steps = 0
     t0 = time.perf_counter()
     while steps == 0 or eng.has_unfinished() or steps <= max(arrivals):
+        for rid in aborts.get(steps, []):
+            if not eng.abort(rid):
+                raise AssertionError(f"{rid} was not in the engine at step "
+                                     f"{steps}")
         for rid in arrivals.get(steps, []):
             eng.add_request(rid, prompts[rid], sampling)
         for o in eng.step():
@@ -1463,7 +1493,7 @@ def drive_engine(model, prompts: dict, arrivals: dict,
         / stats["decode_seconds"],
         "decode_steps": len(stats["decode_batch_hist"]),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "prefix_hit_tokens": pc["hit_tokens"],
+        "prefix_hit_tokens": pc["hit_tokens"] - hits0,
         "prefill_calls": stats["prefill_calls"],
         "chunk_prefill_calls": stats["chunk_prefill_calls"],
         "decode_calls": stats["decode_calls"],
@@ -1471,8 +1501,9 @@ def drive_engine(model, prompts: dict, arrivals: dict,
         "forwards": sum(sum(stats[k].values()) for k in (
             "prefill_calls", "chunk_prefill_calls", "decode_calls")),
     }
+    aborted = {rid for ids in aborts.values() for rid in ids}
     short = {rid: len(t) for rid, t in tokens.items()
-             if len(t) != SERVE_NEW_TOKENS}
+             if len(t) != SERVE_NEW_TOKENS and rid not in aborted}
     if short:
         raise AssertionError(f"requests without {SERVE_NEW_TOKENS} "
                              f"tokens: {short}")
@@ -1480,11 +1511,13 @@ def drive_engine(model, prompts: dict, arrivals: dict,
         "flash_forward": None, "paged_attention": None,
         "rmsnorm": norms_per_forward * result["forwards"],
         "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
-    if pc["hit_tokens"] <= 0:
+    if result["prefix_hit_tokens"] <= 0:
         raise AssertionError("the shared prefix never hit the prefix cache")
     if not stats["chunk_prefill_calls"]:
         raise AssertionError("the chunked-prefill path never ran")
     result["tokens"] = tokens
+    if after is not None:
+        result["after"] = after(eng)
     del eng
     torch.cuda.empty_cache()
     return result
@@ -2100,9 +2133,9 @@ def phase_disagg(card_line: str) -> dict:
         pulled = []
         pull = decode._maybe_pull_prefix
 
-        def timed_pull(p):
+        def timed_pull(p, **tags):
             t0 = time.perf_counter()
-            n = pull(p)
+            n = pull(p, **tags)
             pulled.append((n, time.perf_counter() - t0))
             return n
 
@@ -2210,6 +2243,552 @@ def phase_disagg(card_line: str) -> dict:
     del prefill, decode, peer
     gc.collect()
     torch.cuda.empty_cache()
+    return result
+
+
+# ---- phase 21: observability -----------------------------------------
+
+# Rounds of the overhead reading. Each round serves the traffic in one
+# adjacent pair a flag arm: off then on in even rounds, on then off in
+# odd ones (off, on, on, off, ...), so each arm is read against an off run
+# beside it, first as often as second.
+OBS_ROUNDS = 10
+OBS_ARMS = {"off": (False, False, False), "all": (True, True, True),
+            "events": (True, False, False), "spans": (False, True, False),
+            "profiler": (False, False, True)}
+# For context only: the JAX package's own figure for request events on
+# against off, 0.89 % median against a 3 % budget, came from a CPU run of
+# a tiny Llama (BENCH_r20.json), not from a card.
+JAX_CPU_EVENTS_OVERHEAD_PCT = 0.89
+# The MFU gauge against FLOPs / step time / peak recomputed here: the
+# same float64 operations, so only the last bits may differ.
+MFU_REL = 1e-12
+HOOK_CALLS = 2000
+# Rounds of the step-paired reading: one decode step an arm a round.
+STEP_PAIR_ROUNDS = 40
+HBM_EVERY = 32  # the engine observes device memory every 32nd decode step
+# Every request's events, in the JAX package's order: the first token is
+# sampled inside the call that ends the prefill, so FIRST_TOKEN comes
+# before PREFILL_END (tests/test_torch_request_events.py holds the port
+# to the JAX engine's events on the CPU).
+SERVED = ["ADMITTED", "PREFILL_START", "FIRST_TOKEN", "PREFILL_END",
+          "FINISHED"]
+ABORTED_RUNNING = SERVED[:-1] + ["ABORTED"]
+
+
+def set_observability(events: bool, spans: bool, profile: bool) -> None:
+    """Request events, tracing and profiling on or off, the event ring
+    and span buffer empty."""
+    from raytpu_torch.util import profiler, task_events, tracing
+
+    for on, enable, disable in (
+            (events, task_events.enable_request_events,
+             task_events.disable_request_events),
+            (spans, tracing.enable_tracing, tracing.disable_tracing),
+            (profile, profiler.enable_profiling,
+             profiler.disable_profiling)):
+        (enable if on else disable)()
+    task_events.clear()
+    tracing.clear_spans()
+
+
+def observability_series() -> dict:
+    """The process-wide series the engine moves."""
+    from raytpu_torch.inference import engine, prefix_cache
+    from raytpu_torch.util.stepprof import step_profiler
+
+    return {"prefill_tokens": engine._prefill_tokens_total.value,
+            "decode_tokens": engine._decode_tokens_total.value,
+            "lookups": prefix_cache._lookups_total.value,
+            "hits": prefix_cache._hits_total.value,
+            "hit_tokens": prefix_cache._hit_tokens_total.value,
+            "ttft": len(engine._ttft_hist.observations),
+            "steps": len(step_profiler("infer")._step.observations)}
+
+
+def engine_gauges() -> dict:
+    from raytpu_torch.inference import engine
+    from raytpu_torch.util.metrics import Gauge
+
+    return {g._name: g.value for g in vars(engine).values()
+            if isinstance(g, Gauge)}
+
+
+def read_engine(eng) -> dict:
+    """What phase 21 reads of an engine once its traffic is done: its
+    stats, the gauges beside the scheduler's and the cache's own
+    numbers, the gauges after ``note_idle``, and its decode buckets."""
+    gauges, stats = engine_gauges(), eng.stats()
+    scheduler = {"running": len(eng.scheduler.running),
+                 "waiting": len(eng.scheduler.waiting),
+                 "kv_utilization": eng.cache.utilization()}
+    eng.note_idle()
+    return {"stats": stats, "gauges": gauges, "scheduler": scheduler,
+            "idle": engine_gauges(), "decode_buckets": eng.decode_buckets,
+            "page_size": eng.page_size, "decode_flops": eng.decode_flops}
+
+
+def llama_decode_flops(cfg, bucket: int, pages: int, page_size: int
+                       ) -> float:
+    """The padded decode step's FLOPs from Llama's config alone: 2 × the
+    weights of every product (q, k, v, o, gate, up, down, LM head) a
+    row, plus QKᵀ and PV over every slot of the table."""
+    d, hd = cfg.n_embd, cfg.head_dim
+    matmul = cfg.n_layer * (2 * d * cfg.n_head * hd
+                            + 2 * d * cfg.n_kv_head * hd
+                            + 3 * d * cfg.n_inter) + cfg.vocab_size * d
+    return (2.0 * matmul * bucket
+            + 4.0 * cfg.n_layer * cfg.n_head * hd * bucket * pages
+            * page_size)
+
+
+def check_observed_run(on: dict, before: dict, after: dict, prompts: dict,
+                       events: list, spans: list, hbm_seen: list,
+                       cfg) -> dict:
+    """Checks (a)-(d) of phase 21 on the run with everything on."""
+    from raytpu_torch.util import stepprof, task_events
+    from raytpu_torch.util.stepprof import step_profiler
+
+    read = on["after"]
+    stats = read["stats"]
+    # (a) every request's transitions, in the JAX order; nothing dropped.
+    by_id = {}
+    for ev in events:
+        by_id.setdefault(ev["id"], []).append(ev)
+    walks = {rid: [e["transition"] for e in evs]
+             for rid, evs in by_id.items()}
+    want = {rid: ABORTED_RUNNING if rid == "x0" else SERVED
+            for rid in prompts}
+    if walks != want:
+        raise AssertionError(f"request events {walks}, expected {want}")
+    if task_events.dropped_count():
+        raise AssertionError(f"{task_events.dropped_count()} events dropped")
+    # (b) counter deltas against the engine's and the cache's own counts.
+    moved = {k: after[k] - before[k] for k in before}
+    starts = [e["data"] for e in events
+              if e["transition"] == "PREFILL_START"]
+    expect = {"prefill_tokens": stats["prefill_tokens"],
+              "decode_tokens": stats["decode_tokens"],
+              # One lookup an admission, a hit where the admission
+              # grafted pages (the tokens PREFILL_START reports cached).
+              "lookups": sum(w.count("ADMITTED") for w in walks.values()),
+              "hits": sum(1 for s in starts if s["cached"] > 0),
+              "hit_tokens": sum(s["cached"] for s in starts),
+              "ttft": sum(1 for t in on["tokens"].values() if t),
+              "steps": len(stats["decode_batch_hist"])}
+    if moved != expect or moved["hit_tokens"] != on["prefix_hit_tokens"]:
+        raise AssertionError(f"series moved {moved}, expected {expect}")
+    gauges, sched = read["gauges"], read["scheduler"]
+    pairs = {"raytpu_infer_running_requests": sched["running"],
+             "raytpu_infer_waiting_requests": sched["waiting"],
+             "raytpu_infer_kv_page_utilization": sched["kv_utilization"]}
+    if any(gauges[k] != v for k, v in pairs.items()) or any(
+            read["idle"][k] != 0.0 for k in (
+                "raytpu_infer_prefill_tokens_per_s",
+                "raytpu_infer_decode_tokens_per_s")):
+        raise AssertionError(f"gauges {gauges} (idle {read['idle']}), "
+                             f"scheduler and cache {sched}")
+    # (c) one span a forward, by kind and bucket.
+    by_span, by_call = {}, {}
+    for s in spans:
+        key = (s["name"], s["attributes"]["bucket"])
+        by_span[key] = by_span.get(key, 0) + 1
+    for name, kind in (("infer.prefill", "prefill_calls"),
+                       ("infer.prefill_chunk", "chunk_prefill_calls"),
+                       ("infer.decode", "decode_calls")):
+        for bucket, n in stats[kind].items():
+            key = (name, int(bucket.split("x")[0]))
+            by_call[key] = by_call.get(key, 0) + n
+    if by_span != by_call:
+        raise AssertionError(f"spans {by_span}, engine calls {by_call}")
+    # (d) the step profiler: MFU of the last step, the peak by name, the
+    # device-memory gauges at each observation.
+    prof = step_profiler("infer")
+    name = torch.cuda.get_device_name(0)
+    table_peak = stepprof.peak_for_name(name)
+    if table_peak is None:
+        raise AssertionError(f"no peak FLOP/s for {name!r} in "
+                             f"stepprof.PEAK_BY_NAME")
+    peak = prof.peak_flops()
+    override = os.environ.get(stepprof.ENV_PEAK_FLOPS, "")
+    if not override and peak != table_peak:
+        raise AssertionError(f"the step profiler's peak {peak} is not the "
+                             f"table's {table_peak} for {name!r}")
+    last_b = stats["decode_batch_hist"][-1]
+    bucket = min(b for b in read["decode_buckets"] if b >= last_b)
+    dt, mfu = prof._step.observations[-1], prof._mfu.value
+    keys = [k for k in prof._flops if k[1] == bucket and abs(
+        min(1.0, prof._flops[k] / dt / peak) - mfu) <= MFU_REL * mfu]
+    for key, flops in prof._flops.items():
+        if not flops == read["decode_flops"](*key[1:]) == \
+                llama_decode_flops(cfg, key[1], key[2], read["page_size"]):
+            raise AssertionError(f"decode FLOPs at {key}: {flops}")
+    if len(keys) != 1 or not 0.0 < mfu <= 1.0:
+        raise AssertionError(f"MFU gauge {mfu} matches {keys} of "
+                             f"{sorted(prof._flops)} (step {dt} s)")
+    n_steps = len(stats["decode_batch_hist"])
+    if len(hbm_seen) != (n_steps - 1) // HBM_EVERY + 1 or any(
+            used != alloc or high != max_alloc
+            for used, high, alloc, max_alloc in hbm_seen):
+        raise AssertionError(f"device-memory gauges against the "
+                             f"allocator at each observation: {hbm_seen}")
+    return {"decode_steps": n_steps, "moved": moved,
+            "mfu_last_step": mfu, "mfu_key": list(keys[0]),
+            "last_step_s": dt, "flops_last_step": prof._flops[keys[0]],
+            "peak_flops": peak, "peak_flops_by_name": table_peak,
+            "peak_env_override": override,
+            "hbm_observations": [
+                {"used_gb": u / 1e9, "peak_gb": h / 1e9}
+                for u, h, _, _ in hbm_seen],
+            "spans": {f"{k[0]}:{k[1]}": v for k, v in by_span.items()},
+            "events": len(events)}
+
+
+def profile_two_decode_steps(model) -> dict:
+    """(f): two decode steps of eight 128-token sequences inside
+    ``tracing.profile``; the chrome trace it writes must name the paged
+    kernel and the RMSNorm kernel among its CUDA kernels."""
+    from raytpu_torch.inference import InferenceEngine, SamplingParams
+    from raytpu_torch.util import tracing
+
+    rng = np.random.default_rng(22)
+    eng = InferenceEngine(model, page_size=16, max_num_seqs=8,
+                          max_model_len=2048, prefill_chunk=512)
+    for i in range(8):
+        eng.add_request(f"f{i}", rng.integers(
+            0, model.config.vocab_size, 128).tolist(),
+            SamplingParams(max_new_tokens=8))
+    eng.step()  # the eight prefills
+    with tempfile.TemporaryDirectory() as logdir:
+        with tracing.profile(logdir) as prof:
+            eng.step()
+            eng.step()
+            torch.cuda.synchronize()
+        with open(prof.trace_path) as f:
+            trace = json.load(f)
+        size = os.path.getsize(prof.trace_path)
+    kernels = sorted({ev["name"] for ev in trace["traceEvents"]
+                      if ev.get("cat") == "kernel"})
+    found = {"paged": [k for k in kernels if "paged_" in k],
+             "rmsnorm": [k for k in kernels if "rmsnorm" in k]}
+    hist = eng.stats()["decode_batch_hist"]
+    del eng
+    torch.cuda.empty_cache()
+    if hist != [8, 8] or not all(found.values()):
+        raise AssertionError(f"profiled decode steps {hist}: paged and "
+                             f"RMSNorm kernels in the trace {found} of "
+                             f"{kernels}")
+    return {"trace_bytes": size, "kernels": len(kernels),
+            "paged_kernels": found["paged"],
+            "rmsnorm_kernels": found["rmsnorm"]}
+
+
+def hook_costs(device, events_per_decode_step: float) -> dict:
+    """(g): the host's µs a call of each hook a decode step runs with its
+    flag on (a span around the forward; the step profiler's cached FLOPs
+    and its observation; the device-memory read every 32nd step; one
+    request event), timed back to back over HOOK_CALLS calls, and the
+    three flag checks a step pays with everything off."""
+    from raytpu_torch.util import task_events, tracing
+    from raytpu_torch.util.profiler import profiling_enabled
+    from raytpu_torch.util.stepprof import step_profiler
+
+    prof = step_profiler("infer")
+    key = next(iter(prof._flops))
+
+    def per_call(fn, calls: int = HOOK_CALLS) -> float:
+        fn()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter_ns() - t0) / calls / 1e3
+
+    def span():
+        with tracing.span("infer.decode", {"batch": 8, "bucket": 8}):
+            pass
+
+    def profiler():
+        if profiling_enabled():
+            flops = prof.ensure_flops(key, lambda: 0.0)
+            prof.observe_step(0.0241, flops=flops)
+
+    def event():
+        if task_events.request_events_enabled():
+            task_events.emit_request("hook-cost", "FIRST_TOKEN")
+
+    def flags_off():
+        if task_events.request_events_enabled():
+            pass
+        with tracing.span("infer.decode", {"batch": 8, "bucket": 8}):
+            pass
+        if profiling_enabled():
+            pass
+
+    def while_busy(fn) -> float:
+        """``per_call`` over 200 calls while the card runs a queue of
+        products (about half a second of them, checked still running at
+        the end)."""
+        a = torch.randn(8192, 8192, device=device, dtype=torch.bfloat16)
+        b = torch.empty_like(a)
+        for _ in range(400):
+            torch.matmul(a, a, out=b)
+        queued = torch.cuda.Event()
+        queued.record()
+        us = per_call(fn, 200)
+        busy = not queued.query()
+        torch.cuda.synchronize()
+        return us if busy else float("nan")
+
+    set_observability(True, True, True)
+    try:
+        out = {"span_us": per_call(span), "profiler_us": per_call(profiler),
+               "hbm_read_us": per_call(lambda: prof.observe_hbm(device),
+                                       200),
+               "event_us": per_call(event),
+               # A root span's parts that reach the system: two random
+               # ids and the thread's native id; and the span again while
+               # the card is busy (nan: the card went idle first).
+               "urandom_us": per_call(lambda: os.urandom(16)),
+               "native_id_us": per_call(threading.get_native_id),
+               "span_us_card_busy": while_busy(span),
+               "urandom_us_card_busy": while_busy(lambda: os.urandom(16))}
+    finally:
+        set_observability(False, False, False)
+    out["flags_off_us"] = per_call(flags_off)
+    out["events_per_decode_step"] = events_per_decode_step
+    out["decode_step_hooks_us"] = (
+        out["span_us"] + out["profiler_us"] + out["hbm_read_us"] / HBM_EVERY
+        + events_per_decode_step * out["event_us"])
+    return out
+
+
+def spread(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs))}
+
+
+def in_turns(rounds: int):
+    """(arm, the two arms of its pair in the order they run) for each
+    round and flag arm: (off, arm) in even rounds, (arm, off) in odd."""
+    for r in range(rounds):
+        for arm in list(OBS_ARMS)[1:]:
+            yield arm, (("off", arm) if r % 2 == 0 else (arm, "off"))
+
+
+def decode_step_pairs(model) -> dict:
+    """(g): one engine's decode steps at batch 8 and 1024+ tokens (the
+    profile phase's workload), each arm's flags set before its step, one
+    step an arm a round for STEP_PAIR_ROUNDS rounds in turns. A step's
+    host time ends with the logits' host copy, so it holds the device's
+    work; each arm is read against its round's step with everything
+    off."""
+    from raytpu_torch.inference import InferenceEngine, SamplingParams
+
+    rng = np.random.default_rng(3)
+    eng = InferenceEngine(model, page_size=16, max_num_seqs=8,
+                          max_model_len=2048, prefill_chunk=512)
+    steps = STEP_PAIR_ROUNDS * (len(OBS_ARMS) - 1) * 2
+    for i in range(8):
+        eng.add_request(f"d{i}", rng.integers(
+            0, model.config.vocab_size, 1024).tolist(),
+            SamplingParams(max_new_tokens=steps + 16))
+    while eng.stats()["decode_batch_hist"][-3:] != [8, 8, 8]:
+        eng.step()  # both prefill chunks, then warm decode steps
+    warm = len(eng.stats()["decode_batch_hist"])
+    pairs = {arm: [] for arm in list(OBS_ARMS)[1:]}
+    try:
+        for arm, turn in in_turns(STEP_PAIR_ROUNDS):
+            ms = {}
+            for side in turn:
+                set_observability(*OBS_ARMS[side])
+                t0 = time.perf_counter()
+                eng.step()
+                ms[side] = (time.perf_counter() - t0) * 1e3
+            pairs[arm].append((ms["off"], ms[arm]))
+    finally:
+        set_observability(False, False, False)
+    timed = eng.stats()["decode_batch_hist"][warm:]
+    del eng
+    torch.cuda.empty_cache()
+    if timed != [8] * steps:
+        raise AssertionError(f"the paired steps were not all decode steps "
+                             f"of eight: {timed}")
+    return {"rounds": STEP_PAIR_ROUNDS,
+            "off_step_ms": spread([o for ps in pairs.values()
+                                   for o, _ in ps]),
+            "delta_us": {arm: spread([(a - o) * 1e3 for o, a in ps])
+                         for arm, ps in pairs.items()},
+            "delta_pct": {arm: spread([(a / o - 1.0) * 100.0
+                                       for o, a in ps])
+                          for arm, ps in pairs.items()}}
+
+
+def phase_observability(model, card_line: str) -> dict:
+    """Llama-2-7B (full width and depth, phase 5's engine and prompts,
+    plus a 64-token request aborted while it decodes) driven through
+    ``drive_engine`` with request events, tracing and profiling on: (a)
+    every request's events in the JAX order, none dropped; (b) the
+    counters against the engine's and the prefix cache's own counts, the
+    gauges against the scheduler and the cache, ``note_idle`` zeroing
+    the rates; (c) one span a forward by kind and bucket; (d) one step
+    time a decode step, the MFU gauge equal to the analytic FLOPs over
+    the step time over the card's peak (by name), the device-memory
+    gauges equal to the allocator's at each observation; (e) the same
+    traffic with everything off: the same tokens to the bit, the same
+    launches; (f) two decode steps inside ``tracing.profile``, whose
+    trace names the paged and RMSNorm kernels; (g) a reading: the
+    per-token cost of each arm against an adjacent off run over
+    OBS_ROUNDS rounds in turns, the collector's share of each run, decode
+    steps of eight paired the same way in one engine, and the hooks' host
+    µs a decode step."""
+    from raytpu_torch.util import task_events, tracing
+    from raytpu_torch.util.stepprof import step_profiler
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    prompts = serve_prompts(np.random.default_rng(1), cfg.vocab_size)
+    prompts["x0"] = np.random.default_rng(21).integers(
+        0, cfg.vocab_size, 64).tolist()
+    # x0 decodes from step 1 and is aborted before step 3, before p6 and
+    # p7 arrive, so the batch never holds more than eight.
+    arrivals = {0: ["p0", "p1", "p2", "p3", "x0"], 2: ["p4", "p5"],
+                4: ["p6", "p7"]}
+    aborts = {3: ["x0"]}
+
+    def serve(arm: str, after=None):
+        """The traffic with ``arm``'s flags on: (result, events, spans).
+        The result's ``gc`` is what the cyclic collector took of the run:
+        its passes (the full collection ``drive_engine`` makes before the
+        traffic left out) and their seconds."""
+        pauses = []
+
+        def collector(phase, info):
+            if phase == "start":
+                pauses.append([info["generation"], time.perf_counter()])
+            else:
+                pauses[-1][1] = time.perf_counter() - pauses[-1][1]
+
+        set_observability(*OBS_ARMS[arm])
+        gc.callbacks.append(collector)
+        try:
+            res = drive_engine(model, prompts, arrivals,
+                               2 * cfg.n_layer + 1, aborts=aborts,
+                               after=after, max_model_len=2048,
+                               prefill_chunk=512)
+            events, spans = task_events.get_events(), tracing.get_spans()
+        finally:
+            gc.callbacks.remove(collector)
+            set_observability(False, False, False)
+        del pauses[next(i for i, (g, _) in enumerate(pauses) if g == 2)]
+        res["gc"] = {"passes": len(pauses),
+                     "full": sum(g == 2 for g, _ in pauses),
+                     "s": sum(t for _, t in pauses)}
+        return res, events, spans
+
+    # (a)-(d): everything on, the device-memory observations watched.
+    prof = step_profiler("infer")
+    hbm_seen = []
+    observe_hbm = prof.observe_hbm
+
+    def watched_hbm(device):
+        observe_hbm(device)
+        tag = (f"{torch.cuda.get_device_name(device)}:{device.index}",)
+        hbm_seen.append((prof._hbm_used.values[tag],
+                         prof._hbm_peak.values[tag],
+                         torch.cuda.memory_allocated(device),
+                         torch.cuda.max_memory_allocated(device)))
+
+    before = observability_series()
+    prof.observe_hbm = watched_hbm
+    try:
+        on, events, spans = serve("all", after=read_engine)
+    finally:
+        del prof.observe_hbm
+    after = observability_series()
+    checked = check_observed_run(on, before, after, prompts, events, spans,
+                                 hbm_seen, cfg)
+    # (e): everything off.
+    off = serve("off")[0]
+    if off["tokens"] != on["tokens"] or off["launches"] != on["launches"]:
+        raise AssertionError(
+            f"observability changed the run: tokens equal "
+            f"{off['tokens'] == on['tokens']}, launches {on['launches']} "
+            f"on against {off['launches']} off")
+    # (f)
+    profiled = profile_two_decode_steps(model)
+    # (g)
+    pairs = {arm: [] for arm in list(OBS_ARMS)[1:]}
+    for arm, turn in in_turns(OBS_ROUNDS):
+        rows = {}
+        for side in turn:
+            res = serve(side)[0]
+            if res["tokens"] != off["tokens"] or \
+                    res["launches"] != off["launches"]:
+                raise AssertionError(f"{side} (paired with {arm}): tokens "
+                                     f"or launches differ from the off run")
+            n_tokens = sum(len(t) for t in res["tokens"].values())
+            rows[side] = {
+                "s_per_token": res["wall_s"] / n_tokens,
+                "decode_step_ms": res["decode_tokens"]
+                / res["decode_tokens_per_s"] / res["decode_steps"] * 1e3,
+                "gc_s": res["gc"]["s"], "gc_full": res["gc"]["full"]}
+        pairs[arm].append((rows["off"], rows[arm]))
+    overhead = {arm: spread([(a["s_per_token"] / o["s_per_token"] - 1.0)
+                             * 100.0 for o, a in ps])
+                for arm, ps in pairs.items()}
+    step_us = {arm: spread([(a["decode_step_ms"] - o["decode_step_ms"])
+                            * 1e3 for o, a in ps])
+               for arm, ps in pairs.items()}
+    runs = {"off": [o for ps in pairs.values() for o, _ in ps],
+            **{arm: [a for _, a in ps] for arm, ps in pairs.items()}}
+    step_pairs = decode_step_pairs(model)
+    hooks = hook_costs(torch.device("cuda", torch.cuda.current_device()),
+                       checked["events"] / checked["decode_steps"])
+    result = {
+        "model": "Llama-2-7B, 32 layers, bf16, random weights (seed 0)",
+        "traffic": "phase 5's eight prompts and arrivals, plus x0 (64 "
+                   "tokens) aborted while decoding",
+        **checked,
+        "tokens_equal_on_off": True, "launches": on["launches"],
+        "wall_s_on": on["wall_s"], "wall_s_off": off["wall_s"],
+        "profile": profiled,
+        "rounds": OBS_ROUNDS,
+        "per_token_overhead_pct": overhead,
+        "s_per_token_pairs": {arm: [[o["s_per_token"], a["s_per_token"]]
+                                    for o, a in ps]
+                              for arm, ps in pairs.items()},
+        "decode_step_host_delta_us": step_us,
+        "decode_step_ms_off": spread([o["decode_step_ms"]
+                                      for o in runs["off"]]),
+        # The collector's share of each arm's runs: retained spans and
+        # events are objects that survive, which drives passes.
+        "gc_s_per_run": {arm: spread([r["gc_s"] for r in rows])
+                         for arm, rows in runs.items()},
+        "gc_full_per_run": {arm: spread([r["gc_full"] for r in rows])
+                            for arm, rows in runs.items()},
+        "s_per_token_off": spread([o["s_per_token"] for o in runs["off"]]),
+        "decode_step_pairs": step_pairs,
+        "hooks": hooks,
+        "decode_step_ms_perf_md": 24.1,
+        "jax_cpu_events_overhead_pct": JAX_CPU_EVENTS_OVERHEAD_PCT,
+        "jax_cpu_events_overhead_source": "BENCH_r20.json: a CPU run of a "
+                                          "tiny Llama, not a card figure",
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"[observability] {json.dumps(result)} | {card_line}")
+    log(f"[observability] MFU {checked['mfu_last_step']:.4f} of the last "
+        f"decode step against {checked['peak_flops']:.4g} FLOP/s "
+        f"({torch.cuda.get_device_name(0)}); per-token overhead, median "
+        f"(min, max) over {OBS_ROUNDS} paired rounds: " + "; ".join(
+            f"{arm} {v['median']:+.2f} % ({v['min']:+.2f}, "
+            f"{v['max']:+.2f})" for arm, v in overhead.items())
+        + f"; hooks {hooks['decode_step_hooks_us']:.1f} µs a decode step; "
+        f"decode steps of eight, paired over {STEP_PAIR_ROUNDS} rounds, "
+        f"median µs: " + ", ".join(
+            f"{arm} {v['median']:+.0f}" for arm, v in
+            step_pairs["delta_us"].items())
+        + f" against {step_pairs['off_step_ms']['median']:.2f} ms off "
+        f"| {card_line}")
     return result
 
 
@@ -3347,6 +3926,7 @@ def main() -> int:
     serve = phase_serve(model, card_line)
     phase_profile(model, card_line)
     phase_e2e(model, card_line)
+    observability = phase_observability(model, card_line)
     del model
     torch.cuda.empty_cache()
     deployment = phase_deployment(card_line, serve)
@@ -3387,7 +3967,9 @@ def main() -> int:
     phase_rl_algorithms(card_line)
     rllib = {name: c.count for name, c in counters.items()}
     check_launches(rllib, {name: 0 for name in counters})
-    runs = {"serve": serve["launches"], "deployment": deployment["launches"],
+    runs = {"serve": serve["launches"],
+            "observability": observability["launches"],
+            "deployment": deployment["launches"],
             "disagg": disagg["launches"],
             "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],

@@ -18,6 +18,11 @@ and Mixtral on one card, and RLlib:
   the replica body that serves through it, :class:`LLMDeployment`
   (stepping loop, streamed tokens, aborts, the prefill-to-decode KV
   handoff);
+- :mod:`raytpu_torch.util` — the serving plane's observability, in
+  process: metrics (``raytpu_infer_*`` and the serve SLO ledger), spans
+  and ``profile`` over ``torch.profiler``, the request lifecycle
+  recorder, and the decode step profiler (step times, MFU, device
+  memory);
 - :mod:`raytpu_torch.rllib` — RL modules, learners, the local env runner
   and PPO, IMPALA, APPO, DQN, SAC, CQL and BC/MARWIL, through the JAX
   package's entry points (``PPOConfig()...build().train()``), with a

@@ -44,9 +44,9 @@ device's default stream (every thread of a deployment launches there),
 after the kernels that wrote the pages, and reads copy on a side stream
 that waits on that event, so a read synchronises only with its own copy.
 
-The JAX package's four ``raytpu_infer_handoff_*`` counters are plain
-integers here, returned by :func:`stats` (the port has no metrics yet),
-and its failpoint sites wait for the port's runtime.
+The four ``raytpu_infer_handoff_*_total`` counters are the JAX
+package's, process-wide; :func:`stats` reads them. Its failpoint sites
+wait for the port's runtime.
 """
 
 from __future__ import annotations
@@ -63,24 +63,30 @@ import torch
 from raytpu_torch.cluster import constants as tuning
 from raytpu_torch.cluster import transfer
 from raytpu_torch.inference.prefix_cache import chain_hashes
+from raytpu_torch.util.metrics import Counter
 
-# The JAX package's raytpu_infer_handoff_{pages,bytes,aborts,fallbacks}
-# _total: pages grafted, payload bytes streamed, handoffs aborted
-# mid-stream (peer death, TTL sweep), pulls that fell back to a local
-# prefill.
-_stats = {"pages": 0, "bytes": 0, "aborts": 0, "fallbacks": 0}
-_stats_lock = threading.Lock()
-
-
-def _count(name: str, n: int = 1) -> None:
-    with _stats_lock:
-        _stats[name] += n
+_handoff_pages_total = Counter(
+    "raytpu_infer_handoff_pages_total",
+    "KV pages grafted via disaggregated prefill->decode handoff")
+_handoff_bytes_total = Counter(
+    "raytpu_infer_handoff_bytes_total",
+    "Payload bytes streamed in cross-replica KV handoffs")
+_handoff_aborts_total = Counter(
+    "raytpu_infer_handoff_aborts_total",
+    "KV handoffs aborted mid-stream (peer death, TTL sweep)")
+_handoff_fallbacks_total = Counter(
+    "raytpu_infer_handoff_fallbacks_total",
+    "Disaggregated pulls that fell back to a local (colocated) prefill")
 
 
 def stats() -> Dict[str, int]:
-    """The process-wide handoff counters (cumulative)."""
-    with _stats_lock:
-        return dict(_stats)
+    """The process-wide handoff counters (cumulative): pages grafted,
+    payload bytes streamed, handoffs aborted mid-stream, pulls that fell
+    back to a local prefill."""
+    return {"pages": int(_handoff_pages_total.value),
+            "bytes": int(_handoff_bytes_total.value),
+            "aborts": int(_handoff_aborts_total.value),
+            "fallbacks": int(_handoff_fallbacks_total.value)}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -255,7 +261,7 @@ class KVHandoffSource:
             self._exports.clear()
         for ex in exports:
             self.engine.cache.free(ex.pin_id)
-            _count("aborts")
+            _handoff_aborts_total.inc()
         return len(exports)
 
     def sweep(self, now: Optional[float] = None) -> int:
@@ -272,7 +278,7 @@ class KVHandoffSource:
                     expired.append(self._exports.pop(hid))
         for ex in expired:
             self.engine.cache.free(ex.pin_id)
-            _count("aborts")
+            _handoff_aborts_total.inc()
         return len(expired)
 
     def open_exports(self) -> int:
@@ -391,8 +397,8 @@ class KVHandoffSink:
         # pages, so the order is what turns "free" into "park".
         adopted = eng.prefix_cache.adopt(self._pages, self._hashes)
         cache.free(self._pin_id)
-        _count("pages", adopted)
-        _count("bytes", int(self._meta["total_bytes"]))
+        _handoff_pages_total.inc(adopted)
+        _handoff_bytes_total.inc(int(self._meta["total_bytes"]))
         self._pin_id = None
         self._buf = None
         return adopted
@@ -404,7 +410,7 @@ class KVHandoffSink:
         if self._pin_id is not None:
             self.engine.cache.free(self._pin_id)
             self._pin_id = None
-            _count("aborts")
+            _handoff_aborts_total.inc()
         self._buf = None
 
 
@@ -430,7 +436,7 @@ def pull_kv_prefix(engine, lock, peer, prompt: Sequence[int]) -> int:
     try:
         meta = peer.kv_export_begin(prompt, cap)
     except Exception:
-        _count("fallbacks")
+        _handoff_fallbacks_total.inc()
         return 0
     if not meta:
         return 0
@@ -462,7 +468,7 @@ def pull_kv_prefix(engine, lock, peer, prompt: Sequence[int]) -> int:
     except Exception:
         with lock:
             sink.abort()
-        _count("fallbacks")
+        _handoff_fallbacks_total.inc()
         return 0
     finally:
         # Best-effort unpin on the source; if the peer is dead its TTL

@@ -17,8 +17,22 @@ hand the model the same shapes and produce the same tokens:
 The JAX engine's compile counters become call counts per bucket
 (``stats()``). Sampling runs on the host with per-request RNGs (see
 :mod:`raytpu_torch.inference.sampling`), so batched output equals solo
-output. Not ported yet: tensor parallelism (``tp``/``mesh``), metrics,
-tracing spans and request events (see ROADMAP.md).
+output.
+
+Observability, as in the JAX engine: the ``raytpu_infer_*`` gauges,
+token counters and TTFT histogram (process-wide, set every step and by
+:meth:`InferenceEngine.note_idle`); the request events ``PREFILL_START``,
+``PREFILL_END`` and ``FIRST_TOKEN`` (the scheduler emits the rest); the
+spans ``infer.prefill``, ``infer.prefill_chunk`` and ``infer.decode``;
+and, under ``profiling_enabled()``, the decode step profiler. Each site
+costs one flag check when its flag is off. A span wraps a forward's
+dispatch: on CUDA the forward returns before the card has run it, and
+the host copy of the logits that waits for it comes after the span (the
+JAX span around an asynchronous jit call reads the same). The step
+profiler times a decode from before its forward to after that copy, so
+its step time holds the device's work.
+
+Not ported yet: tensor parallelism (``tp``/``mesh``; see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,6 +55,29 @@ from raytpu_torch.models.gpt2 import (GPT2, gpt2_decode, gpt2_prefill,
                                       gpt2_prefill_chunk)
 from raytpu_torch.models.llama import (Llama, llama_decode, llama_prefill,
                                        llama_prefill_chunk)
+from raytpu_torch.util import task_events, tracing
+from raytpu_torch.util.metrics import Counter, Gauge, Histogram
+from raytpu_torch.util.profiler import profiling_enabled
+from raytpu_torch.util.stepprof import decode_step_flops, step_profiler
+
+_running_gauge = Gauge("raytpu_infer_running_requests",
+                       "Sequences currently decoding")
+_waiting_gauge = Gauge("raytpu_infer_waiting_requests",
+                       "Requests queued for admission")
+_kv_util_gauge = Gauge("raytpu_infer_kv_page_utilization",
+                       "Fraction of KV pages in use")
+_prefill_tps_gauge = Gauge("raytpu_infer_prefill_tokens_per_s",
+                           "Prefill throughput of the last engine step")
+_decode_tps_gauge = Gauge("raytpu_infer_decode_tokens_per_s",
+                          "Decode throughput of the last engine step")
+_prefill_tokens_total = Counter("raytpu_infer_prefill_tokens_total",
+                                "Prompt tokens prefilled")
+_decode_tokens_total = Counter("raytpu_infer_decode_tokens_total",
+                               "Tokens decoded")
+_ttft_hist = Histogram(
+    "raytpu_infer_ttft_seconds",
+    "Time from request admission to its first sampled token",
+    boundaries=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,16 +132,22 @@ class InferenceEngine:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP.md)")
         c = model.config
+        # The weights a decode step multiplies by (for its analytic FLOP
+        # count): every matrix but the embedding lookups, the LM head
+        # included (GPT-2's is tied to ``wte``; ``wpe`` is a lookup).
+        matrices = sum(p.numel() for p in model.parameters() if p.dim() == 2)
         # The forwards by model family, as the JAX engine picks them by
         # config type (a Mixtral is neither: the engine refuses it).
         if type(model) is Llama:
             self._prefill_fwd, self._decode_fwd = llama_prefill, llama_decode
             self._chunk_fwd = llama_prefill_chunk
             kv_heads, head_dim = c.n_kv_head, c.head_dim
+            matrices -= model.embed_tokens.weight.numel()
         elif type(model) is GPT2:
             self._prefill_fwd, self._decode_fwd = gpt2_prefill, gpt2_decode
             self._chunk_fwd = gpt2_prefill_chunk
             kv_heads, head_dim = c.n_head, c.n_embd // c.n_head
+            matrices -= model.wpe.weight.numel()
         else:
             raise TypeError(f"unsupported model: {type(model).__name__} "
                             f"(the engine serves Llama and GPT-2)")
@@ -112,6 +155,8 @@ class InferenceEngine:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
         self.model = model
+        self._matmul_params = matrices
+        self._attn_dims = (c.n_layer, c.n_head, head_dim)
         self.max_model_len = min(max_model_len or c.block_size, c.block_size)
         self.page_size = page_size
         self.max_pages_per_seq = -(-self.max_model_len // page_size)
@@ -149,6 +194,11 @@ class InferenceEngine:
         self._decode_seconds = 0.0
         self._arrival_ts: Dict[str, float] = {}
         self._ttft_window = collections.deque(maxlen=256)
+        # Request ids whose PREFILL_START was emitted but not yet paired
+        # with PREFILL_END (chunked prefills span steps; preemption-
+        # resume prefills are excluded — RESUMED covers them).
+        self._prefill_announced: set = set()
+        self._hbm_tick = 0
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
@@ -175,6 +225,7 @@ class InferenceEngine:
 
     def abort(self, request_id: str) -> bool:
         self._arrival_ts.pop(request_id, None)
+        self._prefill_announced.discard(request_id)
         return self.scheduler.abort(request_id)
 
     def has_unfinished(self) -> bool:
@@ -189,16 +240,37 @@ class InferenceEngine:
         out: List[StepOutput] = []
         plan = self.scheduler.schedule()
         t0 = time.perf_counter()
+        prefilled = decoded = 0
         with torch.no_grad():
             for seq in plan.prefills:
-                self._prefill_tokens += self._run_prefill(seq, out)
+                prefilled += self._run_prefill(seq, out)
             t1 = time.perf_counter()
             if plan.decodes:
-                self._decode_tokens += self._run_decode(plan.decodes, out)
+                decoded = self._run_decode(plan.decodes, out)
+        t2 = time.perf_counter()
         # Each path ends by copying logits to the host, so these host
         # times cover the device work.
         self._prefill_seconds += t1 - t0
-        self._decode_seconds += time.perf_counter() - t1
+        self._decode_seconds += t2 - t1
+
+        # Throughput gauges reflect THIS step — a step that moved no
+        # tokens zeroes them, so autoscalers never read the last busy
+        # step's value as live pressure.
+        if prefilled:
+            self._prefill_tokens += prefilled
+            _prefill_tokens_total.inc(prefilled)
+            _prefill_tps_gauge.set(prefilled / max(t1 - t0, 1e-9))
+        else:
+            _prefill_tps_gauge.set(0.0)
+        if decoded:
+            self._decode_tokens += decoded
+            _decode_tokens_total.inc(decoded)
+            _decode_tps_gauge.set(decoded / max(t2 - t1, 1e-9))
+        else:
+            _decode_tps_gauge.set(0.0)
+        _running_gauge.set(len(self.scheduler.running))
+        _waiting_gauge.set(len(self.scheduler.waiting))
+        _kv_util_gauge.set(self.cache.utilization())
         return out
 
     def _run_prefill(self, seq: Sequence, out: List[StepOutput]) -> int:
@@ -210,9 +282,27 @@ class InferenceEngine:
         logit samples the first token."""
         plen = seq.prefill_len
         start = seq.cached_len
+        if task_events.request_events_enabled() and not seq.generated \
+                and seq.request_id not in self._prefill_announced:
+            self._prefill_announced.add(seq.request_id)
+            task_events.emit_request(
+                seq.request_id,
+                task_events.RequestTransition.PREFILL_START,
+                deployment=seq.deployment, tenant=seq.tenant,
+                data={"prompt_tokens": len(seq.prompt), "cached": start})
         if start == 0 and plen <= self.prefill_chunk:
-            return self._prefill_full(seq, plen, out)
-        return self._prefill_one_chunk(seq, start, plen, out)
+            n = self._prefill_full(seq, plen, out)
+        else:
+            n = self._prefill_one_chunk(seq, start, plen, out)
+        if task_events.request_events_enabled() \
+                and seq.cached_len >= plen \
+                and seq.request_id in self._prefill_announced:
+            self._prefill_announced.discard(seq.request_id)
+            task_events.emit_request(
+                seq.request_id,
+                task_events.RequestTransition.PREFILL_END,
+                deployment=seq.deployment, tenant=seq.tenant)
+        return n
 
     def _register_prefix(self, seq: Sequence) -> None:
         """Index every fully-written full PROMPT page for sharing. Must
@@ -230,10 +320,14 @@ class InferenceEngine:
         tokens[0, :plen] = seq.tokens[:plen]
         dests = self._put(self.cache.prefill_dests(
             seq.request_id, plen, bucket).astype(np.int64))
-        logits, ks, vs = self._prefill_fwd(self.model, self._put(tokens))
-        for pool_k, pool_v, k, v in zip(self.cache.k, self.cache.v, ks, vs):
-            write_kv(pool_k, dests, k[0])
-            write_kv(pool_v, dests, v[0])
+        with tracing.span("infer.prefill", {
+                "request_id": seq.request_id, "len": plen,
+                "bucket": bucket}):
+            logits, ks, vs = self._prefill_fwd(self.model, self._put(tokens))
+            for pool_k, pool_v, k, v in zip(self.cache.k, self.cache.v,
+                                            ks, vs):
+                write_kv(pool_k, dests, k[0])
+                write_kv(pool_v, dests, v[0])
         last = logits[0, plen - 1].cpu().numpy()
         self._prefill_calls[str(bucket)] += 1
         seq.cached_len = plen
@@ -260,10 +354,13 @@ class InferenceEngine:
         p_used = _bucket_for(self.cache.num_seq_pages(seq.request_id),
                              self.page_buckets)
         tables = self.cache.table_array([seq.request_id], p_used)
-        logits = self._chunk_fwd(
-            self.model, self._put(tokens), self._put(positions),
-            self._put(dests.astype(np.int64)), self._put(tables),
-            self.cache.k, self.cache.v)
+        with tracing.span("infer.prefill_chunk", {
+                "request_id": seq.request_id, "start": start,
+                "take": take, "bucket": bucket}):
+            logits = self._chunk_fwd(
+                self.model, self._put(tokens), self._put(positions),
+                self._put(dests.astype(np.int64)), self._put(tables),
+                self.cache.k, self.cache.v)
         last = logits[0, take - 1].cpu().numpy()
         self._chunk_calls[f"{bucket}x{p_used}"] += 1
         seq.cached_len = start + take
@@ -292,11 +389,23 @@ class InferenceEngine:
             context_lens[i] = pos + 1
         tables = self.cache.table_array(
             [s.request_id for s in seqs], P, batch=bucket)
-        logits = self._decode_fwd(
-            self.model, self._put(tokens), self._put(positions),
-            self._put(dests), self._put(tables), self._put(context_lens),
-            self.cache.k, self.cache.v)
-        logits_np = logits[:b].cpu().numpy()
+        t_dec = time.perf_counter()
+        with tracing.span("infer.decode", {"batch": b, "bucket": bucket}):
+            logits = self._decode_fwd(
+                self.model, self._put(tokens), self._put(positions),
+                self._put(dests), self._put(tables),
+                self._put(context_lens), self.cache.k, self.cache.v)
+        logits_np = logits[:b].cpu().numpy()  # host sync: dt covers the step
+        if profiling_enabled():
+            prof = step_profiler("infer")
+            # FLOPs counted once per (batch bucket x table width), as the
+            # JAX engine asks XLA once per compiled program.
+            flops = prof.ensure_flops(
+                ("decode", bucket, P), lambda: self.decode_flops(bucket, P))
+            prof.observe_step(time.perf_counter() - t_dec, flops=flops)
+            self._hbm_tick += 1
+            if self._hbm_tick % 32 == 1:
+                prof.observe_hbm(self.device)
         self._decode_calls[f"{bucket}x{P}"] += 1
         for i, seq in enumerate(seqs):
             seq.cached_len += 1
@@ -311,7 +420,14 @@ class InferenceEngine:
         if len(seq.generated) == 1:
             t0 = self._arrival_ts.pop(seq.request_id, None)
             if t0 is not None:
-                self._ttft_window.append(time.perf_counter() - t0)
+                ttft = time.perf_counter() - t0
+                _ttft_hist.observe(ttft)
+                self._ttft_window.append(ttft)
+            if task_events.request_events_enabled():
+                task_events.emit_request(
+                    seq.request_id,
+                    task_events.RequestTransition.FIRST_TOKEN,
+                    deployment=seq.deployment, tenant=seq.tenant)
         reason = None
         if token in seq.sampling.stop_token_ids:
             reason = "stop"
@@ -343,10 +459,21 @@ class InferenceEngine:
         return [results[rid] for rid in ids]
 
     def note_idle(self) -> None:
-        """Called by the stepping loop when there is no work. In the JAX
-        package it zeroes the throughput gauges and refreshes the load
-        gauges; the port has no metrics yet (ROADMAP.md, Queue 1 item 3),
-        so it does nothing and only keeps its place in the loop."""
+        """Called by the stepping loop when there is no work: zero the
+        throughput gauges so scrapes between bursts read true idle."""
+        _prefill_tps_gauge.set(0.0)
+        _decode_tps_gauge.set(0.0)
+        _running_gauge.set(len(self.scheduler.running))
+        _waiting_gauge.set(len(self.scheduler.waiting))
+        _kv_util_gauge.set(self.cache.utilization())
+
+    def decode_flops(self, batch_bucket: int, pages: int) -> float:
+        """Analytic FLOPs of one decode step at a batch bucket and a
+        block-table width (:func:`~raytpu_torch.util.stepprof.
+        decode_step_flops`): what the step profiler divides by the step
+        time for ``raytpu_infer_decode_mfu``."""
+        return decode_step_flops(self._matmul_params, *self._attn_dims,
+                                 batch_bucket, pages, self.page_size)
 
     def ttft_quantile(self, q: float) -> float:
         """Recent-window TTFT quantile in seconds (0.0 when empty)."""

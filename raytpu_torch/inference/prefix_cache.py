@@ -1,7 +1,9 @@
 """Prefix/prompt cache over the paged KV pool (reference analogue:
 vLLM's automatic prefix caching, SOSP '23 §4.3); a copy of
-``raytpu/inference/prefix_cache.py`` whose metrics counters are plain
-integers of the cache, reported by :meth:`PrefixCache.stats`.
+``raytpu/inference/prefix_cache.py``. Its four ``raytpu_infer_prefix_*``
+counters are process-wide, as in the JAX package: :meth:`PrefixCache.
+stats` reports them summed over every cache of the process, so a reader
+of one cache's traffic takes the difference across it.
 
 Prompt KV is cached at *page* granularity under a content hash CHAINED
 over token ids: page ``i`` of a prompt hashes ``H(hash_of_page_{i-1} ||
@@ -33,6 +35,20 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 from raytpu_torch.inference.kv_cache import PagedKVCache
+from raytpu_torch.util.metrics import Counter
+
+_hit_tokens_total = Counter(
+    "raytpu_infer_prefix_hit_tokens_total",
+    "Prompt tokens whose prefill was skipped via prefix-cache hits")
+_lookups_total = Counter(
+    "raytpu_infer_prefix_lookups_total",
+    "Prefix-cache lookups (one per admitted request)")
+_hits_total = Counter(
+    "raytpu_infer_prefix_hits_total",
+    "Prefix-cache lookups that matched at least one page")
+_evictions_total = Counter(
+    "raytpu_infer_prefix_evictions_total",
+    "Cached prefix pages evicted under allocation pressure")
 
 
 def _page_hash(prev: bytes, tokens: Sequence[int]) -> bytes:
@@ -75,13 +91,6 @@ class PrefixCache:
         self._hash_of: Dict[int, bytes] = {}
         # ref-0 registered pages, least-recently-matched first
         self._lru: "OrderedDict[int, None]" = OrderedDict()
-        # Lookups (one per admitted request), lookups that matched at
-        # least one page, prompt tokens whose prefill a hit skipped, and
-        # cached pages evicted under allocation pressure.
-        self.lookups = 0
-        self.hits = 0
-        self.hit_tokens = 0
-        self.evictions = 0
         cache._retainer = self
 
     # ---- lookup / registration --------------------------------------
@@ -94,7 +103,7 @@ class PrefixCache:
               max_pages: Optional[int] = None) -> List[int]:
         """Longest run of cached pages matching ``tokens`` from the
         start, capped at ``max_pages``. Touches hits in the LRU."""
-        self.lookups += 1
+        _lookups_total.inc()
         pages: List[int] = []
         for h in self.page_hashes(tokens):
             if max_pages is not None and len(pages) >= max_pages:
@@ -107,8 +116,8 @@ class PrefixCache:
             if page in self._lru:  # referenced pages aren't in the LRU
                 self._lru.move_to_end(page)
         if pages:
-            self.hits += 1
-            self.hit_tokens += len(pages) * self.page_size
+            _hits_total.inc()
+            _hit_tokens_total.inc(len(pages) * self.page_size)
         return pages
 
     def register(self, seq_id: str, tokens: Sequence[int],
@@ -195,7 +204,8 @@ class PrefixCache:
             self._by_hash.pop(h, None)
             self.cache._free.append(page)
             freed += 1
-        self.evictions += freed
+        if freed:
+            _evictions_total.inc(freed)
         return freed
 
     # ---- introspection ----------------------------------------------
@@ -204,8 +214,8 @@ class PrefixCache:
         return {
             "registered_pages": len(self._by_hash),
             "reclaimable_pages": len(self._lru),
-            "lookups": self.lookups,
-            "hits": self.hits,
-            "hit_tokens": self.hit_tokens,
-            "evictions": self.evictions,
+            "lookups": _lookups_total.value,
+            "hits": _hits_total.value,
+            "hit_tokens": _hit_tokens_total.value,
+            "evictions": _evictions_total.value,
         }

@@ -1,7 +1,6 @@
 """Continuous-batching scheduler (reference analogue: Orca, OSDI '22);
-a copy of ``raytpu/inference/scheduler.py`` without its serving hooks
-(request lifecycle events and the goodput ledger), which belong to the
-serve fabric the port does not have yet.
+a copy of ``raytpu/inference/scheduler.py`` with its serving hooks
+(request lifecycle events and the goodput ledger's preemption waste).
 
 Scheduling happens at *iteration* granularity: every engine step calls
 :meth:`Scheduler.schedule`, which (1) guarantees each running sequence
@@ -32,6 +31,7 @@ import numpy as np
 
 from raytpu_torch.inference.kv_cache import PagedKVCache
 from raytpu_torch.inference.sampling import SamplingParams
+from raytpu_torch.util import serve_slo, task_events
 
 WAITING = "waiting"
 RUNNING = "running"
@@ -53,6 +53,11 @@ class Sequence:
     cached_len: int = 0
     state: str = WAITING
     finish_reason: Optional[str] = None
+    # Serving-plane attribution (stamped by the replica from its request
+    # context): request-timeline events and the goodput ledger book
+    # under these tags. Empty outside the serve path.
+    deployment: str = ""
+    tenant: str = ""
 
     def __post_init__(self):
         self.prompt = [int(t) for t in self.prompt]
@@ -118,6 +123,11 @@ class Scheduler:
                 self.waiting.remove(seq)
                 seq.state = FINISHED
                 seq.finish_reason = "aborted"
+                if task_events.request_events_enabled():
+                    task_events.emit_request(
+                        seq.request_id,
+                        task_events.RequestTransition.ABORTED,
+                        deployment=seq.deployment, tenant=seq.tenant)
                 return True
         for seq in self.running:
             if seq.request_id == request_id:
@@ -131,6 +141,19 @@ class Scheduler:
         self.cache.free(seq.request_id)
         if seq in self.running:
             self.running.remove(seq)
+        if task_events.request_events_enabled():
+            if reason == "aborted":
+                task_events.emit_request(
+                    seq.request_id,
+                    task_events.RequestTransition.ABORTED,
+                    deployment=seq.deployment, tenant=seq.tenant)
+            else:
+                task_events.emit_request(
+                    seq.request_id,
+                    task_events.RequestTransition.FINISHED,
+                    deployment=seq.deployment, tenant=seq.tenant,
+                    data={"tokens_out": len(seq.generated),
+                          "reason": reason})
 
     def has_unfinished(self) -> bool:
         return bool(self.waiting or self.running)
@@ -178,6 +201,15 @@ class Scheduler:
                 seq.state = RUNNING
                 self.running.append(seq)
                 prefills.append(seq)
+                if task_events.request_events_enabled():
+                    # A sequence re-entering with generated tokens is a
+                    # preemption victim coming back, not a fresh admit.
+                    task_events.emit_request(
+                        seq.request_id,
+                        (task_events.RequestTransition.RESUMED
+                         if seq.generated else
+                         task_events.RequestTransition.ADMITTED),
+                        deployment=seq.deployment, tenant=seq.tenant)
 
         return ScheduleOutput(prefills=prefills, decodes=decodes,
                               preempted=preempted)
@@ -208,3 +240,13 @@ class Scheduler:
         self.running.remove(seq)
         self.waiting.appendleft(seq)
         self.num_preemptions += 1
+        # Generated tokens whose KV we just discarded will be re-
+        # prefilled on re-admission: pure recompute waste in the
+        # goodput ledger (preemption is rare; off the per-token path).
+        serve_slo.wasted("preempt_recompute", len(seq.generated),
+                         seq.deployment, seq.tenant)
+        if task_events.request_events_enabled():
+            task_events.emit_request(
+                seq.request_id, task_events.RequestTransition.PREEMPTED,
+                deployment=seq.deployment, tenant=seq.tenant,
+                data={"tokens_discarded": len(seq.generated)})

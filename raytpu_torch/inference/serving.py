@@ -35,9 +35,11 @@ the peer into the local prefix cache before admission, so the engine
 grafts the pages and starts at ``cached_len`` without re-prefilling).
 See :mod:`raytpu_torch.inference.disagg`.
 
-Not ported yet (ROADMAP.md): request-timeline events and the goodput
-ledger's calls (``task_events``, ``serve_slo``), and the engine's
-metrics behind ``note_idle``.
+The request context's deployment and tenant tags ride each request's
+``Sequence`` (the stepping loop, on its own thread, emits the engine's
+request events under them), and a decode replica's pull emits
+``HANDOFF_START``/``HANDOFF_END`` and books a pull that fell back as
+wasted prefill in the goodput ledger, as the JAX package's replica does.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from raytpu_torch.cluster import constants as tuning
 from raytpu_torch.inference import disagg
 from raytpu_torch.inference.engine import InferenceEngine
 from raytpu_torch.inference.sampling import SamplingParams
+from raytpu_torch.util import serve_slo, task_events
 
 # Ambient per-request context, the port's copy of
 # raytpu/serve/_private/replica.py:23-30: a hosting replica sets it per
@@ -208,8 +211,10 @@ class LLMDeployment:
         self._cv = threading.Condition(_HandoffLock())
         self._buffers: Dict[str, deque] = {}
         self._finished: Dict[str, str] = {}
-        # O(1) request-liveness: ids currently registered with the engine.
+        # O(1) request-liveness: ids currently registered with the
+        # engine, plus their serving attribution.
         self._live: set = set()
+        self._req_info: Dict[str, dict] = {}
         self._closed = False
         # Lock-free pressure snapshot: the loop REPLACES the dict, so
         # readers never see a half-written one (GIL-atomic store).
@@ -269,20 +274,28 @@ class LLMDeployment:
             top_k=top_k, seed=seed, stop_token_ids=tuple(stop_token_ids))
         prompt = [int(t) for t in prompt]
         # A hosting replica's request context carries the client's
-        # request id, which the engine sequence keeps; direct callers
-        # get a fresh id. (Its deployment and tenant tags wait for the
-        # request events that read them, ROADMAP.md.)
-        request_id = str(get_request_context().get("request_id")
-                         or uuid.uuid4().hex)
+        # request id, which the engine sequence keeps (direct callers get
+        # a fresh id), and the deployment and tenant tags its events and
+        # ledger entries book under.
+        ctx = get_request_context()
+        request_id = str(ctx.get("request_id") or uuid.uuid4().hex)
+        deployment_name = str(ctx.get("deployment") or "")
+        tenant = str(ctx.get("tenant") or "")
         if self._role == "decode" and self._prefill is not None:
             # Disaggregated prefill: graft the prompt's KV prefix from
             # the prefill peer before admission. Best-effort by design
             # — on any failure the request simply prefills here.
-            self._maybe_pull_prefix(prompt)
+            self._maybe_pull_prefix(prompt, request_id=request_id,
+                                    deployment=deployment_name,
+                                    tenant=tenant)
         with self._cv:
-            self._engine.add_request(request_id, prompt, sampling)
+            seq = self._engine.add_request(request_id, prompt, sampling)
+            seq.deployment = deployment_name
+            seq.tenant = tenant
             self._buffers[request_id] = deque()
             self._live.add(request_id)
+            self._req_info[request_id] = {"deployment": deployment_name,
+                                          "tenant": tenant}
             self._cv.notify_all()  # wake the stepping loop
         try:
             while True:
@@ -296,6 +309,7 @@ class LLMDeployment:
                 self._buffers.pop(request_id, None)
                 self._finished.pop(request_id, None)
                 self._live.discard(request_id)
+                self._req_info.pop(request_id, None)
                 self._cv.notify_all()
 
     def _next_token(self, request_id: str) -> Optional[int]:
@@ -318,7 +332,8 @@ class LLMDeployment:
 
     # ---- disaggregated prefill/decode (see inference/disagg.py) -----
 
-    def _maybe_pull_prefix(self, prompt) -> int:
+    def _maybe_pull_prefix(self, prompt, request_id: str = "",
+                           deployment: str = "", tenant: str = "") -> int:
         """Pull the prompt's full-page KV prefix from the prefill peer
         unless the local prefix cache already covers it. Returns tokens
         grafted (0 = nothing pulled; local prefill covers the rest)."""
@@ -332,7 +347,24 @@ class LLMDeployment:
             local = len(eng.prefix_cache.match(prompt, max_pages=cap))
         if local >= cap:
             return 0
-        return disagg.pull_kv_prefix(eng, self._cv, self._prefill, prompt)
+        if task_events.request_events_enabled() and request_id:
+            task_events.emit_request(
+                request_id, task_events.RequestTransition.HANDOFF_START,
+                deployment=deployment, tenant=tenant,
+                data={"pages_wanted": cap - local})
+        pulled = disagg.pull_kv_prefix(eng, self._cv, self._prefill, prompt)
+        if pulled == 0:
+            # Failed pull: the whole prompt goes back through local
+            # prefill — book the recompute in the goodput ledger.
+            serve_slo.wasted("handoff_fallback", len(prompt), deployment,
+                             tenant)
+        if task_events.request_events_enabled() and request_id:
+            task_events.emit_request(
+                request_id, task_events.RequestTransition.HANDOFF_END,
+                deployment=deployment, tenant=tenant,
+                data={"tokens_grafted": pulled,
+                      "fallback": pulled == 0})
+        return pulled
 
     def kv_export_begin(self, prompt, max_pages=None):
         """Open a KV export of ``prompt``'s full-page prefix, running a
@@ -408,5 +440,6 @@ class LLMDeployment:
                 # consumers end their streams on the next wakeup
                 # (generate's finally re-discards harmlessly).
                 self._live.discard(request_id)
+                self._req_info.pop(request_id, None)
             self._cv.notify_all()
             return ok

@@ -21,6 +21,7 @@ from raytpu.models.llama import Llama as JaxLlama
 from raytpu.models.llama import LlamaConfig as JaxLlamaConfig
 from raytpu.models.llama import init_params
 from raytpu_torch.inference import InferenceEngine, SamplingParams
+from raytpu_torch.inference import prefix_cache
 from raytpu_torch.models.convert import llama_state_from_jax
 from raytpu_torch.models.llama import Llama, LlamaConfig
 
@@ -89,9 +90,11 @@ def test_staggered_requests_across_buckets(weights):
 def test_prefix_cache_hit(weights):
     system = list(range(1, 17))
     arrivals = {i: [(f"p{i}", system + [30 + i])] for i in range(3)}
+    # The prefix counters are process-wide: read this run's.
+    hits0 = prefix_cache._hit_tokens_total.value
     stats = _both(weights, arrivals, dict(max_new_tokens=6), sequential=True,
                   page_size=8, max_num_seqs=4, max_model_len=64)
-    assert stats["prefix_cache"]["hit_tokens"] > 0
+    assert stats["prefix_cache"]["hit_tokens"] - hits0 > 0
     assert stats["chunk_prefill_calls"]
 
 

@@ -1,6 +1,11 @@
 """Rules of the port (raytpu_torch/, chip_smoke.py): it imports neither
-JAX nor the JAX package, its entry points never move to the CPU on their
-own, and its CUDA kernels are built from the repo's sources for Hopper."""
+JAX nor the JAX package (nor ``prometheus_client``: its metrics are in
+memory only), its entry points never move to the CPU on their own, its
+CUDA kernels are built from the repo's sources for Hopper, and its
+observability keeps the JAX package's lint rules: every request event
+is emitted under one flag check and every transition the JAX serving
+plane emits is emitted (RTP021), and every metric it constructs is
+declared (RTP015)."""
 
 import ast
 import json
@@ -18,6 +23,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "ab_wrappers.py", REPO / "rmsnorm_plans.py"]
 
+# The port's copies of raytpu/util's serving-plane observability.
+UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
+                "profiler", "stepprof")
+
 # Run in a fresh interpreter: this test process has JAX loaded
 # (tests/conftest.py imports it).
 _IMPORT_ALL = """
@@ -33,7 +42,7 @@ print(json.dumps(sorted(set(sys.modules) - before)))
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "raytpu")
+    return top in ("jax", "jaxlib", "flax", "raytpu", "prometheus_client")
 
 
 def test_port_imports_no_jax_and_nothing_of_raytpu():
@@ -42,6 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "raytpu_torch.inference.engine" in loaded
+    assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -257,3 +267,138 @@ def test_deployment_on_the_cpu_when_asked():
     finally:
         dep.shutdown()
     assert not dep._step_thread.is_alive()
+
+
+# ---- observability: the JAX package's RTP015 and RTP021 ---------------
+
+
+def _parse(path: pathlib.Path) -> ast.AST:
+    return ast.parse(path.read_text())
+
+
+def test_util_modules_are_held_to_the_rules():
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for m in UTIL_MODULES:
+        assert f"util/{m}.py" in names
+        assert (REPO / "raytpu" / "util" / f"{m}.py").is_file()
+
+
+def _guarded_emissions(node, guarded=False):
+    """(line, guarded) of every ``emit_request`` call under ``node``:
+    guarded when it sits in the body of an ``if`` whose test calls
+    ``request_events_enabled()`` exactly once (a test calling it twice
+    is reported as line -1)."""
+    def flag_calls(expr):
+        return sum(1 for sub in ast.walk(expr) if isinstance(sub, ast.Call)
+                   and _callee(sub) == "request_events_enabled")
+
+    if isinstance(node, ast.If):
+        n = flag_calls(node.test)
+        if n > 1:
+            yield (-1, False)
+        yield from _guarded_emissions(node.test, guarded)
+        for child in node.body:
+            yield from _guarded_emissions(child, guarded or n == 1)
+        for child in node.orelse:
+            yield from _guarded_emissions(child, guarded)
+        return
+    if isinstance(node, ast.Call) and _callee(node) == "emit_request":
+        yield (node.lineno, guarded)
+    for child in ast.iter_child_nodes(node):
+        yield from _guarded_emissions(child, guarded)
+
+
+def _callee(call: ast.Call):
+    f = call.func
+    return f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
+
+
+def _transitions(tree) -> set:
+    """``RequestTransition.X`` names a module references."""
+    return {node.attr for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute)
+            and getattr(node.value, "attr", getattr(node.value, "id", None))
+            == "RequestTransition"}
+
+
+DEFINING = REPO / "raytpu_torch" / "util" / "task_events.py"
+
+
+def test_every_request_emission_is_under_one_flag_check():
+    for path in PORT_FILES:
+        if path == DEFINING:
+            continue
+        for line, guarded in _guarded_emissions(_parse(path)):
+            assert guarded, f"{path.relative_to(REPO)}:{line}"
+
+    def sites(root: pathlib.Path) -> int:
+        return sum(len(list(_guarded_emissions(_parse(p))))
+                   for p in sorted(root.glob("*.py")))
+
+    # As many sites as the JAX serving plane's: the scheduler's five,
+    # the engine's three, the replica's two.
+    assert sites(REPO / "raytpu_torch" / "inference") == \
+        sites(REPO / "raytpu" / "inference") == 10
+
+
+def test_every_transition_the_jax_serving_plane_emits_is_emitted():
+    def emitted(root: pathlib.Path) -> set:
+        return set().union(*(_transitions(_parse(p))
+                             for p in sorted(root.glob("*.py"))))
+
+    jax_side = emitted(REPO / "raytpu" / "inference")
+    port_side = emitted(REPO / "raytpu_torch" / "inference")
+    assert jax_side == {
+        "ADMITTED", "PREFILL_START", "PREFILL_END", "HANDOFF_START",
+        "HANDOFF_END", "FIRST_TOKEN", "PREEMPTED", "RESUMED", "FINISHED",
+        "ABORTED"}
+    assert jax_side <= port_side
+
+
+_METRIC_CTORS = ("Counter", "Gauge", "Histogram")
+METRICS_MODULE = REPO / "raytpu_torch" / "util" / "metrics.py"
+
+
+def _metric_names(path: pathlib.Path) -> list:
+    """(line, first argument) of every metric constructed in a module:
+    calls of the names imported from raytpu_torch.util.metrics (the
+    classes themselves inside it), or of ``<metrics module>.Counter``."""
+    tree = _parse(path)
+    ctors, modules = set(), set()
+    if path == METRICS_MODULE:
+        ctors = set(_METRIC_CTORS)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            if node.module == "raytpu_torch.util.metrics":
+                ctors |= {a.asname or a.name for a in node.names
+                          if a.name in _METRIC_CTORS}
+            elif node.module == "raytpu_torch.util":
+                modules |= {a.asname or a.name for a in node.names
+                            if a.name == "metrics"}
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if (isinstance(f, ast.Name) and f.id in ctors) or (
+                isinstance(f, ast.Attribute) and f.attr in _METRIC_CTORS
+                and isinstance(f.value, ast.Name) and f.value.id in modules):
+            arg = node.args[0] if node.args else None
+            out.append((node.lineno, arg.value if isinstance(
+                arg, ast.Constant) else None))
+    return out
+
+
+def test_every_metric_the_port_constructs_is_declared():
+    from raytpu_torch.util.metrics import DECLARED_METRICS
+
+    minted = set()
+    for path in PORT_FILES:
+        for line, name in _metric_names(path):
+            where = f"{path.relative_to(REPO)}:{line}"
+            assert name is not None, f"{where}: name is not a literal"
+            assert name in DECLARED_METRICS, f"{where}: {name}"
+            minted.add(name)
+    # ... and the table holds exactly the names the port mints.
+    assert minted == set(DECLARED_METRICS)
