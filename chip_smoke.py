@@ -89,7 +89,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     MARWIL and CQL (offline rows of a hand controller) take three
     train() calls each; every metric finite, every parameter on the
     card. The five kernels' counters, set to 0 before phase 16, must
-    read 0 after phase 18;
+    read 0 after phase 22;
 19. deployment (run after phase 6, once phase 5's model is freed):
     Llama-2-7B behind ``LLMDeployment`` with phase 5's engine, phase 5's
     eight prompts on client threads arriving by events, a stream closed
@@ -126,7 +126,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     Readings: the per-token cost of all hooks and of each alone, each
     run beside a run with everything off, over ten rounds in turns; the
     same for single decode steps of eight in one engine; and the hooks'
-    host µs a decode step.
+    host µs a decode step;
+22. RL with remote runners (run after phase 18): PPO at phase 16's
+    config with 0, 2 and 4 runner processes of the port's runtime (64 /
+    n envs each, the same 4096 env steps an iteration): env-steps/s, the
+    iteration's split (waiting for fragments, update, weight sync), each
+    runner's start-up seconds and device memory; IMPALA and APPO with 2
+    runners, asynchronous, ten iterations: returns, env-steps/s, the
+    learner's wait for fragments and the weight broadcast's wait behind
+    fragments in flight. Fails unless every runner process holds its
+    parameters on the card, loads no JAX, launches none of the five
+    kernels and imported this script as ``__mp_main__`` (the ``__main__``
+    guard held); a remote fragment equals a local runner's with the same
+    worker index and weights; and a runner killed in the middle of an
+    iteration raises ActorDiedError within 10 s, leaving no process
+    after ``stop()``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -3629,21 +3643,10 @@ def iteration_split(algo, iterations: int = 3) -> dict:
     weight sync)."""
     runner = algo.env_runner_group.local_runner
     spent = {"env_step": 0.0, "sample_forward": 0.0, "update": 0.0}
-
-    def timed(name, fn):
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                spent[name] += time.perf_counter() - t0
-        return wrapper
-
-    step_batch, act, update = runner._vec.step_batch, runner.act, \
-        algo.learner.update
-    runner._vec.step_batch = timed("env_step", step_batch)
-    runner.act = timed("sample_forward", act)
-    algo.learner.update = timed("update", update)
+    runner._vec.step_batch = _timing(spent, "env_step",
+                                     runner._vec.step_batch)
+    runner.act = _timing(spent, "sample_forward", runner.act)
+    algo.learner.update = _timing(spent, "update", algo.learner.update)
     try:
         t0 = time.perf_counter()
         for _ in range(iterations):
@@ -3866,6 +3869,375 @@ def phase_rl_algorithms(card_line: str) -> dict:
     return out
 
 
+# ---- phase 22: RL with remote runners --------------------------------
+
+
+REMOTE_RUNNERS = (0, 2, 4)  # PPO at bench_ppo's 64 x 64, split over them
+ASYNC_ITERATIONS = 10
+# A runner killed in the middle of an iteration must be named
+# (ActorDiedError) within this many seconds: the pipe's EOF is immediate,
+# the IMPALA loop may first finish one update.
+FAULT_DEADLINE_S = 10.0
+REMOTE_TIMEOUT_S = 120.0  # any single get of this phase
+
+
+def _timing(spent: dict, name: str, fn):
+    """``fn``, adding its wall time in seconds to ``spent[name]``."""
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spent[name] += time.perf_counter() - t0
+    return wrapper
+
+
+def child_report(runner) -> dict:
+    """Run inside a runner process (``runtime.call``): its pid, the
+    devices of its parameters, its memory as its allocator sees it, its
+    torch threads, the five kernels' launches there, the forbidden
+    modules it has loaded, and the name it imported this script under
+    (``__mp_main__``: the ``__main__`` guard kept it from running)."""
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    main = sys.modules.get("__main__")
+    cuda = torch.cuda.is_initialized()
+    return {"pid": os.getpid(),
+            "params_on": sorted({t.device.type for t in
+                                 leaves(runner.params)}),
+            "allocated_mb": torch.cuda.memory_allocated() / 2 ** 20
+            if cuda else 0.0,
+            "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20
+            if cuda else 0.0,
+            "threads": torch.get_num_threads(),
+            "launches": {n: c.count for n, c in kernel_counters().items()},
+            "forbidden": sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "jaxlib", "flax", "raytpu")),
+            "main": [getattr(main, "__name__", None), os.path.basename(
+                getattr(main, "__file__", None) or "")]}
+
+
+def child_timed(runner, method: str, *args) -> float:
+    """Run inside a runner process: ms of one ``runner.method(*args)``,
+    to the card's end of it."""
+    t0 = time.perf_counter()
+    getattr(runner, method)(*args)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def runtime_costs(algo, repeats: int = 10) -> dict:
+    """The worker layer's costs under a group at rest (medians, ms): a
+    call's round trip to every runner (``ping``), ``put`` of the
+    learner's weights, the whole broadcast (``sync_weights``: put, then
+    ``set_weights`` on every runner, waited for), and ``set_weights``
+    itself inside a runner; one fragment's time inside a runner."""
+    from raytpu_torch import runtime
+
+    group = algo.env_runner_group
+    weights = algo.learner.get_weights()
+
+    def median_ms(fn) -> float:
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def on_runners(method, *args):
+        return runtime.get([runtime.call(r, child_timed, method, *args)
+                            for r in group.remote_runners],
+                           timeout=REMOTE_TIMEOUT_S)
+
+    ref = runtime.put(weights)
+    return {
+        "round_trip_ms": median_ms(lambda: runtime.get(
+            [r.ping.remote() for r in group.remote_runners],
+            timeout=REMOTE_TIMEOUT_S)),
+        "put_ms": median_ms(lambda: runtime.put(weights)),
+        "broadcast_ms": median_ms(lambda: group.sync_weights(weights)),
+        "set_weights_in_runner_ms": float(np.median(
+            on_runners("set_weights", ref))),
+        "fragment_in_runner_ms": on_runners("sample"),
+    }
+
+
+def _check_child(tag: str, rep: dict) -> None:
+    if not (rep["params_on"] == ["cuda"] and rep["forbidden"] == []
+            and not any(rep["launches"].values())
+            and (rep["main"][1] != "chip_smoke.py"
+                 or rep["main"][0] == "__mp_main__")):
+        raise AssertionError(f"{tag}: a runner process: {rep}")
+
+
+def smi_process_mb() -> dict:
+    """Device memory by process as nvidia-smi lists it ({} where it lists
+    none, as in a container that hides the host's pids)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    found = {}
+    for line in out.stdout.splitlines() if out.returncode == 0 else []:
+        try:
+            pid, mb = (x.strip() for x in line.split(","))
+            found[int(pid)] = float(mb)
+        except ValueError:
+            continue
+    return found
+
+
+def runner_config(algo) -> dict:
+    """What ``Algorithm.setup`` hands each of its runners."""
+    c = algo.config
+    return {"env": c.env, "env_config": c.env_config,
+            "module_spec": c.rl_module_spec(),
+            "rollout_fragment_length": c.rollout_fragment_length,
+            "num_envs_per_env_runner": c.num_envs_per_env_runner,
+            "seed": c.seed, "gamma": c.gamma,
+            "env_to_module_connectors": c.env_to_module_connectors,
+            "module_to_env_connectors": c.module_to_env_connectors,
+            "device": algo.device}
+
+
+def fragments_agree(algo) -> dict:
+    """Remote runner 1 (fresh, holding the learner's weights since
+    setup) against a runner built here with the same config,
+    ``worker_index`` and weights: one fragment each, compared array by
+    array."""
+    from raytpu_torch import runtime
+    from raytpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+
+    local = SingleAgentEnvRunner({**runner_config(algo), "worker_index": 1})
+    local.set_weights(algo.learner.get_weights())
+    remote = runtime.get(algo.env_runner_group.remote_runners[0]
+                         .sample.remote(), timeout=REMOTE_TIMEOUT_S)
+    mine = local.sample()
+    arrays = [k for k, v in mine.items() if isinstance(v, np.ndarray)]
+    diff = {k: float(np.max(np.abs(mine[k].astype(np.float64)
+                                   - remote[k].astype(np.float64))))
+            for k in arrays}
+    return {"bit_equal": all(np.array_equal(mine[k], remote[k])
+                             and mine[k].dtype == remote[k].dtype
+                             for k in arrays)
+            and mine["episodes"] == remote["episodes"],
+            "max_abs_diff": max(diff.values()),
+            "worst": max(diff, key=diff.get),
+            "actions_equal": bool(np.array_equal(mine["actions"],
+                                                 remote["actions"])),
+            "env_steps": mine["env_steps"]}
+
+
+def remote_split(algo, iterations: int = 3) -> dict:
+    """Where a PPO training_step's time goes with its sampling behind the
+    group: the wait for the fragments (the sampling itself with no remote
+    runner), the learner's update, the weight sync, the rest."""
+    group, learner = algo.env_runner_group, algo.learner
+    spent = {"sampling_wait": 0.0, "update": 0.0, "weight_sync": 0.0}
+    group.sample = _timing(spent, "sampling_wait", group.sample)
+    learner.update = _timing(spent, "update", learner.update)
+    group.sync_weights = _timing(spent, "weight_sync", group.sync_weights)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(iterations):
+            algo.training_step()
+        wall = time.perf_counter() - t0
+    finally:
+        del group.sample, learner.update, group.sync_weights
+    out = {f"{k}_ms": v / iterations * 1e3 for k, v in spent.items()}
+    out["iteration_ms"] = wall / iterations * 1e3
+    out["rest_ms"] = out["iteration_ms"] - sum(
+        out[f"{k}_ms"] for k in spent)
+    return out
+
+
+def runner_processes(algo) -> list:
+    """Each runner process's report (``child_report``), its start-up
+    seconds (launch to its first reply) and nvidia-smi's memory for it."""
+    from raytpu_torch import runtime
+
+    group = algo.env_runner_group
+    reports = runtime.get([runtime.call(r, child_report)
+                           for r in group.remote_runners],
+                          timeout=REMOTE_TIMEOUT_S)
+    smi = smi_process_mb()
+    return [{**rep, "startup_s": s,
+             "smi_used_mb": smi.get(rep["pid"], "not measured")}
+            for rep, s in zip(reports, group.startup_s)]
+
+
+def remote_ppo(n: int) -> dict:
+    """PPO at bench_ppo's config with ``n`` runner processes of 64 / n
+    envs each (the same 4096 env steps an iteration): build time, the
+    runners' reports, fragment agreement, env-steps/s as bench_ppo
+    counts them, and the iteration's split."""
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    algo = ppo_config("cuda").env_runners(
+        num_env_runners=n, num_envs_per_env_runner=64 // max(n, 1),
+        rollout_fragment_length=64).build()
+    out = {"runners": n, "envs_per_runner": 64 // max(n, 1),
+           "build_s": time.perf_counter() - t0}
+    if not _on_device(algo.learner.params, "cuda"):
+        raise AssertionError(f"PPO with {n} runners: the learner's "
+                             f"parameters are not on the card")
+    if n:
+        out["fragments"] = fragments_agree(algo)
+        out["children"] = runner_processes(algo)
+        out["device_used_delta_gb"] = (
+            free0 - torch.cuda.mem_get_info()[0]) / 1e9
+    algo.training_step()
+    algo.training_step()
+    steps, dt, calls = _doubling(
+        lambda: int(algo.training_step()["_env_steps"]), 5)
+    out.update({"env_steps_per_s": steps / dt, "iterations": calls,
+                "wall_s": dt, "split": remote_split(algo)})
+    if n:
+        out["runtime"] = runtime_costs(algo)
+    algo.stop()
+    return out
+
+
+def remote_async(cls) -> tuple:
+    """IMPALA or APPO at tests/test_rllib.py:192-207's config (2 runner
+    processes x 2 envs, 32 steps a fragment, 4 fragments a step), ten
+    iterations: the returns, env-steps/s, the learner's time in ``wait``
+    for a fragment, and the step's weight broadcast against the same
+    broadcast with no fragment in flight (``runtime_costs``). Returns
+    (readings, algo)."""
+    import raytpu_torch.runtime as runtime
+
+    algo = (cls().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=2,
+                         rollout_fragment_length=32)
+            .training(lr=5e-4, entropy_coeff=0.01, num_fragments_per_step=4)
+            .debugging(seed=0).resources(device="cuda")).build()
+    children = runner_processes(algo)
+    spent = {"wait": 0.0, "fragment_get": 0.0, "broadcast": 0.0}
+    wait, get = runtime.wait, runtime.get
+    timed_wait = _timing(spent, "wait", wait)
+    timed_fragment = _timing(spent, "fragment_get", get)
+    timed_broadcast = _timing(spent, "broadcast", get)
+    # IMPALA's step gets one fragment at a time and the broadcast's
+    # replies as a list.
+    runtime.wait = timed_wait
+    runtime.get = lambda refs, **kw: (timed_broadcast if isinstance(
+        refs, list) else timed_fragment)(refs, **kw)
+    try:
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(ASYNC_ITERATIONS)]
+        wall = time.perf_counter() - t0
+    finally:
+        runtime.wait, runtime.get = wait, get
+    runtime.get(list(algo._inflight), timeout=REMOTE_TIMEOUT_S)
+    costs = runtime_costs(algo)
+    per = {k: v / ASYNC_ITERATIONS * 1e3 for k, v in spent.items()}
+    returns = [r["episode_return_mean"] for r in results]
+    out = {"returns": returns, "returns_rose": returns[-1] > returns[0],
+           "timesteps_total": results[-1]["timesteps_total"],
+           "env_steps_per_s": results[-1]["timesteps_total"] / wall,
+           "iteration_ms": wall / ASYNC_ITERATIONS * 1e3,
+           "learner_wait_ms_per_step": per["wait"],
+           "fragment_get_ms_per_step": per["fragment_get"],
+           "broadcast_ms_per_step": per["broadcast"],
+           "broadcast_behind_fragments_ms":
+               per["broadcast"] - costs["broadcast_ms"],
+           "runtime": costs,
+           "finite": all(_finite_metrics(r) for r in results),
+           "on_device": _on_device(algo.learner.params, "cuda"),
+           "children": children}
+    return out, algo
+
+
+def planted_runner_fault(algo) -> dict:
+    """Kill one runner process (SIGKILL) 50 ms into a run of train()
+    calls, so in the middle of an iteration: the time from the kill to
+    ActorDiedError; then stop() and the processes left."""
+    import multiprocessing
+    import signal
+
+    from raytpu_torch.core.errors import ActorDiedError
+
+    victim = algo.env_runner_group.remote_runners[0]
+    state = {"in_train": False}
+
+    def kill():
+        state["mid_iteration"] = state["in_train"]
+        state["killed_at"] = time.monotonic()
+        os.kill(victim.pid, signal.SIGKILL)
+
+    timer = threading.Timer(0.05, kill)
+    error, t_error, calls = None, None, 0
+    timer.start()
+    try:
+        deadline = time.monotonic() + FAULT_DEADLINE_S + 5.0
+        while time.monotonic() < deadline:
+            state["in_train"] = True
+            algo.train()
+            state["in_train"] = False
+            calls += 1
+    except ActorDiedError as exc:
+        error, t_error = exc, time.monotonic()
+    finally:
+        timer.cancel()
+        timer.join(timeout=5.0)
+    algo.stop()
+    left = [p.pid for p in multiprocessing.active_children()]
+    return {"victim_pid": victim.pid,
+            "mid_iteration": state.get("mid_iteration"),
+            "train_calls_completed": calls,
+            "error": type(error).__name__ if error else None,
+            "message": str(error)[:160] if error else None,
+            "seconds_to_error": (t_error - state["killed_at"])
+            if error else None,
+            "deadline_s": FAULT_DEADLINE_S,
+            "children_after_stop": left}
+
+
+def phase_rl_remote(card_line: str) -> dict:
+    """PPO at bench_ppo's config with 0, 2 and 4 runner processes; IMPALA
+    and APPO with 2, asynchronous, ten iterations each; then a runner
+    killed in the middle of an APPO iteration. Fails unless every runner
+    holds its parameters on the card, loads no JAX, launches none of the
+    five kernels and was imported under ``__mp_main__``; a remote
+    fragment equals a local one (to the bit, else in its actions); the
+    killed runner is named within FAULT_DEADLINE_S and no process
+    outlives stop()."""
+    from raytpu_torch.rllib import APPOConfig, IMPALAConfig
+
+    t0 = time.perf_counter()
+    result = {"ppo": {n: remote_ppo(n) for n in REMOTE_RUNNERS}}
+    result["IMPALA"], algo = remote_async(IMPALAConfig)
+    algo.stop()
+    result["APPO"], algo = remote_async(APPOConfig)
+    result["fault"] = planted_runner_fault(algo)
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[rl-remote] {json.dumps(result)} | {card_line}")
+    for n, r in result["ppo"].items():
+        for rep in r.get("children", []):
+            _check_child(f"PPO with {n} runners", rep)
+        frag = r.get("fragments")
+        if frag and not (frag["bit_equal"] or frag["actions_equal"]):
+            raise AssertionError(f"PPO with {n} runners: a remote fragment "
+                                 f"differs from the local one: {frag}")
+    for name in ("IMPALA", "APPO"):
+        r = result[name]
+        for rep in r["children"]:
+            _check_child(name, rep)
+        if not (r["finite"] and r["on_device"]
+                and r["timesteps_total"] == ASYNC_ITERATIONS * 4 * 64):
+            raise AssertionError(f"{name} with runner processes: {r}")
+    f = result["fault"]
+    if not (f["error"] == "ActorDiedError"
+            and f["seconds_to_error"] <= FAULT_DEADLINE_S
+            and f["children_after_stop"] == []):
+        raise AssertionError(f"a killed runner: {f}")
+    return result
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -3965,6 +4337,7 @@ def main() -> int:
     phase_rl_ppo(card_line)
     phase_rl_pixel_ppo(card_line)
     phase_rl_algorithms(card_line)
+    phase_rl_remote(card_line)
     rllib = {name: c.count for name, c in counters.items()}
     check_launches(rllib, {name: 0 for name in counters})
     runs = {"serve": serve["launches"],

@@ -23,11 +23,16 @@ and Mixtral on one card, and RLlib:
   and ``profile`` over ``torch.profiler``, the request lifecycle
   recorder, and the decode step profiler (step times, MFU, device
   memory);
-- :mod:`raytpu_torch.rllib` — RL modules, learners, the local env runner
-  and PPO, IMPALA, APPO, DQN, SAC, CQL and BC/MARWIL, through the JAX
+- :mod:`raytpu_torch.rllib` — RL modules, learners, env runners (in
+  process, or in runner processes) and PPO, IMPALA, APPO (asynchronous
+  with runner processes), DQN, SAC, CQL and BC/MARWIL, through the JAX
   package's entry points (``PPOConfig()...build().train()``), with a
   converter of the JAX package's RL weights. No kernel: RLlib reaches
-  no TPU kernel.
+  no TPU kernel;
+- :mod:`raytpu_torch.runtime` — a small worker-process layer (actors in
+  spawned processes, futures, ``put``/``get``/``wait``/``kill``, CPU
+  tensors through shared memory) with the shape of the JAX package's
+  calls, and :mod:`raytpu_torch.core.errors`, the errors it raises.
 
 The port imports nothing from ``raytpu`` or JAX; the host-side modules it
 needs are its own copies. Every entry point runs on ``cuda`` unless the

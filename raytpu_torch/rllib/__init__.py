@@ -3,10 +3,12 @@
 Reference analogue: ``rllib/`` new stack (``rllib/core/rl_module``,
 ``rllib/core/learner``, ``rllib/env/env_runner.py``,
 ``rllib/algorithms/``), with the JAX package's public names. PPO,
-IMPALA, APPO, DQN, SAC, CQL and BC/MARWIL train with a local env runner
-and one learner on the card (or, with ``.resources(device="cpu")``, on
-the CPU); the update is eager torch where the JAX package compiles one
-program. No TPU kernel lies on this path, so none is ported for it.
+IMPALA, APPO, DQN, SAC, CQL and BC/MARWIL train with one learner on the
+card (or, with ``.resources(device="cpu")``, on the CPU), sampling in
+process or, with ``num_env_runners > 0``, in runner processes of
+:mod:`raytpu_torch.runtime` (IMPALA and APPO then keep a fragment in
+flight per runner); the update is eager torch where the JAX package
+compiles one program. No TPU kernel lies on this path, so none is ported for it.
 :mod:`raytpu_torch.rllib.convert` carries the JAX package's weights
 across.
 """

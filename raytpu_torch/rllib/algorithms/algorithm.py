@@ -7,6 +7,8 @@ config: ``.environment().env_runners().training().learners()``). The
 port adds one setting, ``.resources(device=...)``: the device of the
 learner and of the env runner's policy, None for the card
 (:func:`raytpu_torch.resolve_device`); ``"cpu"`` runs the plain path.
+``num_env_runners > 0`` samples in runner processes of the port's
+runtime, which evaluation goes through too.
 Checkpoints keep the JAX package's layout: ``learner_state.pkl`` (a
 pickled learner state of CPU tensors) and ``algorithm_state.json``.
 """
@@ -216,10 +218,14 @@ class Algorithm:
         }
         self.env_runner_group = EnvRunnerGroup(
             runner_config, config.num_env_runners)
-        self.module = spec.build()
-        self.learner = self.learner_class(self.module,
-                                          self._base_learner_config())
-        self.env_runner_group.sync_weights(self.learner.get_weights())
+        try:
+            self.module = spec.build()
+            self.learner = self.learner_class(self.module,
+                                              self._base_learner_config())
+            self.env_runner_group.sync_weights(self.learner.get_weights())
+        except BaseException:
+            self.env_runner_group.stop()  # no runner process outlives us
+            raise
 
     def _base_learner_config(self) -> Dict[str, Any]:
         c = self.config

@@ -2,11 +2,15 @@
 :mod:`raytpu.rllib.algorithms.impala`.
 
 Reference analogue: ``rllib/algorithms/impala/impala.py:667`` and
-``vtrace_torch.py``. The JAX package keeps one sample task in flight per
-remote runner and consumes fragments in arrival order; the port has only
-the local runner (``num_env_runners=0``), so it runs the JAX package's
-synchronous path: sample a fragment, update on it, sync the weights,
-``num_fragments_per_step`` times an iteration.
+``vtrace_torch.py``. With remote runners, as in the JAX package, each
+runner keeps one sample call in flight; the learner consumes fragments
+in the order they arrive, relaunching each runner at once, and
+broadcasts its weights once a step (policy lag is what v-trace corrects
+for). The broadcast is ordered behind every runner's fragment in flight,
+as the JAX package's is, so the step ends only when each runner has
+finished its current fragment. With ``num_env_runners=0`` it runs the
+JAX package's synchronous path: sample a fragment, update on it, sync
+the weights, ``num_fragments_per_step`` times an iteration.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Any, Dict
 
 import torch
 
+from raytpu_torch import runtime
 from raytpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from raytpu_torch.rllib.core.learner import Learner, vtrace
 
@@ -75,14 +80,49 @@ class IMPALA(Algorithm):
             "clip_c_threshold": c.clip_c_threshold,
         }
 
+    def setup(self, config):
+        super().setup(config)
+        self._inflight: Dict[Any, Any] = {}  # ref -> runner
+
+    def _launch(self, runner):
+        ref = runner.sample.remote()
+        self._inflight[ref] = runner
+        return ref
+
     def training_step(self) -> Dict[str, Any]:
-        runner = self.env_runner_group.local_runner
+        group = self.env_runner_group
         metrics: Dict[str, Any] = {}
         steps = 0
-        for _ in range(self.config.num_fragments_per_step):
-            sample = runner.sample()
-            steps += self._absorb_episodes([sample])
-            metrics = self.learner.update(self._concat_time_major([sample]))
-            runner.set_weights(self.learner.get_weights())
+        if group.local_runner is not None:
+            # Degenerate sync path (num_env_runners=0).
+            runner = group.local_runner
+            for _ in range(self.config.num_fragments_per_step):
+                sample = runner.sample()
+                steps += self._absorb_episodes([sample])
+                metrics = self.learner.update(
+                    self._concat_time_major([sample]))
+                runner.set_weights(self.learner.get_weights())
+        else:
+            # Keep one fragment in flight per runner; consume in arrival
+            # order (reference: IMPALA's sample queue).
+            for r in group.remote_runners:
+                if r not in self._inflight.values():
+                    self._launch(r)
+            consumed = 0
+            while consumed < self.config.num_fragments_per_step:
+                ready, _ = runtime.wait(list(self._inflight), num_returns=1)
+                ref = ready[0]
+                runner = self._inflight.pop(ref)
+                sample = runtime.get(ref)
+                # Relaunch immediately: sampling overlaps the update.
+                self._launch(runner)
+                steps += self._absorb_episodes([sample])
+                batch = self._concat_time_major([sample])
+                metrics = self.learner.update(batch)
+                consumed += 1
+            # Broadcast fresh weights once per step.
+            ref = runtime.put(self.learner.get_weights())
+            runtime.get([r.set_weights.remote(ref)
+                         for r in group.remote_runners])
         metrics["_env_steps"] = steps
         return metrics

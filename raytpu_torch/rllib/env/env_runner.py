@@ -8,24 +8,33 @@ sends the observations to the device once and brings actions, logp and
 values back in one copy. Batches come back time-major (T, B, ...) so
 GAE/v-trace run directly over them.
 
-Only local sampling: ``EnvRunnerGroup(num_env_runners > 0)`` raises.
-Remote runners need an actor runtime, which the port does not have yet
-(``ROADMAP.md``, Queue 1: remote env runners).
+``EnvRunnerGroup(num_env_runners=0)`` samples in process; with
+``num_env_runners > 0`` each runner is a spawned worker process of the
+port's runtime (:mod:`raytpu_torch.runtime`), which resolves the config's
+device itself and gets the config's env handed over
+(:func:`~raytpu_torch.rllib.env.envs.env_registration`).
 """
 
 from __future__ import annotations
 
 import copy
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from raytpu_torch import resolve_device
+from raytpu_torch import resolve_device, runtime
+from raytpu_torch.core.errors import GetTimeoutError
 from raytpu_torch.rllib.connectors import ConnectorPipeline
 from raytpu_torch.rllib.core.learner import host_copy, load_params_
 from raytpu_torch.rllib.core.rl_module import ieee_fp32
-from raytpu_torch.rllib.env.envs import make_env
+from raytpu_torch.rllib.env.envs import (env_registration, make_env,
+                                         register_env)
+
+# How long a group waits for its runner processes to start (import torch,
+# reach the card, build the envs and the module).
+START_TIMEOUT_S = 300.0
 
 
 def _build_pipelines(config: Dict[str, Any]):
@@ -45,11 +54,16 @@ class SingleAgentEnvRunner:
 
     Config keys (subset of the reference's AlgorithmConfig surface):
     ``env``, ``env_config``, ``module_spec``, ``rollout_fragment_length``,
-    ``num_envs_per_env_runner``, ``seed``, ``worker_index``, ``device``.
+    ``num_envs_per_env_runner``, ``seed``, ``worker_index``, ``device``;
+    and ``env_registration``, a ``(name, creator)`` pair to register
+    before the env is made (how a runner in a process of its own gets a
+    registered env).
     """
 
     def __init__(self, config: Dict[str, Any]):
         self.config = config
+        if config.get("env_registration"):
+            register_env(*config["env_registration"])
         self.device = resolve_device(config.get("device"))
         self.worker_index = int(config.get("worker_index", 0))
         seed = config.get("seed")
@@ -91,6 +105,7 @@ class SingleAgentEnvRunner:
         self._ep_return = np.zeros(self.num_envs)
         self._ep_len = np.zeros(self.num_envs, dtype=np.int64)
         self._completed: List[dict] = []
+        self._total_steps = 0
 
     # -- weight sync (reference: EnvRunnerGroup.sync_weights) -----------------
 
@@ -246,6 +261,7 @@ class SingleAgentEnvRunner:
             for i in done_idx:
                 self._env_to_module.on_episode_done(i)
 
+        self._total_steps += T * B
         episodes, self._completed = self._completed, []
         bootstrap = self._obs.astype(np.float32).copy()
         if len(self._env_to_module):
@@ -308,29 +324,96 @@ class SingleAgentEnvRunner:
                 "num_episodes": num_episodes}
 
 
+    def total_steps(self) -> int:
+        return self._total_steps
+
+    def ping(self) -> bool:
+        return True
+
+
 class EnvRunnerGroup:
-    """The local runner (reference analogue: ``rllib/evaluation/
-    worker_set.py:82`` / ``EnvRunnerGroup``); ``num_env_runners=0``
-    samples in-process, the only mode the port has."""
+    """Fan-out over remote env runners, or the local runner (reference
+    analogue: ``rllib/evaluation/worker_set.py:82`` / ``EnvRunnerGroup``).
+
+    ``num_env_runners=0`` samples in process. Otherwise runner ``i`` (its
+    ``worker_index`` is ``i + 1``) is a worker process of the port's
+    runtime with ``num_cpus=1``, as the JAX group asks; construction
+    waits until every runner has started (``startup_s``: each one's
+    seconds from launch to its first reply) and stops them all if one
+    fails. The JAX group's ``resources_per_runner`` is not taken: no
+    caller passes it, and the port's runtime has no resources other than
+    ``num_cpus``.
+    """
 
     def __init__(self, config: Dict[str, Any], num_env_runners: int):
-        if num_env_runners > 0:
-            raise NotImplementedError(
-                f"num_env_runners={num_env_runners}: the port samples in "
-                f"process only (num_env_runners=0); remote env runners "
-                f"wait for an actor runtime (ROADMAP.md, Queue 1: remote "
-                f"env runners)")
-        self.local_runner = SingleAgentEnvRunner(
-            {**config, "worker_index": 0})
+        self.num_env_runners = num_env_runners
+        self.local_runner: Optional[SingleAgentEnvRunner] = None
+        self.remote_runners: list = []
+        self.startup_s: List[float] = []
+        if num_env_runners <= 0:
+            self.local_runner = SingleAgentEnvRunner(
+                {**config, "worker_index": 0})
+            return
+        config = {**config, "env_registration": env_registration(
+            config["env"])}
+        actor_cls = runtime.remote(SingleAgentEnvRunner).options(num_cpus=1)
+        try:
+            t0 = time.monotonic()
+            for i in range(num_env_runners):
+                self.remote_runners.append(actor_cls.remote(
+                    {**config, "worker_index": i + 1}))
+            self.startup_s = self._await_start(t0)
+        except BaseException:
+            self.stop()
+            raise
+
+    def _await_start(self, t0: float) -> List[float]:
+        pending = {r.ping.remote(): i
+                   for i, r in enumerate(self.remote_runners)}
+        started = [0.0] * len(pending)
+        while pending:
+            left = START_TIMEOUT_S - (time.monotonic() - t0)
+            ready, _ = runtime.wait(list(pending), num_returns=1,
+                                    timeout=max(0.0, left))
+            if not ready:
+                raise GetTimeoutError(
+                    f"{len(pending)} env runner(s) did not start within "
+                    f"{START_TIMEOUT_S} s")
+            runtime.get(ready[0])  # raises if the runner's constructor did
+            started[pending.pop(ready[0])] = time.monotonic() - t0
+        return started
 
     def sample(self, **kwargs) -> List[Dict[str, Any]]:
-        return [self.local_runner.sample(**kwargs)]
+        if self.local_runner is not None:
+            return [self.local_runner.sample(**kwargs)]
+        return runtime.get([r.sample.remote(**kwargs)
+                            for r in self.remote_runners])
+
+    def sample_refs(self, **kwargs):
+        """Async sampling (IMPALA): one in-flight ref per runner."""
+        if self.local_runner is not None:
+            return [runtime.put(self.local_runner.sample(**kwargs))]
+        return [r.sample.remote(**kwargs) for r in self.remote_runners]
 
     def sync_weights(self, weights) -> None:
-        self.local_runner.set_weights(weights)
+        if self.local_runner is not None:
+            self.local_runner.set_weights(weights)
+            return
+        ref = runtime.put(weights)
+        runtime.get([r.set_weights.remote(ref)
+                     for r in self.remote_runners])
 
     def evaluate(self, num_episodes: int) -> Dict[str, float]:
-        return self.local_runner.evaluate(num_episodes)
+        if self.local_runner is not None:
+            return self.local_runner.evaluate(num_episodes)
+        per = max(1, num_episodes // len(self.remote_runners))
+        outs = runtime.get([r.evaluate.remote(per)
+                            for r in self.remote_runners])
+        return {"episode_return_mean": float(np.mean(
+            [o["episode_return_mean"] for o in outs])),
+            "num_episodes": per * len(self.remote_runners)}
 
     def stop(self) -> None:
-        pass
+        for r in self.remote_runners:
+            runtime.kill(r)
+        self.remote_runners = []

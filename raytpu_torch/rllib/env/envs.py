@@ -6,12 +6,16 @@ image has no gym, so we ship a numpy CartPole with the gymnasium API shape
 info)``) and accept any user class with that interface. Reference
 analogue for the registry: ``ray.tune.registry.register_env``.
 
-The port's copy of :mod:`raytpu.rllib.env.envs` (numpy only, unchanged):
-the port imports nothing of ``raytpu``, so it keeps its own.
+The port's copy of :mod:`raytpu.rllib.env.envs` (numpy only): the port
+imports nothing of ``raytpu``, so it keeps its own. It adds
+:func:`env_registration`: the JAX package's remote runners are threads
+that share the registry, the port's are spawned processes, which get the
+config's ``(name, creator)`` pair handed over and register it themselves.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -21,6 +25,25 @@ _ENV_REGISTRY: Dict[str, Callable[..., Any]] = {}
 
 def register_env(name: str, creator: Callable[..., Any]) -> None:
     _ENV_REGISTRY[name] = creator
+
+
+def env_registration(spec) -> Optional[Tuple[str, Callable[..., Any]]]:
+    """The ``(name, creator)`` pair a process of its own needs to make
+    ``spec`` (None when ``spec`` is not a registered name), checked to
+    pickle: a creator that does not (a lambda, a closure) raises here,
+    naming the env, rather than later inside the process."""
+    if not (isinstance(spec, str) and spec in _ENV_REGISTRY):
+        return None
+    creator = _ENV_REGISTRY[spec]
+    try:
+        pickle.dumps(creator)
+    except (pickle.PicklingError, AttributeError, TypeError) as exc:
+        raise ValueError(
+            f"env {spec!r} is registered with a creator that does not "
+            f"pickle ({creator!r}), so remote env runners, which are "
+            f"processes of their own, cannot make it; register a "
+            f"module-level function or class instead") from exc
+    return spec, creator
 
 
 def make_env(spec, env_config: Optional[dict] = None):
@@ -289,7 +312,9 @@ class CatchEnv:
 register_env("CartPole-v1", CartPoleEnv)
 register_env("Pendulum-v1", PendulumEnv)
 register_env("Catch-v0", CatchEnv)
-register_env("CartPole-v0",
-             lambda cfg: CartPoleEnv({**(cfg or {}),
-                                      "max_episode_steps": 200}))
+def _cartpole_v0(cfg):
+    return CartPoleEnv({**(cfg or {}), "max_episode_steps": 200})
+
+
+register_env("CartPole-v0", _cartpole_v0)
 register_env("CartPole-v1-vec", VecCartPoleEnv)

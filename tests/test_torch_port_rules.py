@@ -27,6 +27,9 @@ PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
 UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
                 "profiler", "stepprof")
 
+# The port's runtime layer and the JAX modules whose calls it copies.
+RUNTIME_MODULES = ("core.errors", "runtime.api")
+
 # Run in a fresh interpreter: this test process has JAX loaded
 # (tests/conftest.py imports it).
 _IMPORT_ALL = """
@@ -52,6 +55,7 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "raytpu_torch.inference.engine" in loaded
     assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
+    assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -108,6 +112,67 @@ def test_rl_entry_points_raise_without_a_card(monkeypatch):
     assert algo.learner.device.type == "cpu"
     assert all(p.device.type == "cpu" for p in algo.learner.params.values())
     assert algo.env_runner_group.local_runner.device.type == "cpu"
+
+
+def test_runtime_modules_are_held_to_the_rules():
+    # The AST scan and the fresh-interpreter import above cover them.
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for m in RUNTIME_MODULES:
+        path = m.replace(".", "/") + ".py"
+        assert path in names
+        assert (REPO / "raytpu" / path).is_file()
+
+
+def forbidden_in_worker(instance):
+    """Run inside a worker process: the forbidden modules it has loaded."""
+    return sorted(m for m in sys.modules if _forbidden(m))
+
+
+def _runner_config(device):
+    from raytpu_torch.rllib import PPOConfig
+
+    return {"env": "CartPole-v1", "env_config": {},
+            "module_spec": PPOConfig().environment(
+                "CartPole-v1").rl_module_spec(),
+            "rollout_fragment_length": 8, "num_envs_per_env_runner": 2,
+            "seed": 0, "gamma": 0.99, "env_to_module_connectors": [],
+            "module_to_env_connectors": [], "device": device}
+
+
+def test_runner_processes_import_no_jax_and_nothing_of_raytpu():
+    import multiprocessing
+
+    from raytpu_torch import runtime
+    from raytpu_torch.rllib.env.env_runner import EnvRunnerGroup
+
+    group = EnvRunnerGroup(_runner_config("cpu"), 1)
+    try:
+        [runner] = group.remote_runners
+        assert runtime.get(runtime.call(runner, forbidden_in_worker),
+                           timeout=60) == []
+        assert group.sample()[0]["env_steps"] == 16
+    finally:
+        group.stop()
+    assert runner.pid not in {p.pid for p in
+                              multiprocessing.active_children()}
+
+
+def test_runner_processes_raise_without_a_card(monkeypatch):
+    # The runner process resolves the device itself: asked for the card
+    # (device None) where it sees none, it raises; it never moves to the
+    # CPU. The group's construction names the failure and leaves no
+    # process behind.
+    import multiprocessing
+
+    from raytpu_torch.core.errors import ActorDiedError
+    from raytpu_torch.rllib.env.env_runner import EnvRunnerGroup
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # the child's view
+    before = {p.pid for p in multiprocessing.active_children()}
+    with pytest.raises(ActorDiedError, match="CUDA"):
+        EnvRunnerGroup(_runner_config(None), 2)
+    assert {p.pid for p in multiprocessing.active_children()} <= before
 
 
 # The JAX package's RL modules, each with its port (raytpu_torch/rllib).

@@ -3,8 +3,9 @@ through the JAX package's entry points (``PPOConfig()...build()``,
 ``train``, ``evaluate``, ``save``, ``restore``, ``stop``): greedy
 evaluation equal to the JAX package's on the same weights and env seeds,
 and a few iterations of every other algorithm; and what the port does not
-have (remote runners) raises. PPO learning CartPole is
-tests/test_torch_rllib_learning.py."""
+have (several learners) raises. PPO learning CartPole is
+tests/test_torch_rllib_learning.py; remote env runners are
+tests/test_torch_rllib_remote.py."""
 
 import numpy as np
 import pytest
@@ -244,9 +245,6 @@ def test_cql_trains_offline(raytpu_local):
 
 
 def test_what_the_port_does_not_have_raises():
-    with pytest.raises(NotImplementedError, match="remote env runners"):
-        (PPOConfig().environment("CartPole-v1")
-         .env_runners(num_env_runners=2).resources(device="cpu")).build()
     with pytest.raises(NotImplementedError, match="NCCL"):
         (PPOConfig().environment("CartPole-v1").learners(num_learners=2)
          .resources(device="cpu")).build()
