@@ -140,7 +140,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     guard held); a remote fragment equals a local runner's with the same
     worker index and weights; and a runner killed in the middle of an
     iteration raises ActorDiedError within 10 s, leaving no process
-    after ``stop()``.
+    after ``stop()``;
+23. Train library (run after phase 22, the launch counters set to 0
+    just before it): GPT-2 124M at phase 9's settings and ResNet-50 (bf16,
+    64 images of 224 x 224 x 3 NHWC, 1000 classes, SGD) each through
+    ``DataParallelTrainer`` at world size 1 on the card (NCCL), in a
+    worker process; GPT-2 saves its model and AdamW state with
+    ``save_pytree`` after step 6 and a second fit resumes from that
+    checkpoint. Readings: tokens/s and step ms through the trainer beside
+    phase 9's bare loop, the checkpoint's seconds, each fit's seconds;
+    ResNet-50's images/s, step ms, MFU, peak memory and a profiled step's
+    busy share. Fails unless the worker launched the flash kernels 24, 12
+    and 12 times a GPT-2 step and no kernel for ResNet-50 (this process
+    none), loaded no JAX and imported this script as ``__mp_main__``;
+    the restored state's sums equal the saved ones to the bit and the
+    resumed first loss is within 1e-3 of the first run's next one;
+    ResNet-50's loss is finite, its running statistics moved and its
+    conv weights are ``channels_last`` on the card; and no worker process
+    is left.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -157,6 +174,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3902,16 +3920,22 @@ def child_report(runner) -> dict:
         for v in tree.values():
             yield from (leaves(v) if isinstance(v, dict) else (v,))
 
-    main = sys.modules.get("__main__")
     cuda = torch.cuda.is_initialized()
-    return {"pid": os.getpid(),
-            "params_on": sorted({t.device.type for t in
+    return {"params_on": sorted({t.device.type for t in
                                  leaves(runner.params)}),
             "allocated_mb": torch.cuda.memory_allocated() / 2 ** 20
             if cuda else 0.0,
             "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20
             if cuda else 0.0,
-            "threads": torch.get_num_threads(),
+            "threads": torch.get_num_threads(), **process_facts()}
+
+
+def process_facts() -> dict:
+    """Run inside a worker process: its pid, the five kernels' launches
+    there, the forbidden modules it has loaded, and the name it imported
+    this script under."""
+    main = sys.modules.get("__main__")
+    return {"pid": os.getpid(),
             "launches": {n: c.count for n, c in kernel_counters().items()},
             "forbidden": sorted(m for m in sys.modules if m.split(".")[0]
                                 in ("jax", "jaxlib", "flax", "raytpu")),
@@ -4238,6 +4262,344 @@ def phase_rl_remote(card_line: str) -> dict:
     return result
 
 
+# ---- phase 23: the Train library on the card --------------------------
+
+# GPT-2 through the trainer: phase 9's model, batch and AdamW; the run
+# saves model and optimizer state after this step's update (1-based) and
+# reports it as a checkpoint; a second fit resumes from it and takes
+# TRAINLIB_RESUMED_STEPS steps.
+TRAINLIB_CKPT_STEP = 6
+TRAINLIB_RESUMED_STEPS = 2
+# The resumed run's first loss against the first run's next one: the same
+# parameters and optimizer state (restored to the bit) and the same
+# batch, so the forward passes are the same computation; what may differ
+# is only what non-deterministic kernels make of it, and the forward has
+# none, so the two read equal unless one does. 1e-3 relative is the
+# limit the issue of this phase sets.
+RESUME_LOSS_TOL = 1e-3
+# ResNet-50 at 224 x 224 (torchvision's and the reference benchmark's
+# input), batches of 64 images, 1000 classes, SGD as in its recipe.
+RESNET_BATCH = 64
+RESNET_SIZE = 224
+# Training FLOPs an image: 3 x the forward's 4.1 GFLOP (multiply-adds
+# counted twice) at 224 x 224.
+RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9
+
+
+def tensor_sums(tree, prefix: str = "") -> dict:
+    """The float64 sum of every tensor in a nested dict or list, by
+    dotted path."""
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree)
+             if isinstance(tree, (list, tuple)) else ())
+    out = {}
+    for key, value in items:
+        name = f"{prefix}{key}"
+        if isinstance(value, torch.Tensor):
+            out[name] = float(value.double().sum())
+        else:
+            out.update(tensor_sums(value, name + "."))
+    return out
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _reset_counters() -> None:
+    for counter in kernel_counters().values():
+        counter.reset()
+
+
+def gpt2_trainer_loop(config):
+    """GPT-2 through the trainer (a train loop: it runs in the worker).
+    A fresh run takes ``warmup + steps`` steps on one batch, saving the
+    model's and AdamW's state with ``save_pytree`` after step
+    ``ckpt_step`` (the save's and report's time left out of the timed
+    steps); a resumed run restores that state in place and takes
+    ``resumed_steps``. Every step reports its loss; the last report
+    carries the timing (and its split: each step's dispatch, the wait for
+    its loss, ``report``), the launches and the process's facts. A fresh
+    run then takes ``steps`` more without reporting, as phase 9's bare
+    loop does, timed apart."""
+    from torch.distributed.checkpoint.state_dict import (get_state_dict,
+                                                         set_state_dict)
+
+    from raytpu_torch import train
+    from raytpu_torch.models.gpt2 import GPT2, make_train_step
+
+    dev = train.get_context().device
+    cfg = config["gpt2"]
+    _reset_counters()
+    model = train.prepare_model(GPT2(cfg, device=dev, seed=0))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1, foreach=True)
+    step = make_train_step(model, opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (config["batch"], cfg.block_size))).to(dev)
+    resume = train.get_checkpoint()
+    done = {}
+    if resume is not None:
+        model_sd, optim_sd = get_state_dict(model, opt)
+        tree = train.restore_pytree(resume, target={"model": model_sd,
+                                                    "optim": optim_sd})
+        set_state_dict(model, opt, model_state_dict=tree["model"],
+                       optim_state_dict=tree["optim"])
+        model_sd, optim_sd = get_state_dict(model, opt)
+        done["restored_sums"] = tensor_sums({"model": model_sd,
+                                             "optim": optim_sd})
+        warmup, steps = 0, config["resumed_steps"]
+    else:
+        warmup, steps = config["warmup"], config["steps"]
+    save_s = 0.0
+    # Where a timed step's host time goes: the step's dispatch, the wait
+    # for its loss (.item()), and report().
+    split = dict.fromkeys(("dispatch_s", "item_s", "report_s"), 0.0)
+    for i in range(warmup + steps):
+        if i == warmup:
+            _sync(dev)
+            t0 = time.perf_counter()
+            split = dict.fromkeys(split, 0.0)
+        ta = time.perf_counter()
+        loss = step(tokens)
+        tb = time.perf_counter()
+        metrics = {"step": i + 1, "loss": loss.item()}
+        tc = time.perf_counter()
+        if resume is None and i + 1 == config["ckpt_step"]:
+            model_sd, optim_sd = get_state_dict(model, opt)
+            tree = {"model": model_sd, "optim": optim_sd}
+            ckpt = train.save_pytree(tree, tempfile.mkdtemp(
+                prefix="gpt2-ckpt-"))
+            metrics["saved_sums"] = tensor_sums(tree)
+            train.report(metrics, checkpoint=ckpt)
+            shutil.rmtree(ckpt.path)  # report() staged its own copy
+            save_s = time.perf_counter() - tc
+        else:
+            train.report(metrics)
+            split["report_s"] += time.perf_counter() - tc
+        split["dispatch_s"] += tb - ta
+        split["item_s"] += tc - tb
+    _sync(dev)
+    wall = time.perf_counter() - t0 - save_s
+    steps_run = warmup + steps
+    if resume is None:
+        # The same steps in this process without a report or a read of
+        # the loss, as phase 9's bare loop takes them.
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            step(tokens)
+        _sync(dev)
+        done["bare_in_worker_s"] = time.perf_counter() - t1
+        steps_run += steps
+    train.report({"done": True, "timed_steps": steps, "wall_s": wall,
+                  "save_s": save_s, "steps_run": steps_run, **split,
+                  **done, **process_facts()})
+
+
+def resnet_trainer_loop(config):
+    """ResNet through the trainer (a train loop): ``warmup + steps`` SGD
+    steps on one batch of NHWC images from a numpy seed, each reporting
+    its loss; the last report carries the timing, the peak memory, one
+    profiled step, whether the running statistics moved and the
+    parameters are ``channels_last`` on the device, and the process's
+    facts."""
+    import torch.nn.functional as F
+
+    from raytpu_torch import train
+    from raytpu_torch.models.resnet import ResNet
+
+    dev = train.get_context().device
+    cfg = config["resnet"]
+    _reset_counters()
+    model = train.prepare_model(ResNet(cfg, device=dev, seed=0))
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9,
+                          weight_decay=1e-4)
+    rng = np.random.default_rng(0)
+    b, size = config["batch"], config["size"]
+    x = torch.from_numpy(rng.standard_normal(
+        (b, size, size, 3), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, b)).to(dev)
+    stats0 = {n: t.clone() for n, t in model.named_buffers()}
+
+    def resnet_step(_=None):
+        opt.zero_grad(set_to_none=True)
+        logp = F.log_softmax(model(x, train=True), dim=-1)
+        loss = -logp.gather(-1, y[:, None]).mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    warmup, steps = config["warmup"], config["steps"]
+    for i in range(warmup + steps):
+        if i == warmup:
+            _sync(dev)
+            t0 = time.perf_counter()
+        train.report({"step": i + 1, "loss": resnet_step().item()})
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    moved = sum(int(not torch.equal(t, stats0[n]))
+                for n, t in model.named_buffers())
+    facts = {"done": True, "timed_steps": steps, "wall_s": wall,
+             "buffers_moved": moved, "buffers": len(stats0),
+             "params_on": sorted({p.device.type
+                                  for p in model.parameters()}),
+             "conv_weights_channels_last": all(
+                 p.is_contiguous(memory_format=torch.channels_last)
+                 for p in model.parameters() if p.dim() == 4),
+             **process_facts()}
+    facts["max_memory_allocated_gb"] = facts["profile"] = "not measured"
+    if dev.type == "cuda":
+        facts["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+        facts["profile"] = profile_step(resnet_step, None,
+                                        wall / steps * 1e3)
+    train.report(facts)
+
+
+def fit_in_gang(loop, config: dict, name: str, storage: str,
+                resume=None):
+    """One ``fit`` of ``loop`` at world size 1 on the card: its Result,
+    with the wall time of the whole fit (processes, rendezvous, loop and
+    teardown). A failed fit raises."""
+    from raytpu_torch import train
+
+    t0 = time.perf_counter()
+    result = train.DataParallelTrainer(
+        loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(num_workers=1, device="cuda"),
+        run_config=train.RunConfig(name=name, storage_path=storage),
+        resume_from_checkpoint=resume).fit()
+    if result.error is not None:
+        raise AssertionError(f"{name}: fit failed: {result.error}")
+    return result, time.perf_counter() - t0
+
+
+def _losses(result) -> list:
+    return [m["loss"] for m in result.metrics_history if "loss" in m]
+
+
+def phase_trainlib(card_line: str, bare: dict) -> dict:
+    """GPT-2 124M and ResNet-50 through ``DataParallelTrainer`` at world
+    size 1 on the card (NCCL), each in a worker process; a second GPT-2
+    fit resumes from the first one's checkpoint. Fails unless the worker
+    launched the flash kernels 24, 12 and 12 times a step (paged
+    attention and RMSNorm 0) for GPT-2 and none for ResNet-50, loaded no
+    JAX and imported this script as ``__mp_main__`` when it runs as one;
+    the restored state's sums equal the saved ones to the bit and the
+    resumed first loss is within RESUME_LOSS_TOL of the first run's next
+    one; ResNet-50's loss is finite, its running statistics moved and
+    its conv weights are ``channels_last`` on the card; and no worker
+    process is left."""
+    import multiprocessing
+
+    from raytpu_torch.models.gpt2 import GPT2Config
+    from raytpu_torch.models.resnet import ResNetConfig
+
+    t_phase = time.perf_counter()
+    before = {p.pid for p in multiprocessing.active_children()}
+    storage = tempfile.mkdtemp(prefix="trainlib-")
+    gcfg = GPT2Config.small()
+    gpt2_config = {"gpt2": gcfg, "batch": TRAIN_BATCH,
+                   "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+                   "ckpt_step": TRAINLIB_CKPT_STEP,
+                   "resumed_steps": TRAINLIB_RESUMED_STEPS}
+    gpt, gpt_fit_s = fit_in_gang(gpt2_trainer_loop, gpt2_config, "gpt2",
+                                 storage)
+    resumed, resumed_fit_s = fit_in_gang(gpt2_trainer_loop, gpt2_config,
+                                         "gpt2-resumed", storage,
+                                         resume=gpt.checkpoint)
+    resnet_config = {"resnet": ResNetConfig.resnet50(),
+                     "batch": RESNET_BATCH, "size": RESNET_SIZE,
+                     "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS}
+    resnet, resnet_fit_s = fit_in_gang(resnet_trainer_loop, resnet_config,
+                                       "resnet50", storage)
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    shutil.rmtree(storage, ignore_errors=True)
+
+    g, r, gr = gpt.metrics, resnet.metrics, resumed.metrics
+    saved = next(m["saved_sums"] for m in gpt.metrics_history
+                 if "saved_sums" in m)
+    g_loss, r_loss = _losses(gpt), _losses(resumed)
+    first, nxt = r_loss[0], g_loss[TRAINLIB_CKPT_STEP]
+    g_tokens = TRAIN_BATCH * gcfg.block_size * g["timed_steps"] / g["wall_s"]
+    images = RESNET_BATCH * r["timed_steps"] / r["wall_s"]
+    result = {
+        "gpt2": {
+            "step_ms": g["wall_s"] / g["timed_steps"] * 1e3,
+            "tokens_per_s": g_tokens,
+            "mfu": g_tokens * flops_per_token(gcfg, gcfg.n_params_approx)
+            / PEAK_BF16_FLOPS,
+            "bare_step_ms": bare["step_ms"],
+            "bare_tokens_per_s": bare["tokens_per_s"],
+            "trainer_over_bare": g_tokens / bare["tokens_per_s"],
+            "bare_in_worker_step_ms": g["bare_in_worker_s"]
+            / g["timed_steps"] * 1e3,
+            "trainer_over_bare_in_worker": g["bare_in_worker_s"]
+            / g["wall_s"],
+            "host_split_ms_a_step": {
+                k[:-2]: g[k] / g["timed_steps"] * 1e3
+                for k in ("dispatch_s", "item_s", "report_s")},
+            "save_s": g["save_s"], "fit_s": gpt_fit_s, "losses": g_loss,
+            "launches": g["launches"],
+            "launches_per_step": {k: v / g["steps_run"]
+                                  for k, v in g["launches"].items()},
+            "checkpoint": os.path.basename(gpt.checkpoint.path),
+            "tensors_saved": len(saved)},
+        "gpt2_resumed": {
+            "fit_s": resumed_fit_s, "losses": r_loss,
+            "launches": gr["launches"],
+            "sums_equal": gr["restored_sums"] == saved,
+            "first_loss": first, "first_run_next_loss": nxt,
+            "loss_rel": abs(first - nxt) / abs(nxt),
+            "loss_bit_equal": first == nxt},
+        "resnet50": {
+            "batch": RESNET_BATCH, "size": RESNET_SIZE,
+            "step_ms": r["wall_s"] / r["timed_steps"] * 1e3,
+            "images_per_s": images,
+            "mfu": images * RESNET_FLOPS_PER_IMAGE / PEAK_BF16_FLOPS,
+            "max_memory_allocated_gb": r["max_memory_allocated_gb"],
+            "profile": r["profile"], "fit_s": resnet_fit_s,
+            "losses": _losses(resnet), "launches": r["launches"],
+            "buffers_moved": r["buffers_moved"], "buffers": r["buffers"]},
+        "workers_left": left,
+    }
+    launches = {name: g["launches"][name] + gr["launches"][name]
+                + r["launches"][name] for name in g["launches"]}
+    result["launches"] = launches
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"[trainlib] {json.dumps(result)} | {card_line}")
+    n_layer = gcfg.n_layer
+    per_step = {"flash_forward": 2 * n_layer, "flash_bwd_dq": n_layer,
+                "flash_bwd_dkv": n_layer, "paged_attention": 0, "rmsnorm": 0}
+    for m in (g, gr):
+        check_launches(m["launches"], {k: v * m["steps_run"]
+                                       for k, v in per_step.items()})
+    check_launches(r["launches"], {name: 0 for name in r["launches"]})
+    for tag, m in (("GPT-2", g), ("GPT-2 resumed", gr), ("ResNet-50", r)):
+        if m["forbidden"] or (m["main"][1] == "chip_smoke.py"
+                              and m["main"][0] != "__mp_main__"):
+            raise AssertionError(f"{tag}: a train worker: {m}")
+    check_losses(g_loss)
+    if not result["gpt2_resumed"]["sums_equal"]:
+        raise AssertionError("GPT-2: the restored state's sums differ from "
+                             "the saved ones")
+    if not result["gpt2_resumed"]["loss_rel"] <= RESUME_LOSS_TOL:
+        raise AssertionError(f"GPT-2 resumed: first loss {first} against "
+                             f"the first run's {nxt}")
+    if not (np.all(np.isfinite(result["resnet50"]["losses"]))
+            and r["buffers_moved"] == r["buffers"]
+            and r["params_on"] == ["cuda"]
+            and r["conv_weights_channels_last"]):
+        raise AssertionError(f"ResNet-50 through the trainer: {r}")
+    if left:
+        raise AssertionError(f"train worker processes left: {left}")
+    return result
+
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -4340,6 +4702,13 @@ def main() -> int:
     phase_rl_remote(card_line)
     rllib = {name: c.count for name, c in counters.items()}
     check_launches(rllib, {name: 0 for name in counters})
+    torch.cuda.empty_cache()
+    # The train workers launch the kernels; this process launches none.
+    for counter in counters.values():
+        counter.reset()
+    trainlib = phase_trainlib(card_line, train)
+    check_launches({name: c.count for name, c in counters.items()},
+                   {name: 0 for name in counters})
     runs = {"serve": serve["launches"],
             "observability": observability["launches"],
             "deployment": deployment["launches"],
@@ -4347,7 +4716,8 @@ def main() -> int:
             "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],
-            "mixtral_train": mixtral["launches"], "rllib": rllib}
+            "mixtral_train": mixtral["launches"], "rllib": rllib,
+            "trainlib": trainlib["launches"]}
     log(json.dumps(kernel_line(cases, runs)))
     log(card())
     log(json.dumps({"ok": True, "device": {

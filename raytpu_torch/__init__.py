@@ -2,7 +2,7 @@
 
 Ported so far: serving Llama and GPT-2 through the paged inference
 engine and ``LLMDeployment``, training GPT-2 (with its dropout), Llama
-and Mixtral on one card, and RLlib:
+and Mixtral on one card, RLlib, and the Train library:
 
 - :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
   two kernels, dQ and dK/dV), paged attention and RMSNorm, each a CUDA
@@ -33,6 +33,11 @@ and Mixtral on one card, and RLlib:
   spawned processes, futures, ``put``/``get``/``wait``/``kill``, CPU
   tensors through shared memory) with the shape of the JAX package's
   calls, and :mod:`raytpu_torch.core.errors`, the errors it raises.
+- :mod:`raytpu_torch.train` — the Train library: a gang of worker
+  processes of that layer with one ``torch.distributed`` group (NCCL on
+  the card, gloo on the CPU), sessions and ``report``, checkpoints
+  through ``torch.distributed.checkpoint``, gang restarts; its models,
+  the fashion-MNIST MLP and ResNet, are in :mod:`raytpu_torch.models`.
 
 The port imports nothing from ``raytpu`` or JAX; the host-side modules it
 needs are its own copies. Every entry point runs on ``cuda`` unless the

@@ -1,7 +1,7 @@
-"""The tuning constants of ``raytpu/cluster/constants.py`` that the
-port's serving plane reads, under the same names and the same
-environment overrides (``RAYTPU_<NAME>``), read once at import as the JAX
-package reads them. Callers read them as module attributes at call time
+"""The tuning constants of ``raytpu/cluster/constants.py`` (and one of
+``raytpu/core/config.py``) that the port reads, under the same names and
+the same environment overrides (``RAYTPU_<NAME>``), read once at import
+as the JAX package reads them. Callers read them as module attributes at call time
 (``constants.KV_STREAM_CHUNK_BYTES``), so a test can patch one."""
 
 from __future__ import annotations
@@ -31,3 +31,7 @@ KV_STREAM_CHUNK_BYTES = _i("KV_STREAM_CHUNK_BYTES", 262144)
 # pinned before assuming the decode peer died and freeing the pages
 # (raytpu/cluster/constants.py:280).
 KV_HANDOFF_TTL_S = _f("KV_HANDOFF_TTL_S", 30.0)
+# The Train gang's process-group timeout: it bounds every collective for
+# the life of training (raytpu/core/config.py:344, torch_pg_timeout_s;
+# the reference train default, 30 min).
+TORCH_PG_TIMEOUT_S = _f("TORCH_PG_TIMEOUT_S", 1800.0)

@@ -1,6 +1,6 @@
 """What the port's models share: the JAX package's init of a projection,
-rematerialisation of a block, the train step, and the write of new K/V
-into the paged cache.
+Flax's ``Dense``, XLA's ``SAME`` padding, rematerialisation of a block,
+the train step, and the write of new K/V into the paged cache.
 
 Remat follows the JAX package's ``remat`` option:
 
@@ -20,9 +20,10 @@ Remat follows the JAX package's ``remat`` option:
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -40,6 +41,31 @@ def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
     std = p[0].numel() ** -0.5 / TRUNC_STD
     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                           generator=generator)
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense(dtype=...)``: fp32 ``weight`` ``[out, in]`` and
+    ``bias``, both cast with the input to the compute dtype at use."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in))
+        self.bias = nn.Parameter(torch.empty(n_out))
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's ``SAME`` padding of one spatial dim of size ``n`` for a
+    window ``k`` at stride ``s``: the output has ceil(n / s) places, and
+    the total padding splits as ``low = total // 2``, ``high = total -
+    low``, so an odd total pads one more after than before (a 7x7 stride-2
+    conv at 224 pads 2 and 3; a 3x3 stride-2 one at 56 pads 0 and 1)."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
 
 
 def remat_mode(remat: Any) -> str:

@@ -14,11 +14,20 @@ a leading layer axis; the default ``scan_layers=True``) and unrolled
 parameters and Mixtral's stacked expert weights (``wi``, ``wg`` ``[E, D,
 F]``, ``wo`` ``[E, F, D]``) carry over as they are. The same maps carry
 gradients, which have the tree's structure.
+
+:func:`mlp_state_from_jax` and :func:`resnet_state_from_jax` do the same
+for :mod:`raytpu.models.mlp` and :mod:`raytpu.models.resnet`, whose
+``init`` gives ``{"params": ...}`` (and, for the ResNet,
+``"batch_stats"``). Conv kernels HWIO become weights OIHW; BatchNorm's
+``scale`` and ``bias`` become its parameters, its ``mean`` and ``var``
+the running buffers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
+
+import re
 
 import numpy as np
 import torch
@@ -108,4 +117,73 @@ def gpt2_state_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
             state[f"h.{i}.{group}.{name}.weight"] = \
                 _tensor(dense["kernel"]).T.contiguous()
             state[f"h.{i}.{group}.{name}.bias"] = _tensor(dense["bias"])
+    return state
+
+
+def _dense(state: Dict[str, torch.Tensor], name: str, dense: Mapping) -> None:
+    state[f"{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
+    state[f"{name}.bias"] = _tensor(dense["bias"])
+
+
+def mlp_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``MLPClassifier`` from the numpy ``params`` of
+    :class:`raytpu.models.mlp.MLPClassifier` (``dense_{i}`` and
+    ``head``, the same names in both packages)."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, dense in params.items():
+        _dense(state, name, dense)
+    return state
+
+
+_BLOCK = re.compile(r"(Basic|Bottleneck)Block_(\d+)$")
+
+
+def _conv(kernel) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(kernel).transpose(3, 2, 0, 1),
+                                     order="C"))
+
+
+def _batch_norm(state, name: str, params: Mapping,
+                stats: Optional[Mapping]) -> None:
+    state[f"{name}.scale"] = _tensor(params["scale"])
+    state[f"{name}.bias"] = _tensor(params["bias"])
+    if stats is not None:
+        state[f"{name}.mean"] = _tensor(stats["mean"])
+        state[f"{name}.var"] = _tensor(stats["var"])
+
+
+def resnet_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``ResNet`` from the numpy variables of
+    :class:`raytpu.models.resnet.ResNet`: ``{"params": ...,
+    "batch_stats": ...}`` (without ``"batch_stats"``, as for a gradient
+    tree, the running buffers are left out). Flax's names map as: the
+    stem ``conv_init`` and ``BatchNorm_0`` to ``conv_init`` and
+    ``bn_init``; ``{Basic,Bottleneck}Block_{i}`` to ``blocks.{i}``, in
+    which ``Conv_j`` and ``BatchNorm_j`` are ``conv_j`` and ``bn_j`` for
+    the main path's two (basic) or three (bottleneck) convs, and the next
+    ones, where the block projects its input, ``proj`` and ``proj_bn``;
+    ``head`` to ``head``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats")
+
+    def sub(tree, name):
+        return None if tree is None else tree[name]
+
+    state = {"conv_init.weight": _conv(params["conv_init"]["kernel"])}
+    _batch_norm(state, "bn_init", params["BatchNorm_0"],
+                sub(stats, "BatchNorm_0"))
+    _dense(state, "head", params["head"])
+    blocks = [(int(m.group(2)), m.group(1), name) for name in params
+              if (m := _BLOCK.match(name))]
+    for i, kind, name in sorted(blocks):
+        n_convs = 3 if kind == "Bottleneck" else 2
+        bp, bs = params[name], sub(stats, name)
+        for j in range(n_convs + 1):
+            if f"Conv_{j}" not in bp:
+                continue
+            dst = f"blocks.{i}." + (f"conv_{j}" if j < n_convs else "proj")
+            state[f"{dst}.weight"] = _conv(bp[f"Conv_{j}"]["kernel"])
+            _batch_norm(state, f"blocks.{i}." + (
+                f"bn_{j}" if j < n_convs else "proj_bn"),
+                bp[f"BatchNorm_{j}"], sub(bs, f"BatchNorm_{j}"))
     return state

@@ -41,7 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch import resolve_device
-from raytpu_torch.models.common import (lecun_normal_, make_step,
+from raytpu_torch.models.common import (Dense, lecun_normal_, make_step,
                                         remat_call, remat_mode, write_kv)
 from raytpu_torch.ops.flash_attention import flash_attention
 from raytpu_torch.ops.paged_attention import paged_attention
@@ -94,21 +94,6 @@ class GPT2Config:
         per_block = 12 * c.n_embd * c.n_embd
         return c.vocab_size * c.n_embd + c.block_size * c.n_embd + \
             c.n_layer * per_block + 2 * c.n_embd
-
-
-class Dense(nn.Module):
-    """Flax ``nn.Dense(dtype=...)``: fp32 ``weight`` ``[out, in]`` and
-    ``bias``, both cast with the input to the compute dtype at use."""
-
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(n_out, n_in))
-        self.bias = nn.Parameter(torch.empty(n_out))
-        self.dtype = dtype
-
-    def forward(self, x):
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):

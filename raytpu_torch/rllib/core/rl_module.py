@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from raytpu_torch.models.common import lecun_normal_
+from raytpu_torch.models.common import lecun_normal_, same_padding
 
 Params = Dict[str, Any]  # name -> tensor; SAC: "pi"/"q1"/"q2" -> such dicts
 
@@ -137,12 +138,9 @@ class _PolicyValueNet(nn.Module):
         return logits, self.vf_out(v)[..., 0]
 
 
-def _same_padding(n: int, k: int = 3, s: int = 2) -> Tuple[int, int]:
-    """XLA's ``SAME`` padding of one spatial dim: the output has ceil(n /
-    s) places, and an odd total pads one more after than before (at
-    stride 2: H = 10 pads 0 above and 1 below, W = 5 one each side)."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
+# XLA's SAME padding of the torso's 3x3 stride-2 convs (at stride 2: H =
+# 10 pads 0 above and 1 below, W = 5 one each side).
+_same_padding = functools.partial(same_padding, k=3, s=2)
 
 
 class _ConvTorso(nn.Module):

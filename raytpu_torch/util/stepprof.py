@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -116,6 +117,7 @@ class StepProfiler:
                                tag_keys=("device",))
         self._flops: Dict[object, Optional[float]] = {}
         self._peak: Optional[float] = None
+        self._last_mark: Optional[float] = None
         self._lock = threading.Lock()
 
     # -- FLOPs accounting --------------------------------------------------
@@ -155,6 +157,15 @@ class StepProfiler:
         if flops:
             self._mfu.set(min(1.0, float(flops) / dt_s /
                               self.peak_flops()))
+
+    def mark(self) -> Optional[float]:
+        """Interval timing for loops with no explicit step boundary
+        (train ``session.report``): returns the seconds since the last
+        mark, or None on the first call."""
+        now = time.perf_counter()
+        with self._lock:
+            last, self._last_mark = self._last_mark, now
+        return (now - last) if last is not None else None
 
     def observe_hbm(self, device: torch.device) -> None:
         """Device-memory gauges of ``device`` from the caching

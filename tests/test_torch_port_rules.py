@@ -30,6 +30,12 @@ UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
 # The port's runtime layer and the JAX modules whose calls it copies.
 RUNTIME_MODULES = ("core.errors", "runtime.api")
 
+# The Train library and its models, each with its JAX module.
+TRAIN_MODULES = ("train/__init__.py", "train/config.py",
+                 "train/checkpoint.py", "train/session.py",
+                 "train/trainer.py", "train/torch_trainer.py",
+                 "models/mlp.py", "models/resnet.py")
+
 # Run in a fresh interpreter: this test process has JAX loaded
 # (tests/conftest.py imports it).
 _IMPORT_ALL = """
@@ -56,6 +62,8 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     assert "raytpu_torch.inference.engine" in loaded
     assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
     assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES} <= set(loaded)
+    assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
+        ".__init__", "") for m in TRAIN_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -175,6 +183,74 @@ def test_runner_processes_raise_without_a_card(monkeypatch):
     assert {p.pid for p in multiprocessing.active_children()} <= before
 
 
+def test_train_modules_are_held_to_the_rules():
+    # The AST scan and the fresh-interpreter import above cover them.
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for name in TRAIN_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    # The models, a CUDA gang (before any process starts) and a worker
+    # asked for a card where there is none all raise; none moves to the
+    # CPU on its own.
+    import multiprocessing
+
+    from raytpu_torch import train
+    from raytpu_torch.models import MLPClassifier, ResNet, ResNetConfig
+    from raytpu_torch.train.trainer import TrainWorker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MLPClassifier()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResNet(ResNetConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainWorker(0, 1, {}, "cuda")
+    before = {p.pid for p in multiprocessing.active_children()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.DataParallelTrainer(
+            report_forbidden, run_config=train.RunConfig(
+                storage_path=str(tmp_path))).fit()
+    assert {p.pid for p in multiprocessing.active_children()} <= before
+    assert MLPClassifier(device="cpu").head.weight.device.type == "cpu"
+    assert TrainWorker(0, 1, {}, "cpu").context.device.type == "cpu"
+
+
+def report_forbidden(config):
+    """A train loop: reports the forbidden modules its worker has
+    loaded."""
+    from raytpu_torch import train
+
+    train.report({"forbidden": sorted(m for m in sys.modules
+                                      if _forbidden(m))})
+
+
+def test_train_workers_import_no_jax_and_nothing_of_raytpu(tmp_path):
+    import multiprocessing
+    import threading
+
+    from raytpu_torch import train
+
+    before = {p.pid for p in multiprocessing.active_children()}
+    gang = train.DataParallelTrainer(
+        report_forbidden,
+        scaling_config=train.ScalingConfig(num_workers=2, device="cpu"),
+        run_config=train.RunConfig(storage_path=str(tmp_path)))
+    out = []
+    fit = threading.Thread(target=lambda: out.append(gang.fit()),
+                           daemon=True)
+    fit.start()
+    fit.join(180)  # a hang fails here, not at the suite's limit
+    assert not fit.is_alive()
+    [result] = out
+    assert result.error is None
+    assert result.metrics["forbidden"] == []
+    assert {p.pid for p in multiprocessing.active_children()} <= before
+
+
 # The JAX package's RL modules, each with its port (raytpu_torch/rllib).
 RL_MODULES = ("env/envs.py", "env/gym_adapter.py", "env/env_runner.py",
               "utils/replay_buffer.py", "connectors.py", "core/rl_module.py",
@@ -218,7 +294,7 @@ def test_every_model_module_is_held_to_the_rules():
     # module of the package, the Mixtral port's included.
     models = {p.name for p in PORT_FILES if p.parent.name == "models"}
     assert {"gpt2.py", "llama.py", "mixtral.py", "common.py",
-            "convert.py"} <= models
+            "convert.py", "mlp.py", "resnet.py"} <= models
 
 
 def test_kernel_sources_and_hopper_build_command():
