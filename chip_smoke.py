@@ -124,7 +124,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     launches of all five kernels; two decode steps inside
     ``tracing.profile`` whose trace names the paged and RMSNorm kernels.
     Readings: the per-token cost of all hooks and of each alone, each
-    run beside a run with everything off, over ten rounds in turns; the
+    run beside a run with everything off, over eight rounds in turns; the
     same for single decode steps of eight in one engine; and the hooks'
     host µs a decode step;
 22. RL with remote runners (run after phase 18): PPO at phase 16's
@@ -157,7 +157,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     resumed first loss is within 1e-3 of the first run's next one;
     ResNet-50's loss is finite, its running statistics moved and its
     conv weights are ``channels_last`` on the card; and no worker process
-    is left.
+    is left;
+24. serve app (run after phase 20, once this process holds no Llama):
+    Llama-2-7B at full width and depth (bf16, kernels on, phase 19's
+    engine, seed 0) as two replica processes behind ``serve.run``, phase
+    19's eight prompts and a stream closed after 4 tokens from client
+    threads through ``handle.generate.remote_streaming``. Fails unless
+    every stream takes its tokens (their agreement with phase 5's is
+    reported, as phase 19 does), the closed stream's replica holds no
+    page after it, the second of two prompts sharing a fresh 160-token
+    prefix goes to the replica that holds it (prefix routing on), this
+    process launches no kernel while each replica launches paged
+    attention, the flash forward and RMSNorm (65 a forward), every
+    replica runs on the card without JAX, a replica killed by its pid
+    ends its open stream with ActorDiedError and is replaced by the
+    controller, after which a request streams, and ``serve.shutdown()``
+    leaves no replica process. Readings: each replica's start (spawn to
+    ready; the replacement's too), client TTFT and the decode rate beside
+    phase 19's, the router's pick (probes included) a request, each
+    replica's peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -2284,7 +2302,7 @@ def phase_disagg(card_line: str) -> dict:
 # adjacent pair a flag arm: off then on in even rounds, on then off in
 # odd ones (off, on, on, off, ...), so each arm is read against an off run
 # beside it, first as often as second.
-OBS_ROUNDS = 10
+OBS_ROUNDS = 8
 OBS_ARMS = {"off": (False, False, False), "all": (True, True, True),
             "events": (True, False, False), "spans": (False, True, False),
             "profiler": (False, False, True)}
@@ -4600,6 +4618,334 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
 
 
 
+# ---- phase 24: serve app ---------------------------------------------
+
+SERVE_APP = "serve-app"
+SERVE_APP_REPLICAS = 2
+# Health checks every half second: the killed replica is seen within one,
+# and prefix summaries reach the router on the same beat.
+SERVE_APP_HEALTH_S = 0.5
+# Any replica start (spawn, imports, Llama-2-7B's weights) or stream of
+# this phase ends within this.
+SERVE_APP_DEADLINE_S = 600.0
+PREFIX_PAIR_TOKENS = 160  # 10 full pages shared by the pair, then a tail
+SERVE_APP_DEVICE = "cuda:0"  # where every replica's deployment must run
+
+
+def replica_report(replica) -> dict:
+    """Run inside a replica process (``runtime.call`` on its
+    ``Replica``): the process facts, the engine's stats, the prefix
+    cache's process-wide counters, the device of the deployment and the
+    allocator's peak."""
+    from raytpu_torch.inference import prefix_cache
+
+    dep = replica._callable
+    return {**process_facts(), "stats": dep.stats(),
+            "prefix_hits": prefix_cache._hits_total.value,
+            "device": str(dep.device),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
+
+
+def replica_reset_counters(replica) -> None:
+    """Run inside a replica process: set its kernel counters to 0."""
+    _reset_counters()
+
+
+def replica_idle(replica) -> dict:
+    """Run inside a replica process: its deployment's idle snapshot, no
+    page held (``wait_idle``)."""
+    return wait_idle(replica._callable)
+
+
+def serve_app_streams(handle, prompts: dict, closed: list) -> dict:
+    """Phase 19's traffic through the serve app: each prompt on its own
+    client thread through ``remote_streaming`` with SERVE_NEW_TOKENS
+    greedy tokens, arriving by events (p0-p3 at once, p4, p5 and the
+    ``closed`` stream, closed after CLOSED_AFTER tokens, at p1's first
+    token, p6 and p7 at p4's); client TTFT from the call to the first
+    token, routing included."""
+    tokens = {rid: [] for rid in [*prompts, "closed"]}
+    started, first_at, errors = {}, {}, []
+    got = {rid: threading.Event() for rid in tokens}
+
+    def consume(rid, prompt, n):
+        started[rid] = time.perf_counter()
+        try:
+            gen = handle.generate.remote_streaming(prompt, max_new_tokens=n)
+            for tok in gen:
+                tokens[rid].append(tok)
+                if len(tokens[rid]) == 1:
+                    first_at[rid] = time.perf_counter()
+                if len(tokens[rid]) == (CLOSED_AFTER if rid == "closed"
+                                        else 1):
+                    got[rid].set()
+                if rid == "closed" and len(tokens[rid]) == CLOSED_AFTER:
+                    break
+            gen.close()  # the closed stream's cancel; a no-op on the rest
+        except Exception as exc:  # reported below, not lost in the thread
+            errors.append((rid, repr(exc)))
+            got[rid].set()
+
+    def arrive(*rids):
+        out = []
+        for rid in rids:
+            prompt, n = ((prompts[rid], SERVE_NEW_TOKENS) if rid in prompts
+                         else (closed, OPEN_ENDED))
+            t = threading.Thread(target=consume, args=(rid, prompt, n),
+                                 daemon=True)
+            t.start()
+            out.append(t)
+        return out
+
+    def wait_for(rid):
+        if not got[rid].wait(STREAM_DEADLINE_S):
+            raise AssertionError(f"{rid}: no token within "
+                                 f"{STREAM_DEADLINE_S} s")
+
+    t0 = time.perf_counter()
+    threads = arrive("p0", "p1", "p2", "p3")
+    wait_for("p1")
+    threads += arrive("p4", "p5", "closed")
+    wait_for("p4")
+    threads += arrive("p6", "p7")
+    for t in threads:
+        t.join(timeout=STREAM_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"streams failed or hung: {errors}")
+    ttft = [first_at[r] - started[r] for r in prompts]
+    return {"tokens": tokens, "wall_s": wall,
+            "client_ttft_p50_s": float(np.percentile(ttft, 50)),
+            "client_ttft_p95_s": float(np.percentile(ttft, 95)),
+            "client_tokens_per_s": sum(len(tokens[r]) for r in prompts)
+            / wall}
+
+
+def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
+    """Llama-2-7B (full width and depth, bf16, kernels on, phase 5's
+    engine, seed 0) as two replica processes behind ``serve.run``, and
+    phase 19's streams from client threads through ``remote_streaming``.
+    Fails unless every stream takes its tokens (phase 19's rule, and
+    agreement with phase 5 reported), the stream closed after 4 tokens
+    leaves no page held in its replica, the second of a pair of prompts
+    sharing a fresh prefix goes to the replica that holds it (prefix
+    routing on), this process launches no kernel while each replica
+    launches paged attention, the flash forward and RMSNorm (65 a
+    forward), no replica loads JAX, a replica killed by its pid ends its
+    open stream with ActorDiedError and is replaced by the controller,
+    after which a request streams, and ``serve.shutdown()`` leaves no
+    replica process. Readings: each replica's start (spawn to ready, the
+    replacement's too), client TTFT and the decode rate beside phase 19's
+    in-process deployment, the router's probe cost a request, and each
+    replica's peak memory."""
+    import multiprocessing
+    import signal
+
+    from raytpu_torch import runtime
+    from raytpu_torch import serve as port_serve
+    from raytpu_torch.cluster import constants as tuning
+    from raytpu_torch.core.errors import ActorDiedError
+    from raytpu_torch.models.llama import LlamaConfig
+    from raytpu_torch.serve._private import prefix_router
+    from raytpu_torch.serve._private import router as router_mod
+    from raytpu_torch.serve._private.controller import get_controller
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {p.pid for p in multiprocessing.active_children()}
+    _reset_counters()  # this process must launch none in this phase
+    cfg = LlamaConfig.llama2_7b()
+    prompts = serve_prompts(np.random.default_rng(1), cfg.vocab_size)
+    rng = np.random.default_rng(24)
+    closed = rng.integers(0, cfg.vocab_size, 100).tolist()
+    pair_prefix = rng.integers(0, cfg.vocab_size,
+                               PREFIX_PAIR_TOKENS).tolist()
+    pair = [pair_prefix + rng.integers(0, cfg.vocab_size, 7).tolist()
+            for _ in range(2)]
+    killed_prompt = rng.integers(0, cfg.vocab_size, 64).tolist()
+    full_name = f"{SERVE_APP}#LLMDeployment"
+
+    # The router's pick of a replica (probes included), timed a request.
+    choose, probe_s = router_mod.Router._choose, []
+
+    def timed_choose(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return choose(self, *a, **kw)
+        finally:
+            probe_s.append(time.perf_counter() - t0)
+
+    router_mod.Router._choose = timed_choose
+    routing = tuning.PREFIX_ROUTING
+    try:
+        t0 = time.perf_counter()
+        handle = port_serve.run(
+            port_serve.LLMDeployment.options(
+                num_replicas=SERVE_APP_REPLICAS,
+                health_check_period_s=SERVE_APP_HEALTH_S).bind(
+                model="llama", model_config=cfg,
+                engine_options=DEPLOYMENT_ENGINE, seed=0),
+            name=SERVE_APP, route_prefix=None,
+            wait_for_ready_timeout_s=SERVE_APP_DEADLINE_S)
+        run_s = time.perf_counter() - t0
+        router = handle._get_router()
+        controller = get_controller()
+        starts = controller.call("replica_starts", full_name)
+        replicas = dict(controller.call("get_running_replicas", full_name))
+
+        def on_replicas(fn, reps=None):
+            reps = replicas if reps is None else reps
+            return dict(zip(reps, runtime.get(
+                [runtime.call(r, fn) for r in reps.values()],
+                timeout=SERVE_APP_DEADLINE_S)))
+
+        # -- the main path: phase 19's streams, counters 0 just before --
+        on_replicas(replica_reset_counters)
+        run = serve_app_streams(handle, prompts, closed)
+        reports = on_replicas(replica_report)
+        probes = list(probe_s)
+        idle = on_replicas(replica_idle)
+
+        # -- a pair of prompts sharing a fresh prefix --------------------
+        tuning.PREFIX_ROUTING = 1
+        first = list(handle.generate.remote_streaming(
+            pair[0], max_new_tokens=4))
+        mid = on_replicas(replica_report)
+        [warm] = [rid for rid in replicas
+                  if mid[rid]["stats"]["prefill_tokens"]
+                  > reports[rid]["stats"]["prefill_tokens"]]
+        digests = set(prefix_router.prompt_digests(
+            pair_prefix, DEPLOYMENT_ENGINE["page_size"]))
+        end = time.perf_counter() + SERVE_APP_DEADLINE_S
+        while not digests <= set((router._replica_set.pushed_summary(warm)
+                                  or {}).get("digests", ())):
+            if time.perf_counter() > end:
+                raise AssertionError("the warm replica's prefix summary "
+                                     "never reached the router")
+            time.sleep(0.05)
+        second = list(handle.generate.remote_streaming(
+            pair[1], max_new_tokens=4))
+        after = on_replicas(replica_report)
+        pair_hits = {rid: after[rid]["prefix_hits"] - mid[rid]["prefix_hits"]
+                     for rid in replicas}
+        tuning.PREFIX_ROUTING = routing
+
+        # -- a replica killed under an open stream, and replaced --------
+        gen = handle.generate.remote_streaming(killed_prompt,
+                                               max_new_tokens=OPEN_ENDED)
+        got = [next(gen), next(gen)]
+        running = on_replicas(replica_report)
+        [victim] = [rid for rid in replicas
+                    if running[rid]["stats"]["running"]]
+        os.kill(replicas[victim].pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        died = None
+        try:
+            for tok in gen:
+                got.append(tok)
+        except ActorDiedError as exc:
+            died = {"after_s": time.perf_counter() - t_kill,
+                    "tokens": len(got), "error": str(exc)[:200]}
+        end = time.perf_counter() + SERVE_APP_DEADLINE_S
+        while True:
+            now = dict(controller.call("get_running_replicas", full_name))
+            fresh = set(now) - set(replicas)
+            if len(now) == SERVE_APP_REPLICAS and fresh:
+                break
+            if time.perf_counter() > end:
+                raise AssertionError(f"the killed replica was not "
+                                     f"replaced: {sorted(now)}")
+            time.sleep(0.1)
+        [new] = fresh
+        replaced_after_s = time.perf_counter() - t_kill
+        restarts = controller.call("replica_starts", full_name)
+        after_kill = list(handle.generate.remote_streaming(
+            prompts["p2"], max_new_tokens=SERVE_NEW_TOKENS))
+        new_report = on_replicas(replica_report, {new: now[new]})[new]
+    finally:
+        router_mod.Router._choose = choose
+        tuning.PREFIX_ROUTING = routing
+        port_serve.shutdown()
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    parent = {name: c.count for name, c in kernel_counters().items()}
+    tokens = run.pop("tokens")
+    launches = {rid: rep["launches"] for rid, rep in reports.items()}
+    stats = {rid: rep["stats"] for rid, rep in reports.items()}
+    result = {
+        "model": "Llama-2-7B, 32 layers, bf16, random weights (seed 0)",
+        "engine": DEPLOYMENT_ENGINE, "replicas": SERVE_APP_REPLICAS,
+        "run_s": run_s, "start_s": starts,
+        "replacement": {"replica": new, "start_s": restarts[new],
+                        "replaced_after_kill_s": replaced_after_s,
+                        "stream_died": died,
+                        "tokens_after": len(after_kill)},
+        **run,
+        "decode_tokens_per_s": {
+            rid: s["decode_tokens"] / s["decode_seconds"]
+            if s["decode_seconds"] else 0.0 for rid, s in stats.items()},
+        "engine_ttft_p50_s": {rid: s["ttft_p50_s"]
+                              for rid, s in stats.items()},
+        "engine_ttft_p95_s": {rid: s["ttft_p95_s"]
+                              for rid, s in stats.items()},
+        "prefill_tokens": {rid: s["prefill_tokens"]
+                           for rid, s in stats.items()},
+        "phase19": {k: deployment[k] for k in (
+            "wall_s", "client_ttft_p50_s", "client_ttft_p95_s",
+            "decode_tokens_per_s")},
+        "probe_ms": quantiles_ms(probes),
+        "closed_tokens": len(tokens["closed"]), "idle": idle,
+        "prefix_pair": {"warm": warm, "hits": pair_hits,
+                        "tokens": [len(first), len(second)]},
+        "max_memory_allocated_gb": {
+            rid: rep["max_memory_allocated_gb"]
+            for rid, rep in {**reports, new: new_report}.items()},
+        "replica_launches": launches, "parent_launches": parent,
+        "replica_facts": {
+            rid: {k: rep[k] for k in ("pid", "forbidden", "main", "device")}
+            for rid, rep in {**reports, new: new_report}.items()},
+        "phase5_token_agreement": token_agreement(
+            {r: tokens[r] for r in prompts}, serve["tokens"]),
+        "replicas_left": left,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    result["launches"] = {name: sum(l[name] for l in launches.values())
+                          for name in parent}
+    log(f"[serve-app] {json.dumps(result)} | {card_line}")
+    short = {r: len(tokens[r]) for r in prompts
+             if len(tokens[r]) != SERVE_NEW_TOKENS}
+    if short:
+        raise AssertionError(f"streams without {SERVE_NEW_TOKENS} tokens: "
+                             f"{short}")
+    if len(tokens["closed"]) != CLOSED_AFTER:
+        raise AssertionError(f"the closed stream took "
+                             f"{len(tokens['closed'])} tokens")
+    for rid in replicas:
+        deployment_launches(launches[rid], forwards_of(stats[rid]),
+                            cfg.n_layer)
+    check_launches(parent, {name: 0 for name in parent})
+    for rid, rep in {**reports, new: new_report}.items():
+        if rep["forbidden"] or rep["device"] != SERVE_APP_DEVICE or (
+                rep["main"][1] == "chip_smoke.py"
+                and rep["main"][0] != "__mp_main__"):
+            raise AssertionError(f"replica {rid}: {rep}")
+    if pair_hits != {rid: int(rid == warm) for rid in replicas}:
+        raise AssertionError(f"the shared-prefix request did not go to the "
+                             f"warm replica {warm}: hits {pair_hits}")
+    if died is None:
+        raise AssertionError("the killed replica's stream did not end with "
+                             "ActorDiedError")
+    if len(after_kill) != SERVE_NEW_TOKENS:
+        raise AssertionError(f"after the replacement a stream took "
+                             f"{len(after_kill)} tokens")
+    if left:
+        raise AssertionError(f"replica processes left after "
+                             f"serve.shutdown(): {left}")
+    return result
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -4665,6 +5011,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     deployment = phase_deployment(card_line, serve)
     disagg = phase_disagg(card_line)
+    serve_app = phase_serve_app(card_line, serve, deployment)
     t0 = time.perf_counter()
     gpt2 = GPT2(GPT2Config.small(), device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -4713,6 +5060,7 @@ def main() -> int:
             "observability": observability["launches"],
             "deployment": deployment["launches"],
             "disagg": disagg["launches"],
+            "serve_app": serve_app["launches"],
             "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],

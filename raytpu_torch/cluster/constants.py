@@ -35,3 +35,16 @@ KV_HANDOFF_TTL_S = _f("KV_HANDOFF_TTL_S", 30.0)
 # the life of training (raytpu/core/config.py:344, torch_pg_timeout_s;
 # the reference train default, 30 min).
 TORCH_PG_TIMEOUT_S = _f("TORCH_PG_TIMEOUT_S", 1800.0)
+# Queue-length / prefix-summary probe budget for the serve router: a
+# replica that cannot answer within it scores worst-queue for the pick,
+# never idle (raytpu/cluster/constants.py:255).
+SERVE_PROBE_TIMEOUT_S = _f("SERVE_PROBE_TIMEOUT_S", 2.0)
+# Prefix-cache-aware routing master switch (0: blind power-of-two
+# choices), read at call time (raytpu/cluster/constants.py:259).
+PREFIX_ROUTING = _i("PREFIX_ROUTING", 0)
+# How long a router reuses a replica's prefix-summary probe
+# (raytpu/cluster/constants.py:262).
+PREFIX_SUMMARY_TTL_S = _f("PREFIX_SUMMARY_TTL_S", 1.0)
+# How old a controller-pushed prefix summary may be before a router
+# probes the replica instead (raytpu/cluster/constants.py:272).
+PREFIX_PUSH_MAX_AGE_S = _f("PREFIX_PUSH_MAX_AGE_S", 30.0)

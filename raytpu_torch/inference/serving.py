@@ -1,22 +1,28 @@
 """LLMDeployment: the inference engine behind a serve replica; the port
 of ``raytpu/inference/serving.py``.
 
-This is the replica body: the class the JAX package's serve fabric
-instantiates in each replica (``serve.LLMDeployment._target``). The port
-has no serve fabric yet (``@deployment``, ``.bind``, the router and the
-replica actor: ROADMAP.md), so it is a plain class that a caller builds
-and calls in one process, and a decode replica's prefill peer is any
-object with the ``kv_export_*`` trio (another ``LLMDeployment``, of
-either package).
+This is the replica body: the class the serve fabric instantiates in
+each replica process (``raytpu_torch.serve.LLMDeployment._target``, as
+``serve.LLMDeployment._target`` in the JAX package). Through serve, a
+client calls ``handle.generate.remote_streaming(prompt, ...)``: the
+router picks a replica, the replica's ``handle_request_streaming`` drains
+:meth:`LLMDeployment.generate` on its executor, and each token id crosses
+back as its own message of the port's runtime while the sequence still
+decodes. The class also stays a plain one that a caller builds and calls
+in one process; a decode replica's prefill peer is then any object with
+the ``kv_export_*`` trio (another ``LLMDeployment``, of either package).
+A prefill peer through serve (a handle in a replica's arguments) waits
+for handles across processes (ROADMAP.md).
 
 The engine is pumped by a REPLICA-OWNED background stepping loop: one
 daemon thread per replica steps the engine whenever any request is
 unfinished and parks on a condition variable otherwise. Request threads
 only drain their own buffers — a slow (or stalled) consumer never stalls
 other streams, and tokens keep decoding while nobody is pulling.
-Cancellation rides generator close: closing a stream (or dropping it)
-delivers GeneratorExit to :meth:`LLMDeployment.generate`'s frame, whose
-``finally`` aborts the request — freeing its KV pages. :meth:`abort`
+Cancellation rides generator close: closing a stream (or dropping it;
+through serve, the client's ``close()``, which the runtime carries to the
+replica) delivers GeneratorExit to :meth:`LLMDeployment.generate`'s
+frame, whose ``finally`` aborts the request — freeing its KV pages. :meth:`abort`
 ends a stream from outside it.
 
 As in the JAX package, an exception in the engine's step ends the loop's
@@ -44,12 +50,11 @@ wasted prefill in the goodput ledger, as the JAX package's replica does.
 
 from __future__ import annotations
 
-import contextvars
 import dataclasses
 import threading
 import uuid
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -58,18 +63,11 @@ from raytpu_torch.cluster import constants as tuning
 from raytpu_torch.inference import disagg
 from raytpu_torch.inference.engine import InferenceEngine
 from raytpu_torch.inference.sampling import SamplingParams
+# The ambient per-request context: a hosting replica sets it per request
+# ({"request_id", "deployment", "tenant"}); direct callers leave it empty.
+from raytpu_torch.serve._private.replica import (_request_context,  # noqa: F401
+                                                 get_request_context)
 from raytpu_torch.util import serve_slo, task_events
-
-# Ambient per-request context, the port's copy of
-# raytpu/serve/_private/replica.py:23-30: a hosting replica sets it per
-# request ({"request_id", "deployment", "tenant"}); direct callers leave it
-# empty.
-_request_context: contextvars.ContextVar[Dict[str, Any]] = \
-    contextvars.ContextVar("raytpu_torch_serve_request_context", default={})
-
-
-def get_request_context() -> Dict[str, Any]:
-    return _request_context.get()
 
 
 class _HandoffLock:
@@ -181,11 +179,15 @@ class LLMDeployment:
             with the ``kv_export_*`` trio.
         device: ``cuda`` unless ``"cpu"`` is asked for; raises without a
             card.
+        state_dict: weights loaded into the model after it is built (a
+            dict of CPU tensors, as ``models/convert.py`` makes from the
+            JAX package's parameters); None keeps the seed's.
     """
 
     def __init__(self, model: str = "llama", model_config=None,
                  engine_options: Optional[dict] = None, seed: int = 0,
-                 role: Optional[str] = None, prefill=None, device=None):
+                 role: Optional[str] = None, prefill=None, device=None,
+                 state_dict: Optional[dict] = None):
         self.device = resolve_device(device)
         cfg_cls, model_cls = _model_family(model)
         if model_config is None:
@@ -200,9 +202,11 @@ class LLMDeployment:
             raise ValueError(f"unknown replica role: {role!r}")
         self._role = role
         self._prefill = prefill
-        self._engine = InferenceEngine(
-            model_cls(model_config, device=self.device, seed=seed),
-            device=self.device, **(engine_options or {}))
+        net = model_cls(model_config, device=self.device, seed=seed)
+        if state_dict is not None:
+            net.load_state_dict(state_dict)
+        self._engine = InferenceEngine(net, device=self.device,
+                                       **(engine_options or {}))
         self._handoff_source = disagg.KVHandoffSource(self._engine)
         # One condition serializes engine mutation (add/abort/step) and
         # carries wakeups both ways: producers signal "new work" to the

@@ -1,20 +1,34 @@
 """The port's worker-process layer: actors on ``torch.multiprocessing``.
 
-The calls of :mod:`raytpu.runtime.api` that the RL code uses, with their
-shape: ``remote(cls)`` and ``.options(num_cpus=...)``, then
-``.remote(*args)`` to start one **spawned** process that holds one
-instance; ``handle.method.remote(*args, **kwargs)`` returns an
-:class:`ObjectRef`, a future; ``put``, ``get``, ``wait`` and ``kill``.
+The calls of :mod:`raytpu.runtime.api` that the port's libraries use,
+with their shape: ``remote(cls)`` and ``.options(num_cpus=...,
+max_concurrency=...)``, then ``.remote(*args)`` to start one **spawned**
+process that holds one instance; ``handle.method.remote(*args,
+**kwargs)`` returns an :class:`ObjectRef`, a future;
+``handle.method.options(num_returns="streaming").remote(...)`` returns an
+:class:`~raytpu_torch.runtime.generator.ObjectRefGenerator`; ``put``,
+``get``, ``wait`` and ``kill``.
 
 What it keeps of the JAX package's semantics:
 
-- calls on one handle run in the order they were submitted, one at a time
-  (the JAX actor's ``max_concurrency=1``);
+- a worker reads every call as it arrives. Sync methods run on a pool of
+  ``max_concurrency`` threads; coroutine methods (async generators
+  included) on one event loop thread, at most ``max_concurrency`` at a
+  time. With ``max_concurrency=1``, the default, calls on one handle run
+  in the order they were submitted, one at a time, each on the same
+  thread (the JAX actor's default);
+- a generator method called with ``num_returns="streaming"`` (sync or
+  async) sends each value it yields as its own message the moment it is
+  produced, then an end message, or the error in its place; the caller's
+  ``close()`` sends a cancel, which closes the generator in the worker so
+  that its ``finally`` runs (a sync generator blocked inside ``next()``
+  is closed when that ``next()`` returns);
 - a method that raises gives :class:`TaskError` at ``get``, with the
   worker's traceback in its message, and the worker goes on serving;
 - a worker that exits (killed, crashed, or its constructor raised) makes
   every call on it that has no result yet *ready*: ``wait`` returns it,
-  and ``get`` raises :class:`ActorDiedError`. The death is seen at the
+  and ``get`` raises :class:`ActorDiedError`; a stream on it ends with
+  that error once the values it sent are taken. The death is seen at the
   pipe's EOF, or, should that not come, from the process's exit code
   after :data:`EXIT_GRACE_S`: never a hang;
 - ``get`` with a ``timeout`` raises :class:`GetTimeoutError`; ``wait``
@@ -23,7 +37,7 @@ What it keeps of the JAX package's semantics:
   sent;
 - ``kill``, dropping the last handle, and interpreter exit all end the
   process (``weakref.finalize``): no child outlives its parent. A child
-  whose parent dies reads EOF and exits.
+  whose parent dies reads EOF and exits once its calls in flight end.
 
 What crosses: arguments and results are pickled with
 ``multiprocessing``'s pickler, so CPU tensors travel through shared
@@ -35,19 +49,21 @@ value holds.
 
 What it leaves out: no object store (a ref's value lives in the caller,
 or in the worker's reply), no tasks (functions), no placement groups, no
-retries or restarts, no named or detached actors, no async actors, no
-cluster. ``num_cpus`` is the only option: it sets the child's torch
-threads; any other option raises. Arguments, results and the class go by
-pickle, so a class or function must be importable by name in the child
-(defined at a module's top level, and a script that starts workers keeps
-its entry point under ``if __name__ == "__main__"``). :func:`call` runs a
-module-level function on the instance inside the worker (Ray's
-``__ray_call__``), for callers that need to reach into a worker without
-adding a method to its class.
+retries or restarts, no named or detached actors, no streaming
+backpressure, no cluster. ``num_cpus`` (the child's torch threads) and
+``max_concurrency`` are the only options; any other option raises.
+Arguments, results and the class go by pickle, so a class or function
+must be importable by name in the child (defined at a module's top
+level, and a script that starts workers keeps its entry point under ``if
+__name__ == "__main__"``). :func:`call` runs a module-level function on
+the instance inside the worker (Ray's ``__ray_call__``), for callers that
+need to reach into a worker without adding a method to its class.
 """
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
 import functools
 import inspect
 import itertools
@@ -57,7 +73,8 @@ import threading
 import time
 import uuid
 import weakref
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.multiprocessing as mp
@@ -72,8 +89,14 @@ EXIT_GRACE_S = 2.0
 _POLL_S = 0.05
 # How long kill() waits for the process to be reaped.
 _REAP_S = 10.0
-OPTIONS = ("num_cpus",)
+OPTIONS = ("num_cpus", "max_concurrency")
 _ALIGN = 64  # bytes: each packed tensor starts on a cache line
+
+# Messages to a worker: (kind, call id, pickled (method, args, kwargs)).
+_CALL, _STREAM, _CANCEL = "call", "stream", "cancel"
+# Messages from a worker: (call id, status, pickled value). A call gets
+# one _OK or _ERR; a stream any number of _ITEM, then _END or _ERR.
+_OK, _ERR, _ITEM, _END = 0, 1, 2, 3
 
 # Every reply lands under this condition; get and wait sleep on it.
 _READY = threading.Condition(threading.RLock())
@@ -86,54 +109,184 @@ def _dumps(obj) -> bytes:
 # ---- the child ---------------------------------------------------------
 
 
-def _reply(conn, call_id: int, ok: bool, value) -> bool:
-    """Send one reply; a value that does not pickle becomes a TaskError.
-    False when the parent is gone."""
-    try:
-        blob = _dumps(value)
-    except Exception as exc:  # the method's result cannot cross
-        ok, blob = False, _dumps(TaskError.from_exception(
-            f"pickling the result of call {call_id}", exc))
-    try:
-        conn.send((call_id, ok, blob))
-    except (BrokenPipeError, OSError):
-        return False
-    return True
+class _Host:
+    """The worker's side: the instance, the pipe (one lock over its
+    sends), a pool of ``max_concurrency`` threads for sync methods, an
+    event loop thread for coroutine methods (started at the first one),
+    and a cancel for every stream in flight."""
 
+    def __init__(self, conn, name: str, instance, max_concurrency: int):
+        self._conn = conn
+        self._name = name
+        self._instance = instance
+        self._max_concurrency = max_concurrency
+        self._send_lock = threading.Lock()
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=max_concurrency, thread_name_prefix=f"{name}-call")
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._slots: Optional[asyncio.Semaphore] = None
+        self._tasks: set = set()  # strong refs: the loop holds tasks weakly
+        self._cancels: Dict[int, Callable[[], Any]] = {}
+        self._cancels_lock = threading.Lock()
 
-def _worker_main(conn, name: str, blob: bytes, num_threads: int) -> None:
-    """The body of a worker process: build the instance, then serve calls
-    in the order they arrive until the parent closes the pipe."""
-    torch.set_num_threads(num_threads)
-    try:
-        cls, args, kwargs = pickle.loads(blob)
-        instance = cls(*args, **kwargs)
-    except Exception as exc:
-        _reply(conn, 0, False, TaskError.from_exception(f"{name}.__init__",
-                                                        exc))
-        return
-    if not _reply(conn, 0, True, None):
-        return
-    while True:
+    def send(self, call_id: int, status: int, value) -> bool:
+        """Send one message; a value that does not pickle becomes a
+        TaskError (and False, which ends a stream). False also when the
+        parent is gone."""
+        ok = True
         try:
-            call_id, blob = conn.recv()
-        except (EOFError, OSError):
-            return  # the parent is gone
-        method = f"call {call_id}"
+            blob = _dumps(value)
+        except Exception as exc:  # the method's result cannot cross
+            ok, status, blob = False, _ERR, _dumps(TaskError.from_exception(
+                f"pickling a result of call {call_id}", exc))
+        try:
+            with self._send_lock:
+                self._conn.send((call_id, status, blob))
+        except (BrokenPipeError, OSError):
+            return False
+        return ok
+
+    def serve(self) -> None:
+        """Read calls until the parent closes the pipe; then cancel every
+        stream and let the calls in flight end."""
+        while True:
+            try:
+                kind, call_id, blob = self._conn.recv()
+            except (EOFError, OSError):
+                break  # the parent is gone
+            if kind == _CANCEL:
+                self._cancel(call_id)
+            else:
+                self._dispatch(kind, call_id, blob)
+        for call_id in list(self._cancels):
+            self._cancel(call_id)
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    def _cancel(self, call_id: int) -> None:
+        with self._cancels_lock:
+            cancel = self._cancels.pop(call_id, None)
+        if cancel is not None:
+            cancel()
+
+    def _dispatch(self, kind: str, call_id: int, blob: bytes) -> None:
+        label = f"call {call_id}"
         try:
             method, args, kwargs = pickle.loads(blob)
-            args = [_unpacked(a) for a in args]
-            kwargs = {k: _unpacked(v) for k, v in kwargs.items()}
-            fn = (getattr(instance, method) if isinstance(method, str)
-                  else functools.partial(method, instance))
-            ok, value = True, fn(*args, **kwargs)
-        except Exception as exc:
             label = method if isinstance(method, str) else getattr(
                 method, "__name__", repr(method))
-            ok, value = False, TaskError.from_exception(f"{name}.{label}",
-                                                        exc)
-        if not _reply(conn, call_id, ok, value):
+            args = [_unpacked(a) for a in args]
+            kwargs = {k: _unpacked(v) for k, v in kwargs.items()}
+            fn = (getattr(self._instance, method) if isinstance(method, str)
+                  else functools.partial(method, self._instance))
+        except Exception as exc:
+            self.send(call_id, _ERR, TaskError.from_exception(
+                f"{self._name}.{label}", exc))
             return
+        label = f"{self._name}.{label}"
+        if kind == _STREAM:
+            if inspect.isasyncgenfunction(fn):
+                fut = self._on_loop(self._stream_async(call_id, label, fn,
+                                                       args, kwargs))
+                self._register(call_id, fut.cancel)
+            else:
+                stop = threading.Event()
+                self._register(call_id, stop.set)
+                self._pool.submit(self._stream_sync, call_id, label, stop,
+                                  fn, args, kwargs)
+        elif inspect.iscoroutinefunction(fn):
+            self._on_loop(self._call_async(call_id, label, fn, args, kwargs))
+        else:
+            self._pool.submit(self._call_sync, call_id, label, fn, args,
+                              kwargs)
+
+    def _register(self, call_id: int, cancel) -> None:
+        with self._cancels_lock:
+            self._cancels[call_id] = cancel
+
+    def _done(self, call_id: int) -> None:
+        with self._cancels_lock:
+            self._cancels.pop(call_id, None)
+
+    def _on_loop(self, coro) -> concurrent.futures.Future:
+        if self._loop is None:  # only the reader thread gets here
+            self._loop = asyncio.new_event_loop()
+            self._slots = asyncio.Semaphore(self._max_concurrency)
+            threading.Thread(target=self._loop.run_forever,
+                             name=f"{self._name}-loop", daemon=True).start()
+        return asyncio.run_coroutine_threadsafe(coro, self._loop)
+
+    def _call_sync(self, call_id, label, fn, args, kwargs) -> None:
+        try:
+            status, value = _OK, fn(*args, **kwargs)
+        except Exception as exc:
+            status, value = _ERR, TaskError.from_exception(label, exc)
+        self.send(call_id, status, value)
+
+    async def _call_async(self, call_id, label, fn, args, kwargs) -> None:
+        self._tasks.add(asyncio.current_task())
+        try:
+            async with self._slots:
+                status, value = _OK, await fn(*args, **kwargs)
+        except Exception as exc:
+            status, value = _ERR, TaskError.from_exception(label, exc)
+        finally:
+            self._tasks.discard(asyncio.current_task())
+        self.send(call_id, status, value)
+
+    def _stream_sync(self, call_id, label, stop: threading.Event, fn, args,
+                     kwargs) -> None:
+        gen = None
+        try:
+            if stop.is_set():
+                return
+            gen = fn(*args, **kwargs)
+            for value in gen:
+                if not self.send(call_id, _ITEM, value) or stop.is_set():
+                    return
+            self.send(call_id, _END, None)
+        except Exception as exc:
+            self.send(call_id, _ERR, TaskError.from_exception(label, exc))
+        finally:
+            self._done(call_id)
+            close = getattr(gen, "close", None)
+            if close is not None:
+                close()  # a cancelled generator's finally runs here
+
+    async def _stream_async(self, call_id, label, fn, args, kwargs) -> None:
+        self._tasks.add(asyncio.current_task())
+        try:
+            async with self._slots:
+                agen = fn(*args, **kwargs)
+                try:
+                    async for value in agen:
+                        if not self.send(call_id, _ITEM, value):
+                            return
+                    self.send(call_id, _END, None)
+                finally:
+                    await agen.aclose()
+        except asyncio.CancelledError:
+            pass  # the caller closed the stream: this task was cancelled
+        except Exception as exc:
+            self.send(call_id, _ERR, TaskError.from_exception(label, exc))
+        finally:
+            self._done(call_id)
+            self._tasks.discard(asyncio.current_task())
+
+
+def _worker_main(conn, name: str, blob: bytes, num_threads: int,
+                 max_concurrency: int) -> None:
+    """The body of a worker process: build the instance, then serve calls
+    until the parent closes the pipe."""
+    torch.set_num_threads(num_threads)
+    host = _Host(conn, name, None, max_concurrency)
+    try:
+        cls, args, kwargs = pickle.loads(blob)
+        host._instance = cls(*args, **kwargs)
+    except Exception as exc:
+        host.send(0, _ERR, TaskError.from_exception(f"{name}.__init__", exc))
+        return
+    if host.send(0, _OK, None):
+        host.serve()
 
 
 # ---- the parent --------------------------------------------------------
@@ -142,15 +295,18 @@ def _worker_main(conn, name: str, blob: bytes, num_threads: int) -> None:
 class _Worker:
     """The parent's side of one worker process: the pipe, a thread that
     reads every reply as it comes (so the child never blocks on a full
-    pipe), and the replies still wanted."""
+    pipe), the replies still wanted, and the values of every open stream
+    not yet taken."""
 
-    def __init__(self, cls, args, kwargs, num_threads: int):
+    def __init__(self, cls, args, kwargs, num_threads: int,
+                 max_concurrency: int = 1):
         self.name = f"{cls.__name__}-{uuid.uuid4().hex[:8]}"
         blob = _dumps((cls, args, kwargs))  # a bad argument raises here
         ctx = mp.get_context("spawn")
         self._conn, child = ctx.Pipe()
         self.proc = ctx.Process(target=_worker_main,
-                                args=(child, self.name, blob, num_threads),
+                                args=(child, self.name, blob, num_threads,
+                                      max_concurrency),
                                 name=self.name, daemon=True)
         self.proc.start()
         child.close()  # the child's end lives in the child only: EOF
@@ -158,6 +314,7 @@ class _Worker:
         self._send_lock = threading.Lock()
         self._wanted: set = set()
         self._results: Dict[int, Tuple[bool, Any]] = {}
+        self.streams: Dict[int, deque] = {}  # call id: (status, value)s
         self.started: Optional[Tuple[bool, Any]] = None
         self.dead: Optional[str] = None
         self._stop_reason: Optional[str] = None
@@ -170,20 +327,22 @@ class _Worker:
     def _read_loop(self) -> None:
         while True:
             try:
-                call_id, ok, blob = self._conn.recv()
+                call_id, status, blob = self._conn.recv()
             except (EOFError, OSError):
                 break
             try:
                 value = pickle.loads(blob)
             except Exception as exc:  # e.g. a class the parent cannot import
-                ok, value = False, TaskError.from_exception(
-                    f"{self.name}: unpickling the result of call {call_id}",
+                status, value = _ERR, TaskError.from_exception(
+                    f"{self.name}: unpickling a result of call {call_id}",
                     exc)
             with _READY:
                 if call_id == 0:
-                    self.started = (ok, value)
+                    self.started = (status == _OK, value)
+                elif call_id in self.streams:
+                    self.streams[call_id].append((status, value))
                 elif call_id in self._wanted:
-                    self._results[call_id] = (ok, value)
+                    self._results[call_id] = (status == _OK, value)
                 _READY.notify_all()
         self.proc.join(timeout=_REAP_S)
         self._mark_dead(None)
@@ -209,19 +368,42 @@ class _Worker:
             self._mark_dead(None)
 
     def submit(self, method, args, kwargs) -> "ObjectRef":
+        return ObjectRef(self, self._send_call(_CALL, method, args, kwargs))
+
+    def submit_stream(self, method, args, kwargs):
+        from raytpu_torch.runtime.generator import ObjectRefGenerator
+
+        return ObjectRefGenerator(self, self._send_call(_STREAM, method,
+                                                        args, kwargs))
+
+    def _send_call(self, kind: str, method, args, kwargs) -> int:
         args = tuple(_resolve(a) for a in args)
         kwargs = {k: _resolve(v) for k, v in kwargs.items()}
         blob = _dumps((method, args, kwargs))  # a bad argument raises here
         with _READY:
             call_id = next(self._ids)
-            self._wanted.add(call_id)
-        ref = ObjectRef(self, call_id)
+            if kind == _STREAM:
+                self.streams[call_id] = deque()
+            else:
+                self._wanted.add(call_id)
+        self._send((kind, call_id, blob))
+        return call_id
+
+    def _send(self, message) -> None:
         try:
             with self._send_lock:
-                self._conn.send((call_id, blob))
+                self._conn.send(message)
         except (BrokenPipeError, OSError):
             pass  # the worker is gone: the reader marks it dead at EOF
-        return ref
+
+    def cancel(self, call_id: int) -> None:
+        """Close a stream: drop what it sent and has not been taken, and
+        tell the worker to close its generator."""
+        with _READY:
+            if self.streams.pop(call_id, None) is None:
+                return
+        if self.dead is None:
+            self._send((_CANCEL, call_id, None))
 
     def forget(self, call_id: int) -> None:
         with _READY:
@@ -289,18 +471,50 @@ class ObjectRef:
 
 def _resolve(arg):
     """A top-level argument as it crosses: a put's packed value (unpacked
-    in the worker), a call's result, anything else as it is."""
+    in the worker), a stream's value or a call's result, anything else as
+    it is."""
     if not isinstance(arg, ObjectRef):
         return arg
-    return arg._value if arg._worker is None else get(arg)
+    if arg._worker is None and isinstance(arg._value, _Packed):
+        return arg._value
+    return get(arg)
+
+
+class _Value:
+    """What a ref to a value already in hand (a stream's) holds."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+    def unpack(self):
+        return self.value
 
 
 class _Method:
-    def __init__(self, worker: _Worker, name: str):
+    def __init__(self, worker: _Worker, name: str, num_returns=1):
         self._worker = worker
         self._name = name
+        self._num_returns = num_returns
 
-    def remote(self, *args, **kwargs) -> ObjectRef:
+    def options(self, **options) -> "_Method":
+        """``num_returns=1`` (a future) or ``"streaming"`` (an
+        :class:`~raytpu_torch.runtime.generator.ObjectRefGenerator`);
+        any other option raises."""
+        unknown = sorted(set(options) - {"num_returns"})
+        if unknown:
+            raise ValueError(f"method options {unknown}: the port's runtime "
+                             f"takes only num_returns")
+        num_returns = options.get("num_returns", self._num_returns)
+        if num_returns not in (1, "streaming"):
+            raise ValueError(f"num_returns={num_returns!r}: the port's "
+                             f"runtime takes 1 or 'streaming'")
+        return _Method(self._worker, self._name, num_returns)
+
+    def remote(self, *args, **kwargs):
+        if self._num_returns == "streaming":
+            return self._worker.submit_stream(self._name, args, kwargs)
         return self._worker.submit(self._name, args, kwargs)
 
 
@@ -333,8 +547,8 @@ class ActorHandle:
 
 
 class RemoteClass:
-    """What :func:`remote` makes of a class: ``.options(num_cpus=...)``
-    and ``.remote(*args, **kwargs)``."""
+    """What :func:`remote` makes of a class: ``.options(num_cpus=...,
+    max_concurrency=...)`` and ``.remote(*args, **kwargs)``."""
 
     def __init__(self, cls, options: Optional[Dict[str, Any]] = None):
         options = dict(options or {})
@@ -346,21 +560,28 @@ class RemoteClass:
         if not isinstance(num_cpus, (int, float)) or num_cpus < 1:
             raise ValueError(f"num_cpus={num_cpus!r}: a worker needs at "
                              f"least one CPU (it sets its torch threads)")
+        max_concurrency = options.get("max_concurrency", 1)
+        if not isinstance(max_concurrency, int) or max_concurrency < 1:
+            raise ValueError(f"max_concurrency={max_concurrency!r}: a "
+                             f"worker runs at least one call at a time")
         self._cls = cls
         self._options = options
         self._threads = int(num_cpus)
+        self._max_concurrency = max_concurrency
 
     def options(self, **options) -> "RemoteClass":
         return RemoteClass(self._cls, {**self._options, **options})
 
     def remote(self, *args, **kwargs) -> ActorHandle:
         return ActorHandle(self._cls, _Worker(self._cls, args, kwargs,
-                                              self._threads))
+                                              self._threads,
+                                              self._max_concurrency))
 
 
 def remote(cls) -> RemoteClass:
     """A class whose ``.remote(...)`` starts a worker process holding an
-    instance (``.options(num_cpus=...)`` first to set its threads).
+    instance (``.options(num_cpus=..., max_concurrency=...)`` first to set
+    its threads and how many calls it runs at once).
     Classes only: the port's runtime has no tasks."""
     if not inspect.isclass(cls):
         raise TypeError(f"remote() takes a class, not {cls!r}: the port's "
@@ -369,8 +590,10 @@ def remote(cls) -> RemoteClass:
 
 
 def call(actor: ActorHandle, fn, *args, **kwargs) -> ObjectRef:
-    """Run ``fn(instance, *args, **kwargs)`` in the worker, in order with
-    its other calls. ``fn`` must be importable by name there."""
+    """Run ``fn(instance, *args, **kwargs)`` in the worker, as a method
+    call (in order with its other calls at ``max_concurrency=1``; on the
+    event loop when ``fn`` is a coroutine function). ``fn`` must be
+    importable by name there."""
     return actor._worker.submit(fn, args, kwargs)
 
 
@@ -454,15 +677,16 @@ def _refs(refs) -> List[ObjectRef]:
     return out
 
 
-def _block(pending, deadline: Optional[float]) -> bool:
+def _block(workers, deadline: Optional[float]) -> bool:
     """Sleep (holding nothing) until a reply lands or a poll is due;
-    False once the deadline has passed."""
+    False once the deadline has passed. ``workers`` are those whose exit
+    the wait looks at."""
     now = time.monotonic()
     if deadline is not None and now >= deadline:
         return False
-    for r in pending:
-        if r._worker is not None:
-            r._worker.check_exit(now)
+    for w in workers:
+        if w is not None:
+            w.check_exit(now)
     wait_s = _POLL_S if deadline is None else min(_POLL_S, deadline - now)
     _READY.wait(wait_s)
     return True
@@ -482,7 +706,7 @@ def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *,
             pending = [r for r in ref_list if not r._ready()]
             if not pending:
                 break
-            if not _block(pending, deadline):
+            if not _block([r._worker for r in pending], deadline):
                 raise GetTimeoutError(
                     f"get() timed out after {timeout} s: {len(pending)} of "
                     f"{len(ref_list)} results not ready ({pending[0]!r} "
@@ -507,7 +731,8 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
         while True:
             ready = [r for r in ref_list if r._ready()]
             if len(ready) >= num_returns or not _block(
-                    [r for r in ref_list if not r._ready()], deadline):
+                    [r._worker for r in ref_list if not r._ready()],
+                    deadline):
                 break
     ready = ready[:num_returns]
     taken = {id(r) for r in ready}

@@ -1,0 +1,53 @@
+"""raytpu_torch.serve: model serving on the port's runtime; the port of
+:mod:`raytpu.serve`.
+
+A controller in the caller's process reconciles declarative app state
+onto replica processes (workers of :mod:`raytpu_torch.runtime`); routing
+is client-side power-of-two choices over queue-length probes, or by
+prefix-cache match (``RAYTPU_PREFIX_ROUTING``); responses stream chunk by
+chunk. The JAX package's exports, less the proxy's ``Request``: the HTTP
+and gRPC proxies wait for a later slice (ROADMAP.md).
+
+``serve.LLMDeployment`` is a deployment whose target is the port's
+:class:`raytpu_torch.inference.serving.LLMDeployment` (imported at first
+use: plain serve users need not load the model and engine)::
+
+    handle = serve.run(serve.LLMDeployment.options(num_replicas=2).bind(
+        model="llama", model_config=cfg, engine_options=opts))
+    for token in handle.generate.remote_streaming(prompt, max_new_tokens=32):
+        ...
+"""
+
+from raytpu_torch.serve.api import (delete, get_app_handle,
+                                    get_deployment_handle, ingress, run,
+                                    shutdown, start, status)
+from raytpu_torch.serve.batching import batch
+from raytpu_torch.serve.config import (AutoscalingConfig, DeploymentConfig,
+                                       HTTPOptions)
+from raytpu_torch.serve.deployment import Application, Deployment, deployment
+from raytpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
+from raytpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
+
+__all__ = [
+    "Application", "AutoscalingConfig", "Deployment", "DeploymentConfig",
+    "DeploymentHandle", "DeploymentResponse", "HTTPOptions",
+    "LLMDeployment",
+    "batch", "delete", "deployment", "get_app_handle",
+    "get_deployment_handle", "get_multiplexed_model_id", "multiplexed",
+    "run",
+    "ingress", "shutdown", "start", "status",
+]
+
+_llm_deployment = None
+
+
+def __getattr__(name):
+    # Lazy: the LLM deployment pulls in the model and the inference stack.
+    global _llm_deployment
+    if name == "LLMDeployment":
+        if _llm_deployment is None:
+            from raytpu_torch.inference.serving import LLMDeployment
+
+            _llm_deployment = deployment(LLMDeployment)
+        return _llm_deployment
+    raise AttributeError(name)

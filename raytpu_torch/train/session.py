@@ -4,12 +4,19 @@ The user loop calls :func:`report` each step or epoch; metrics and an
 optional checkpoint flow back to the trainer, which persists checkpoints.
 The context carries the worker's ``device`` (``cuda:<local rank>`` or
 the CPU) where the JAX one carries its chips' coordinates.
+
+Unlike the JAX session, a report that carries a checkpoint is also
+written beside its staged snapshot (:func:`staged_reports` reads them
+back), so a trainer whose worker died before it drained the report still
+registers that checkpoint and its metrics.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -86,6 +93,11 @@ class _Session:
             staged = os.path.join(base, ".staged_ckpts", uuid.uuid4().hex)
             os.makedirs(os.path.dirname(staged), exist_ok=True)
             shutil.copytree(checkpoint.path, staged)
+            # The report beside its snapshot, written whole (os.replace)
+            # after it: a process that dies from here on leaves both.
+            with open(staged + ".tmp", "wb") as f:
+                pickle.dump((time.monotonic_ns(), dict(metrics)), f)
+            os.replace(staged + ".tmp", staged + REPORT_SUFFIX)
             checkpoint = type(checkpoint)(staged)
         with self.lock:
             self.reports.append((dict(metrics), checkpoint))
@@ -111,6 +123,25 @@ class _Session:
         with self.lock:
             self.news.wait_for(
                 lambda: bool(self.reports) or self.closed, timeout)
+
+
+REPORT_SUFFIX = ".report"
+
+
+def staged_reports(storage_path: str) -> List[tuple]:
+    """``(metrics, snapshot path)`` of each report whose staged snapshot
+    under ``storage_path`` is still there (registering one moves it
+    away), oldest first."""
+    root = os.path.join(storage_path, ".staged_ckpts")
+    found = []
+    for name in os.listdir(root) if os.path.isdir(root) else ():
+        path = os.path.join(root, name[:-len(REPORT_SUFFIX)])
+        if not name.endswith(REPORT_SUFFIX) or not os.path.isdir(path):
+            continue
+        with open(os.path.join(root, name), "rb") as f:
+            stamp, metrics = pickle.load(f)
+        found.append((stamp, metrics, path))
+    return [(m, path) for _, m, path in sorted(found, key=lambda e: e[0])]
 
 
 _tls = threading.local()

@@ -29,7 +29,10 @@ The gang:
 - **Failure.** A :class:`TaskError` from the loop, or any error of the
   runtime from a call (:class:`ActorDiedError` when a worker process
   died, :class:`GetTimeoutError` when it stopped answering), fails the
-  gang; ``fit`` restarts it while attempts remain.
+  gang; ``fit`` restarts it while attempts remain. Reports with a
+  checkpoint that the dead gang made but the trainer had not drained are
+  read back from their staged snapshots and registered first (the JAX
+  trainer loses them, so a restart resumed from an older checkpoint).
 
 The loop crosses to the workers by pickle, by name: it must be a
 module-level function (a closure or lambda does not pickle; ``fit``
@@ -303,6 +306,11 @@ class DataParallelTrainer(BaseTrainer):
             # call on it raised. Surface it as a failed Result so fit()'s
             # FailureConfig loop restarts the whole gang from the latest
             # checkpoint instead of crashing the driver.
+            for w in workers:
+                runtime.kill(w)  # no worker writes a report from here on
+            for metrics, path in session_mod.staged_reports(run_dir):
+                history.append(metrics)
+                last_ckpt = manager.register(Checkpoint(path), metrics)
             return Result(
                 metrics=history[-1] if history else {},
                 metrics_history=history,

@@ -1,5 +1,5 @@
 """raytpu_torch.util: the port of ``raytpu.util``'s serving-plane
-observability, in-process only.
+observability, in-process only, and the ambient tenant.
 
 - :mod:`~raytpu_torch.util.metrics` — ``Counter`` / ``Gauge`` /
   ``Histogram`` with tags and the cardinality cap, and the
@@ -12,7 +12,9 @@ observability, in-process only.
   the goodput ledger;
 - :mod:`~raytpu_torch.util.profiler` — the flag the step profiler reads;
 - :mod:`~raytpu_torch.util.stepprof` — ``StepProfiler``: step times,
-  MFU from an analytic FLOP count, device-memory gauges.
+  MFU from an analytic FLOP count, device-memory gauges;
+- :mod:`~raytpu_torch.util.tenancy` — the ambient tenant the serve
+  router stamps into request metadata.
 
 Nothing here ships to a head or serves a scrape endpoint: the port has
 no runtime to ship through (ROADMAP.md).

@@ -64,6 +64,8 @@ DECLARED_METRICS: Dict[str, str] = {
         "request end-to-end latency, by deployment and tenant",
     "raytpu_serve_queue_seconds":
         "replica queue wait (enqueue to semaphore)",
+    "raytpu_serve_requests_total":
+        "serve requests routed, by deployment and tenant",
     "raytpu_serve_tokens_delivered_total":
         "tokens streamed to consumers, by deployment and tenant",
     "raytpu_serve_tokens_wasted_total":

@@ -45,9 +45,9 @@ def _env_int(name: str, default: int) -> int:
 
 class RequestTransition:
     """Serving-plane request lifecycle: the JAX package's vocabulary.
-    RECEIVED, ROUTED and QUEUED are emitted by a serve handle, router
-    and replica, which the port does not have yet; FAILED by a client's
-    response generator."""
+    RECEIVED and ROUTED are emitted by the serve router, QUEUED by a
+    replica (in its own process), FAILED by a client's response
+    generator."""
 
     RECEIVED = "RECEIVED"            # handle/router accepted the call
     ROUTED = "ROUTED"                # router picked a replica

@@ -1,6 +1,7 @@
 """Rules of the port (raytpu_torch/, chip_smoke.py): it imports neither
 JAX nor the JAX package (nor ``prometheus_client``: its metrics are in
-memory only), its entry points never move to the CPU on their own, its
+memory only; nor ``cloudpickle``: the chip machine has none, so serve
+pickles by name), its entry points never move to the CPU on their own, its
 CUDA kernels are built from the repo's sources for Hopper, and its
 observability keeps the JAX package's lint rules: every request event
 is emitted under one flag check and every transition the JAX serving
@@ -28,7 +29,16 @@ UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
                 "profiler", "stepprof")
 
 # The port's runtime layer and the JAX modules whose calls it copies.
-RUNTIME_MODULES = ("core.errors", "runtime.api")
+RUNTIME_MODULES = ("core.errors", "runtime.api", "runtime.generator",
+                   "util.tenancy")
+
+# The serve library, each module with its JAX module of the same path.
+SERVE_MODULES = ("serve/__init__.py", "serve/api.py", "serve/batching.py",
+                 "serve/config.py", "serve/deployment.py", "serve/handle.py",
+                 "serve/multiplex.py", "serve/_private/autoscaling_policy.py",
+                 "serve/_private/controller.py", "serve/_private/long_poll.py",
+                 "serve/_private/prefix_router.py",
+                 "serve/_private/replica.py", "serve/_private/router.py")
 
 # The Train library and its models, each with its JAX module.
 TRAIN_MODULES = ("train/__init__.py", "train/config.py",
@@ -51,7 +61,8 @@ print(json.dumps(sorted(set(sys.modules) - before)))
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "raytpu", "prometheus_client")
+    return top in ("jax", "jaxlib", "flax", "raytpu", "prometheus_client",
+                   "cloudpickle")
 
 
 def test_port_imports_no_jax_and_nothing_of_raytpu():
@@ -63,7 +74,7 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
     assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES} <= set(loaded)
     assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
-        ".__init__", "") for m in TRAIN_MODULES} <= set(loaded)
+        ".__init__", "") for m in TRAIN_MODULES + SERVE_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -122,6 +133,66 @@ def test_rl_entry_points_raise_without_a_card(monkeypatch):
     assert algo.env_runner_group.local_runner.device.type == "cpu"
 
 
+def test_serve_modules_are_held_to_the_rules():
+    # The AST scan and the fresh-interpreter import above cover them.
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    assert {p.relative_to(REPO / "raytpu_torch").as_posix() for p in
+            (REPO / "raytpu_torch" / "serve").rglob("*.py")} - {
+        "serve/_private/__init__.py"} == set(SERVE_MODULES)
+    for name in SERVE_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+
+
+def test_importing_serve_loads_no_jax():
+    code = ("import json, sys; import raytpu_torch.serve as s; "
+            "s.LLMDeployment; print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "raytpu_torch.inference.serving" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+class Plain:
+    """A deployment body for the replica-process checks below."""
+
+    def __call__(self, x):
+        return x
+
+
+def test_replica_processes_import_no_jax_and_an_llm_replica_needs_a_card(
+        monkeypatch):
+    # A replica loads nothing forbidden; an LLM replica asked for the
+    # card where there is none fails its deployment, so serve.run raises
+    # at once (no fallback to the CPU), naming CUDA, and no process stays.
+    import multiprocessing
+
+    from raytpu_torch import runtime, serve
+    from raytpu_torch.serve._private.controller import get_controller
+
+    before = {p.pid for p in multiprocessing.active_children()}
+    try:
+        handle = serve.run(serve.deployment(Plain).bind(), name="plain",
+                           route_prefix=None)
+        assert handle.remote(3).result(timeout_s=60) == 3
+        [(_, replica)] = get_controller().call("get_running_replicas",
+                                               "plain#Plain")
+        assert runtime.get(runtime.call(replica, forbidden_in_worker),
+                           timeout=60) == []
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # the child's view
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.run(serve.LLMDeployment.bind(model="llama"), name="llm",
+                      route_prefix=None, wait_for_ready_timeout_s=600)
+        assert serve.status()["llm"]["deployments"]["LLMDeployment"][
+            "status"] == "DEPLOY_FAILED"
+    finally:
+        serve.shutdown()
+    assert {p.pid for p in multiprocessing.active_children()} <= before
+
+
 def test_runtime_modules_are_held_to_the_rules():
     # The AST scan and the fresh-interpreter import above cover them.
     names = {p.relative_to(REPO / "raytpu_torch").as_posix()
@@ -130,6 +201,8 @@ def test_runtime_modules_are_held_to_the_rules():
         path = m.replace(".", "/") + ".py"
         assert path in names
         assert (REPO / "raytpu" / path).is_file()
+    assert {"runtime/__init__.py", "runtime/api.py",
+            "runtime/generator.py"} <= names
 
 
 def forbidden_in_worker(instance):

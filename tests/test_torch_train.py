@@ -401,6 +401,22 @@ def test_a_dead_worker_restarts_the_gang(tmp_path):
     assert children() <= before
 
 
+def test_a_dead_gang_s_undrained_checkpoints_are_registered(tmp_path):
+    # The loop reports four checkpointed steps and exits at once, mostly
+    # before the trainer's first poll: those reports are read back from
+    # their staged snapshots, so the restart resumes after step 3.
+    result = fit(trainer(loop_dies, tmp_path, 1,
+                         {"marker": str(tmp_path / "died")},
+                         failure_config=FailureConfig(max_failures=1)))
+    assert result.error is None
+    with open(tmp_path / "died") as f:
+        dead = int(f.read())
+    steps = [(m["step"], m["pid"] == dead) for m in result.metrics_history]
+    assert steps == [(0, True), (1, True), (2, True), (3, True),
+                     (4, False), (5, False)]
+    assert not os.path.exists(result.path + "/.staged_ckpts")
+
+
 def test_a_dead_worker_without_retries_fails_fit(tmp_path):
     from raytpu_torch.core.errors import TaskError
 
