@@ -175,7 +175,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     leaves no replica process. Readings: each replica's start (spawn to
     ready; the replacement's too), client TTFT and the decode rate beside
     phase 19's, the router's pick (probes included) a request, each
-    replica's peak memory.
+    replica's peak memory;
+25. P/D through serve (run after phase 24, once that application is
+    shut down): a prefill and a decode deployment of Llama-2-7B (full
+    width and depth, bf16, kernels on, phase 19's engine, seed 0), each
+    one replica process of the serve controller, itself a process of
+    its own; the decode deployment is bound to the prefill one and
+    pulls through its handle. From client threads through
+    ``remote_streaming``, after a warm-up request to each: phase 20's
+    1500-token prompt colocated on the prefill deployment, then through
+    the decode deployment, then a 500-token prompt through it (one
+    chunk: the prefill replica's export prefills it on the flash path;
+    a longer prompt's chunks all take the paged chunk path). Fails
+    unless the decode replica pulls the 93 full pages, prefills only the
+    12-token tail, pulls the short prompt's 31 pages, and launches no
+    flash forward (paged attention and RMSNorm, 65 a forward), the
+    prefill replica launches the flash forward, paged attention and
+    RMSNorm, the streamed tokens equal
+    phase 20's decode replica's, neither replica pins a page or an
+    export afterwards, a prompt under a page pulls nothing, a failpoint
+    on ``disagg.read_chunk`` in the prefill replica halfway through a
+    pull makes the decode replica fall back to a local prefill with
+    phase 20's fallback tokens and leaves nothing pinned, this process
+    launches no kernel, the controller has no CUDA context, every
+    replica runs on the card without JAX under ``__mp_main__``, and
+    ``serve.shutdown()`` leaves no process. Readings beside phase 20's:
+    the handoff's bytes, seconds and GB/s; TTFT at the client with the
+    pull and without it (colocated); each replica's and the controller's
+    start; each replica's peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -2293,6 +2320,9 @@ def phase_disagg(card_line: str) -> dict:
     del prefill, decode, peer
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 25 holds its streams to these.
+    result["tokens"] = {"colocated": colo, "handoff": handed,
+                        "fallback": fallback}
     return result
 
 
@@ -2302,7 +2332,10 @@ def phase_disagg(card_line: str) -> dict:
 # adjacent pair a flag arm: off then on in even rounds, on then off in
 # odd ones (off, on, on, off, ...), so each arm is read against an off run
 # beside it, first as often as second.
-OBS_ROUNDS = 8
+# (10 rounds until PR 14 cut them to 8, PR 15 to 6: with phase 25 the
+# whole script took 628.5 s at 8 rounds on one machine, over half its
+# 1200 s limit.)
+OBS_ROUNDS = 6
 OBS_ARMS = {"off": (False, False, False), "all": (True, True, True),
             "events": (True, False, False), "spans": (False, True, False),
             "profiler": (False, False, True)}
@@ -4946,6 +4979,316 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     return result
 
 
+# ---- phase 25: P/D through serve --------------------------------------
+
+DISAGG_APP = "disagg-serve"
+# A prompt of at most one prefill chunk (512): the prefill replica's
+# export prefills it on the full path, the flash forward (a longer
+# prompt's chunks all take the paged chunk path), and the decode replica
+# pulls its 31 full pages and prefills a 4-token tail.
+ONE_CHUNK_PROMPT = 500
+
+
+def controller_facts(controller) -> dict:
+    """Run inside the serve controller's process: its facts, and whether
+    it has a CUDA context."""
+    return {**process_facts(), "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def replica_time_pulls(replica) -> None:
+    """Run inside a decode replica: time each of its deployment's pulls
+    (tokens grafted, seconds), as phase 20 times them."""
+    dep = replica._callable
+    pull, dep._pulls = dep._maybe_pull_prefix, []
+
+    def timed(prompt, **tags):
+        t0 = time.perf_counter()
+        n = pull(prompt, **tags)
+        dep._pulls.append((n, time.perf_counter() - t0))
+        return n
+
+    dep._maybe_pull_prefix = timed
+
+
+def replica_disagg(replica) -> dict:
+    """Run inside a replica: ``replica_report`` with the handoff's
+    counters, the open exports and the pulls timed so far."""
+    from raytpu_torch.inference import disagg
+
+    dep = replica._callable
+    return {**replica_report(replica), "disagg": disagg.stats(),
+            "open_exports": dep._handoff_source.open_exports(),
+            "pulls": list(getattr(dep, "_pulls", []))}
+
+
+def replica_arm(replica, name: str, spec: str) -> None:
+    """Run inside a replica: arm one of its failpoints."""
+    from raytpu_torch.util import failpoints
+
+    failpoints.cfg(name, spec)
+
+
+def replica_disarm(replica, name: str):
+    """Run inside a replica: the named failpoint's counts, then every
+    failpoint cleared."""
+    from raytpu_torch.util import failpoints
+
+    stat = failpoints.stat(name)
+    failpoints.clear()
+    return stat
+
+
+def client_ask(handle, prompt, n: int = SERVE_NEW_TOKENS) -> tuple:
+    """One greedy stream through a serve handle, from a client thread:
+    (TTFT at the client, from the call to the first token; the tokens)."""
+    got = {}
+
+    def run():
+        t0, ttft, out = time.perf_counter(), None, []
+        try:
+            for tok in handle.generate.remote_streaming(prompt,
+                                                        max_new_tokens=n):
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                out.append(tok)
+            got["result"] = (ttft, out)
+        except Exception as exc:  # raised below, not lost in the thread
+            got["error"] = exc
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(STREAM_DEADLINE_S)
+    if t.is_alive():
+        raise AssertionError(f"a stream did not end within "
+                             f"{STREAM_DEADLINE_S} s")
+    if "error" in got:
+        raise got["error"]
+    return got["result"]
+
+
+def running_process(pid: int) -> bool:
+    """Whether a process runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def phase_disagg_serve(card_line: str, disagg: dict) -> dict:
+    """Phase 20's handoff through serve: a prefill and a decode deployment
+    of Llama-2-7B (full width and depth, bf16, kernels on, phase 19's
+    engine, seed 0), one replica process each, started by the serve
+    controller in its own process; the decode deployment is bound to the
+    prefill node and pulls through ``_HandlePeer``. See the module's
+    docstring (phase 25) for what it holds and reads."""
+    import multiprocessing
+
+    from raytpu_torch import runtime
+    from raytpu_torch import serve as port_serve
+    from raytpu_torch.cluster import constants as tuning
+    from raytpu_torch.models.llama import LlamaConfig
+    from raytpu_torch.serve._private.controller import (
+        get_or_create_controller)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = {p.pid for p in multiprocessing.active_children()}
+    cfg = LlamaConfig.llama2_7b()
+    rng = np.random.default_rng(4)  # phase 20's prompts
+    prompt, fresh = (rng.integers(0, cfg.vocab_size,
+                                  HANDOFF_PROMPT).tolist() for _ in range(2))
+    short = rng.integers(0, cfg.vocab_size, SHORT_PROMPT).tolist()
+    rng = np.random.default_rng(25)
+    one_chunk = rng.integers(0, cfg.vocab_size, ONE_CHUNK_PROMPT).tolist()
+    # Warm-up prompts: each replica's first chunked prefill, full
+    # prefill, decode and pull, before the main path's counts and clocks.
+    warm = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (600, 100)]
+    ps = DEPLOYMENT_ENGINE["page_size"]
+    n_pages = (HANDOFF_PROMPT - 1) // ps
+    common = dict(model="llama", model_config=cfg,
+                  engine_options=DEPLOYMENT_ENGINE, seed=0)
+    _reset_counters()  # this process must launch none in this phase
+
+    def on(replica, fn, *args):
+        return runtime.get(runtime.call(replica, fn, *args),
+                           timeout=SERVE_APP_DEADLINE_S)
+
+    try:
+        t0 = time.perf_counter()
+        controller = get_or_create_controller()
+        controller.call("status", timeout=SERVE_APP_DEADLINE_S)
+        controller_start_s = time.perf_counter() - t0
+        prefill_node = port_serve.LLMDeployment.options(
+            name="llm-prefill", role="prefill").bind(role="prefill",
+                                                     **common)
+        t0 = time.perf_counter()
+        handle = port_serve.run(
+            port_serve.LLMDeployment.options(
+                name="llm-decode", role="decode").bind(
+                role="decode", prefill=prefill_node, **common),
+            name=DISAGG_APP, route_prefix=None,
+            wait_for_ready_timeout_s=SERVE_APP_DEADLINE_S)
+        run_s = time.perf_counter() - t0
+        colocated = port_serve.get_deployment_handle("llm-prefill",
+                                                     DISAGG_APP)
+        starts, reps = {}, {}
+        for role in ("prefill", "decode"):
+            name = f"{DISAGG_APP}#llm-{role}"
+            starts.update(controller.call("replica_starts", name))
+            [(_, reps[role])] = controller.call("get_running_replicas", name)
+        prefill, decode = reps["prefill"], reps["decode"]
+        ctl = on(controller.actor, controller_facts)
+        # -- warm-up: the replicas' first requests (cold TTFT kept) -----
+        cold = {"colocated": client_ask(colocated, warm[1], 4)[0],
+                "handoff": client_ask(handle, warm[0], 4)[0]}
+        client_ask(handle, warm[1], 4)
+        on(decode, replica_time_pulls)
+
+        # -- the main path: colocated, then the pulls; counts 0 before --
+        for rep in reps.values():
+            on(rep, replica_reset_counters)
+        base = {role: on(rep, replica_disagg) for role, rep in reps.items()}
+        colo_ttft, colo = client_ask(colocated, prompt)
+        ho_ttft, handed = client_ask(handle, prompt)
+        mid = on(decode, replica_disagg)
+        _, one_chunk_out = client_ask(handle, one_chunk)
+        after = {role: on(rep, replica_disagg) for role, rep in reps.items()}
+        idle = {role: on(rep, replica_idle) for role, rep in reps.items()}
+
+        # -- a prompt under a page pulls nothing -------------------------
+        _, short_out = client_ask(handle, short, 8)
+        short_after = {role: on(rep, replica_disagg)
+                       for role, rep in reps.items()}
+
+        # -- a failpoint halfway through a pull, in the prefill replica --
+        nbytes = mid["disagg"]["bytes"] - base["decode"]["disagg"]["bytes"]
+        chunks = -(-nbytes // tuning.KV_STREAM_CHUNK_BYTES)
+        spec = f"{chunks // 2}*off->1*raise(OSError)"
+        on(prefill, replica_arm, "disagg.read_chunk", spec)
+        fb_ttft, fallback = client_ask(handle, fresh)
+        fired = on(prefill, replica_disarm, "disagg.read_chunk")
+        fb_after = {role: on(rep, replica_disagg)
+                    for role, rep in reps.items()}
+        fb_idle = {role: on(rep, replica_idle) for role, rep in reps.items()}
+        smi = smi_process_mb()
+        pids = {"controller": controller.actor.pid,
+                **{role: rep.pid for role, rep in reps.items()}}
+    finally:
+        port_serve.shutdown()
+    end = time.perf_counter() + SERVE_APP_DEADLINE_S
+    while any(running_process(pid) for pid in pids.values()) and \
+            time.perf_counter() < end:
+        time.sleep(0.05)
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    left += [pid for pid in pids.values() if running_process(pid)]
+    parent = {name: c.count for name, c in kernel_counters().items()}
+    d0, d1 = base["decode"], mid
+    launches = {role: after[role]["launches"] for role in reps}
+    forwards = {role: forwards_of(after[role]["stats"])
+                - forwards_of(base[role]["stats"]) for role in reps}
+    [(pulled, pull_s), (one_chunk_pulled, _)] = after["decode"]["pulls"]
+    fb = {"tokens_equal_phase20": fallback == disagg["tokens"]["fallback"],
+          "ttft_s": fb_ttft, "failpoint": fired,
+          "fallbacks": fb_after["decode"]["disagg"]["fallbacks"]
+          - short_after["decode"]["disagg"]["fallbacks"],
+          "aborts": fb_after["decode"]["disagg"]["aborts"]
+          - short_after["decode"]["disagg"]["aborts"],
+          "local_prefill_tokens": fb_after["decode"]["stats"]
+          ["prefill_tokens"] - short_after["decode"]["stats"]
+          ["prefill_tokens"],
+          "open_exports": fb_after["prefill"]["open_exports"],
+          "idle": fb_idle}
+    result = {
+        "model": "Llama-2-7B x 2 replica processes, 32 layers, bf16, "
+                 "seed 0",
+        "prompt": HANDOFF_PROMPT,
+        "pages": d1["disagg"]["pages"] - d0["disagg"]["pages"],
+        "tokens_grafted": pulled,
+        "tail_prefilled": d1["stats"]["prefill_tokens"]
+        - d0["stats"]["prefill_tokens"],
+        "handoff_bytes": nbytes, "pull_s": pull_s,
+        "pull_gb_per_s": nbytes / pull_s / 1e9, "chunks": chunks,
+        "ttft_handoff_s": ho_ttft, "ttft_colocated_s": colo_ttft,
+        "ttft_first_request_s": cold,
+        "one_chunk": {"prompt": ONE_CHUNK_PROMPT,
+                      "tokens_grafted": one_chunk_pulled,
+                      "tokens": len(one_chunk_out)},
+        "tokens_equal_phase20": handed == disagg["tokens"]["handoff"],
+        "colocated_equal_phase20": colo == disagg["tokens"]["colocated"],
+        "phase20": {k: disagg[k] for k in (
+            "handoff_bytes", "pull_s", "pull_gb_per_s", "ttft_handoff_s",
+            "ttft_colocated_s")},
+        "short_pulled": short_after["decode"]["disagg"]
+        != after["decode"]["disagg"] or short_after["prefill"]["stats"]
+        ["prefill_tokens"] != after["prefill"]["stats"]["prefill_tokens"],
+        "short_tokens": len(short_out),
+        "open_exports": after["prefill"]["open_exports"], "idle": idle,
+        "fallback": fb,
+        "run_s": run_s, "controller_start_s": controller_start_s,
+        "start_s": starts,
+        "max_memory_allocated_gb": {
+            role: fb_after[role]["max_memory_allocated_gb"] for role in reps},
+        "controller": ctl, "smi_mb": {role: smi.get(pid)
+                                      for role, pid in pids.items()},
+        "replica_facts": {role: {k: after[role][k] for k in (
+            "pid", "forbidden", "main", "device")} for role in reps},
+        "replica_launches": launches, "forwards": forwards,
+        "parent_launches": parent, "processes_left": left,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    result["launches"] = {name: sum(l[name] for l in launches.values())
+                          for name in parent}
+    log(f"[disagg-serve] {json.dumps(result)} | {card_line}")
+    if not (result["pages"] == n_pages and pulled == n_pages * ps
+            and nbytes == cfg.n_layer * 2 * n_pages * ps * cfg.n_kv_head
+            * cfg.head_dim * cfg.dtype.itemsize
+            and result["tail_prefilled"] == HANDOFF_PROMPT - n_pages * ps):
+        raise AssertionError("the decode replica did not graft the prompt's "
+                             "full pages through serve and prefill only its "
+                             "tail")
+    if not result["tokens_equal_phase20"] or \
+            len(handed) != SERVE_NEW_TOKENS:
+        raise AssertionError("the decode replica's tokens through serve "
+                             "differ from phase 20's decode replica's")
+    if one_chunk_pulled != (ONE_CHUNK_PROMPT - 1) // ps * ps or \
+            len(one_chunk_out) != SERVE_NEW_TOKENS:
+        raise AssertionError("the one-chunk prompt was not pulled")
+    check_launches(launches["decode"], {
+        "flash_forward": 0, "paged_attention": None,
+        "rmsnorm": (2 * cfg.n_layer + 1) * forwards["decode"],
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    deployment_launches(launches["prefill"], forwards["prefill"],
+                        cfg.n_layer)
+    check_launches(parent, {name: 0 for name in parent})
+    if result["open_exports"] or fb["open_exports"]:
+        raise AssertionError("the prefill replica holds an open export")
+    if result["short_pulled"] or len(short_out) != 8:
+        raise AssertionError("the short prompt went to the peer")
+    if not (fb["tokens_equal_phase20"] and fb["fallbacks"] == 1
+            and fb["aborts"] == 1 and fired["fires"] == 1
+            and fired["hits"] == chunks // 2 + 1
+            and fb["local_prefill_tokens"] == HANDOFF_PROMPT):
+        raise AssertionError(f"the planted read fault did not fall back to "
+                             f"a clean local prefill: {fb}")
+    if ctl["cuda_initialized"] or smi.get(pids["controller"]) or \
+            ctl["forbidden"]:
+        raise AssertionError(f"the controller touched CUDA or loaded JAX: "
+                             f"{ctl}, {smi}")
+    for role in reps:
+        rep = after[role]
+        if rep["forbidden"] or rep["device"] != SERVE_APP_DEVICE or (
+                rep["main"][1] == "chip_smoke.py"
+                and rep["main"][0] != "__mp_main__"):
+            raise AssertionError(f"replica {role}: {rep}")
+    if left:
+        raise AssertionError(f"processes left after serve.shutdown(): "
+                             f"{left}")
+    return result
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -5012,6 +5355,7 @@ def main() -> int:
     deployment = phase_deployment(card_line, serve)
     disagg = phase_disagg(card_line)
     serve_app = phase_serve_app(card_line, serve, deployment)
+    disagg_serve = phase_disagg_serve(card_line, disagg)
     t0 = time.perf_counter()
     gpt2 = GPT2(GPT2Config.small(), device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -5061,6 +5405,7 @@ def main() -> int:
             "deployment": deployment["launches"],
             "disagg": disagg["launches"],
             "serve_app": serve_app["launches"],
+            "disagg_serve": disagg_serve["launches"],
             "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],

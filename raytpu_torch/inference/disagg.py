@@ -27,7 +27,8 @@ engine untouched end to end:
   starts at ``cached_len``.
 - **Puller** (the decode side): reads the stream chunk by chunk, each
   chunk admitted through the process-wide transfer
-  :class:`~raytpu_torch.cluster.transfer.ByteWindow`. Any failure (peer death, short read) aborts the sink —
+  :class:`~raytpu_torch.cluster.transfer.ByteWindow`. Any failure (peer
+  death, short read, armed failpoint) aborts the sink —
   pages freed on the spot — and returns 0, telling the caller to prefill
   locally; the source frees its pin either via the peer's best-effort
   ``kv_export_end`` or the TTL sweep.
@@ -46,7 +47,9 @@ that waits on that event, so a read synchronises only with its own copy.
 
 The four ``raytpu_infer_handoff_*_total`` counters are the JAX
 package's, process-wide; :func:`stats` reads them. Its failpoint sites
-wait for the port's runtime.
+are the JAX package's: ``disagg.read_chunk`` on the source at each chunk
+read, ``disagg.pull_chunk`` on the puller before each chunk
+(:mod:`raytpu_torch.util.failpoints`).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ import torch
 from raytpu_torch.cluster import constants as tuning
 from raytpu_torch.cluster import transfer
 from raytpu_torch.inference.prefix_cache import chain_hashes
+from raytpu_torch.util.failpoints import failpoint
 from raytpu_torch.util.metrics import Counter
 
 _handoff_pages_total = Counter(
@@ -73,7 +77,7 @@ _handoff_bytes_total = Counter(
     "Payload bytes streamed in cross-replica KV handoffs")
 _handoff_aborts_total = Counter(
     "raytpu_infer_handoff_aborts_total",
-    "KV handoffs aborted mid-stream (peer death, TTL sweep)")
+    "KV handoffs aborted mid-stream (peer death, TTL sweep, failpoint)")
 _handoff_fallbacks_total = Counter(
     "raytpu_infer_handoff_fallbacks_total",
     "Disaggregated pulls that fell back to a local (colocated) prefill")
@@ -197,6 +201,7 @@ class KVHandoffSource:
         Chunks are sliced from per-page host copies — page-granular, so
         at most one page crosses to the host per segment, never the pool.
         """
+        failpoint("disagg.read_chunk")
         with self._lock:
             ex = self._exports.get(handoff_id)
         if ex is None:
@@ -454,6 +459,7 @@ def pull_kv_prefix(engine, lock, peer, prompt: Sequence[int]) -> int:
             n = min(chunk, total - offset)
             window.acquire(n)
             try:
+                failpoint("disagg.pull_chunk")
                 data = peer.kv_export_read(hid, offset, n)
                 if len(memoryview(data)) != n:
                     raise IOError(

@@ -11,8 +11,10 @@ back as its own message of the port's runtime while the sequence still
 decodes. The class also stays a plain one that a caller builds and calls
 in one process; a decode replica's prefill peer is then any object with
 the ``kv_export_*`` trio (another ``LLMDeployment``, of either package).
-A prefill peer through serve (a handle in a replica's arguments) waits
-for handles across processes (ROADMAP.md).
+Through serve, the peer is the prefill deployment's ``DeploymentHandle``
+(or its bound node, which ``build_app`` turns into one): the decode
+replica pulls through :class:`_HandlePeer`, each chunk a call on the one
+prefill replica that pinned the pages.
 
 The engine is pumped by a REPLICA-OWNED background stepping loop: one
 daemon thread per replica steps the engine whenever any request is
@@ -68,6 +70,55 @@ from raytpu_torch.inference.sampling import SamplingParams
 from raytpu_torch.serve._private.replica import (_request_context,  # noqa: F401
                                                  get_request_context)
 from raytpu_torch.util import serve_slo, task_events
+
+
+class _HandlePeer:
+    """``kv_export_*`` over a serve DeploymentHandle, sticky to ONE
+    prefill replica — every chunk of a handoff must hit the replica
+    that pinned the pages, so the power-of-two router is consulted
+    once per peer, not once per chunk. Any failure drops the sticky
+    pick (the next request re-chooses a live replica). Unlike the JAX
+    package's, it remembers which replica opened each export, so a
+    pull that failed still ends its export there (the pinned pages are
+    freed at once, not by the TTL sweep) when that replica lives."""
+
+    def __init__(self, handle):
+        self._handle = handle
+        self._replica = None
+        self._exporters: Dict[str, object] = {}  # handoff id: replica
+
+    def _actor(self):
+        if self._replica is None:
+            router = self._handle._get_router()
+            self._replica = router._replica_set.choose()
+        return self._replica
+
+    def _call(self, replica, method: str, args: tuple):
+        from raytpu_torch import runtime
+
+        try:
+            return runtime.get(replica.handle_request.remote(
+                method, args, {}, {}))
+        except Exception:
+            self._replica = None
+            raise
+
+    def kv_export_begin(self, prompt, max_pages=None):
+        replica = self._actor()
+        meta = self._call(replica, "kv_export_begin", (prompt, max_pages))
+        if meta:
+            self._exporters[meta["handoff_id"]] = replica
+        return meta
+
+    def kv_export_read(self, handoff_id, offset, length):
+        return self._call(self._exporters[handoff_id], "kv_export_read",
+                          (handoff_id, offset, length))
+
+    def kv_export_end(self, handoff_id):
+        replica = self._exporters.pop(handoff_id, None)
+        if replica is None:
+            return False
+        return self._call(replica, "kv_export_end", (handoff_id,))
 
 
 class _HandoffLock:
@@ -175,8 +226,9 @@ class LLMDeployment:
         role: None (serve everything, the default), "prefill" (KV
             factory: prefills + exports pages), or "decode" (pulls
             prompt KV from ``prefill`` before admission and decodes).
-        prefill: the prefill peer for ``role="decode"`` — any object
-            with the ``kv_export_*`` trio.
+        prefill: the prefill peer for ``role="decode"`` — a
+            DeploymentHandle (serve composition) or any object with the
+            ``kv_export_*`` trio (a deployment built in this process).
         device: ``cuda`` unless ``"cpu"`` is asked for; raises without a
             card.
         state_dict: weights loaded into the model after it is built (a
@@ -202,6 +254,7 @@ class LLMDeployment:
             raise ValueError(f"unknown replica role: {role!r}")
         self._role = role
         self._prefill = prefill
+        self._peer = None  # the prefill peer as pulled from, at first use
         net = model_cls(model_config, device=self.device, seed=seed)
         if state_dict is not None:
             net.load_state_dict(state_dict)
@@ -336,6 +389,18 @@ class LLMDeployment:
 
     # ---- disaggregated prefill/decode (see inference/disagg.py) -----
 
+    def _peer_obj(self):
+        if self._peer is None:
+            from raytpu_torch.serve.handle import DeploymentHandle
+
+            peer = self._prefill
+            # hasattr is useless on a DeploymentHandle (its __getattr__
+            # manufactures a method wrapper for ANY name), so the wire
+            # case is matched by type; everything else duck-types.
+            self._peer = (_HandlePeer(peer)
+                          if isinstance(peer, DeploymentHandle) else peer)
+        return self._peer
+
     def _maybe_pull_prefix(self, prompt, request_id: str = "",
                            deployment: str = "", tenant: str = "") -> int:
         """Pull the prompt's full-page KV prefix from the prefill peer
@@ -356,7 +421,8 @@ class LLMDeployment:
                 request_id, task_events.RequestTransition.HANDOFF_START,
                 deployment=deployment, tenant=tenant,
                 data={"pages_wanted": cap - local})
-        pulled = disagg.pull_kv_prefix(eng, self._cv, self._prefill, prompt)
+        pulled = disagg.pull_kv_prefix(eng, self._cv, self._peer_obj(),
+                                       prompt)
         if pulled == 0:
             # Failed pull: the whole prompt goes back through local
             # prefill — book the recompute in the goodput ledger.

@@ -2,15 +2,19 @@
 :mod:`raytpu.runtime.generator`.
 
 ``handle.method.options(num_returns="streaming").remote(...)`` on a
-generator method (sync or async) returns an :class:`ObjectRefGenerator`.
+generator method (sync or async) returns an :class:`ObjectRefGenerator`,
+in the worker's owner or in any process that holds a copy of its handle.
 The worker sends each value the generator yields as its own message the
-moment it is produced, then an end message, or the error in its place
-(see :mod:`raytpu_torch.runtime.api`). Iterating gives a ref for each
+moment it is produced, on the connection the call came in on, then an
+end message, or the error in its place (see
+:mod:`raytpu_torch.runtime.api`). Iterating gives a ref for each
 value, in order (``get`` of one gives its value, at once), as the JAX
 package's generator does. ``close()`` (or dropping the generator) sends a
 cancel for the call, which closes the generator in the worker so that its
 ``finally`` runs. A worker that dies mid-stream ends the iteration with
-:class:`ActorDiedError` once the values it sent are taken.
+:class:`ActorDiedError` once the values it sent are taken (seen at that
+connection's EOF); a caller's connection that closes (its process
+exited) closes that caller's streams in the worker.
 
 What it leaves out: backpressure (``generator_backpressure_num_objects``:
 no caller of the port sets it) and the object plane (a value lives in the

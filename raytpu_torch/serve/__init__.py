@@ -1,12 +1,15 @@
 """raytpu_torch.serve: model serving on the port's runtime; the port of
 :mod:`raytpu.serve`.
 
-A controller in the caller's process reconciles declarative app state
-onto replica processes (workers of :mod:`raytpu_torch.runtime`); routing
-is client-side power-of-two choices over queue-length probes, or by
-prefix-cache match (``RAYTPU_PREFIX_ROUTING``); responses stream chunk by
-chunk. The JAX package's exports, less the proxy's ``Request``: the HTTP
-and gRPC proxies wait for a later slice (ROADMAP.md).
+A controller, the named actor ``SERVE_CONTROLLER`` in a process of its
+own, reconciles declarative app state onto replica processes (its
+children, workers of :mod:`raytpu_torch.runtime`); routing is
+client-side power-of-two choices over queue-length probes, or by
+prefix-cache match (``RAYTPU_PREFIX_ROUTING``), from any process that
+holds a handle; responses stream chunk by chunk. Applications compose:
+a bound deployment in another's arguments is a ``DeploymentHandle`` in
+its replicas. The JAX package's exports, less the proxy's ``Request``:
+the HTTP and gRPC proxies wait for a later slice (ROADMAP.md).
 
 ``serve.LLMDeployment`` is a deployment whose target is the port's
 :class:`raytpu_torch.inference.serving.LLMDeployment` (imported at first
@@ -16,6 +19,16 @@ use: plain serve users need not load the model and engine)::
         model="llama", model_config=cfg, engine_options=opts))
     for token in handle.generate.remote_streaming(prompt, max_new_tokens=32):
         ...
+
+Prefill/decode disaggregation composes two of them: the decode replica
+pulls each prompt's KV pages from the prefill deployment through its
+handle::
+
+    prefill = serve.LLMDeployment.options(
+        name="llm-prefill", role="prefill").bind(..., role="prefill")
+    handle = serve.run(serve.LLMDeployment.options(
+        name="llm-decode", role="decode").bind(..., role="decode",
+                                               prefill=prefill))
 """
 
 from raytpu_torch.serve.api import (delete, get_app_handle,

@@ -6,12 +6,19 @@ processes (workers of the port's runtime), run health checks, feed queue
 and engine metrics to the autoscaler, and publish routing tables through
 the long-poll host.
 
+As in the JAX package, the controller is a named detached actor,
+:data:`CONTROLLER_NAME`, with ``max_concurrency=10_000``: a worker
+process of the port's runtime that the driver starts at the first
+``serve.run``, and that any process of the tree (the driver, a replica)
+reaches with ``runtime.get_actor``. Its replicas are its children. Its
+methods are coroutines on the worker's event loop, where the reconcile
+loop, health checks, replacements and autoscaling run too; a call that
+waits on a replica waits on one of its threads (``_WAITERS``). Routers
+long-poll ``listen_for_change`` through calls. It never touches CUDA (no
+context, no card memory): it only starts and calls replica processes.
+
 What differs from the JAX package:
 
-- the controller is a process-wide singleton in the caller's process, on
-  its own thread and event loop (:class:`ControllerThread`), not a named
-  detached actor: the replica handles it holds cannot leave this
-  process, and the routers that need them live here too;
 - a replica is published to routers once its constructor has returned
   (its first ``check_health`` answered); a replica that dies before that
   (its constructor raised, or its process could not start) marks its
@@ -41,6 +48,9 @@ from raytpu_torch.serve.config import ReplicaConfig
 
 logger = logging.getLogger("raytpu_torch.serve")
 
+CONTROLLER_NAME = "SERVE_CONTROLLER"
+# The controller's calls at once: every router's long poll parks one.
+CONTROLLER_MAX_CONCURRENCY = 10_000
 RECONCILE_PERIOD_S = 0.1
 # How many calls the controller may wait on at once (health checks,
 # metrics, drains and one start-up probe a starting replica): each blocks
@@ -109,8 +119,8 @@ class DeploymentState:
 
 
 class ServeController(LongPollHost):
-    """The serve controller. All methods run on its event loop thread
-    (:class:`ControllerThread`)."""
+    """The serve controller. Its public methods are coroutines, run on the
+    event loop of the worker process that hosts it."""
 
     def __init__(self):
         LongPollHost.__init__(self)
@@ -531,78 +541,55 @@ def _differ(a, b) -> bool:
         return True
 
 
-class ControllerThread:
-    """The process's serve controller and the thread that runs its event
-    loop. ``call`` runs a controller coroutine there and waits for it;
-    ``submit`` runs one without waiting. ``stop`` ends the loop, cancelling
-    what still runs on it (a router's long poll then raises)."""
+class ControllerClient:
+    """A process's way to the controller actor: ``call`` runs a
+    controller method and waits for its value; ``submit`` runs one
+    without waiting (its ref)."""
 
-    def __init__(self):
-        self.loop = asyncio.new_event_loop()
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="serve-controller-loop")
-        self._thread.start()
-        self.controller: ServeController = asyncio.run_coroutine_threadsafe(
-            self._make(), self.loop).result()
+    def __init__(self, actor):
+        self.actor = actor
 
-    @staticmethod
-    async def _make() -> ServeController:
-        return ServeController()
-
-    def _run(self) -> None:
-        asyncio.set_event_loop(self.loop)
-        self.loop.run_forever()
-        tasks = asyncio.all_tasks(self.loop)
-        for task in tasks:
-            task.cancel()
-        self.loop.run_until_complete(
-            asyncio.gather(*tasks, return_exceptions=True))
-        self.loop.close()
-
-    def submit(self, method: str, *args) -> concurrent.futures.Future:
-        return asyncio.run_coroutine_threadsafe(
-            getattr(self.controller, method)(*args), self.loop)
+    def submit(self, method: str, *args):
+        return getattr(self.actor, method).remote(*args)
 
     def call(self, method: str, *args, timeout: Optional[float] = None):
-        return self.submit(method, *args).result(timeout)
-
-    def stop(self, timeout: float = 30.0) -> None:
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self._thread.join(timeout)
+        return runtime.get(self.submit(method, *args), timeout=timeout)
 
 
-_controller: Optional[ControllerThread] = None
-_controller_lock = threading.Lock()
+_start_lock = threading.Lock()
 
 
-def get_or_create_controller() -> ControllerThread:
-    """This process's controller, started at the first call."""
-    global _controller
-    with _controller_lock:
-        if _controller is None:
-            _controller = ControllerThread()
-        return _controller
+def get_or_create_controller() -> ControllerClient:
+    """The controller, started (detached, named) at the first call."""
+    with _start_lock:  # a name is taken before its worker is up
+        try:
+            return get_controller()
+        except RuntimeError:
+            pass
+        return ControllerClient(runtime.remote(ServeController).options(
+            name=CONTROLLER_NAME, lifetime="detached",
+            max_concurrency=CONTROLLER_MAX_CONCURRENCY).remote())
 
 
-def get_controller() -> ControllerThread:
-    """This process's controller; raises when serve is not running here
-    (a handle unpickled where no controller runs, or before
-    ``serve.run``)."""
-    if _controller is None:
-        raise RuntimeError("serve is not running in this process: "
-                           "serve.run(...) starts it")
-    return _controller
+def get_controller() -> ControllerClient:
+    """The controller, from any process of the tree; raises when serve is
+    not running (before ``serve.run``, or after ``serve.shutdown``). It
+    never starts one."""
+    try:
+        return ControllerClient(runtime.get_actor(CONTROLLER_NAME))
+    except ValueError:
+        raise RuntimeError("serve is not running: serve.run(...) starts "
+                           "it") from None
 
 
 def stop_controller() -> None:
     """Shut the controller down gracefully (every replica drained and
-    killed) and end its thread."""
-    global _controller
-    with _controller_lock:
-        ctl, _controller = _controller, None
-    if ctl is None:
+    killed), then end its process."""
+    try:
+        ctl = get_controller()
+    except RuntimeError:
         return
     try:
         ctl.call("graceful_shutdown", timeout=60.0)
     finally:
-        ctl.stop()
+        runtime.kill(ctl.actor)

@@ -9,9 +9,11 @@ shorter queue; if both are at ``max_ongoing_requests``, back off and
 re-sample. The replica set is kept fresh by long-polling the controller
 (O(changes), not O(requests)).
 
-In the port the controller runs in this process (on its own event loop
-thread), so a long poll is a coroutine handed to that loop and a probe a
-call of the port's runtime on a replica process.
+As in the JAX package, the router looks the controller up by name
+(``SERVE_CONTROLLER``) and long-polls ``listen_for_change`` through calls
+of the port's runtime; a probe is a call on a replica process. It works
+alike in the driver and in a replica (a composed deployment's handle),
+and never starts a controller.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Serve public API: the port of :mod:`raytpu.serve.api`.
 
-``serve.run`` deploys an application and returns a handle to its ingress;
-``status``, ``delete``, ``shutdown``, ``get_deployment_handle`` and
-``get_app_handle`` as in the JAX package. The controller runs in this
-process (``_private/controller.py``); ``shutdown`` drains and kills every
-replica process and ends the controller's thread.
+``serve.run`` deploys an application (its composed deployments
+included) and returns a handle to its ingress; ``status``, ``delete``,
+``shutdown``, ``get_deployment_handle`` and ``get_app_handle`` as in the
+JAX package, each a call on the controller actor (``SERVE_CONTROLLER``,
+a process of its own that the first ``run`` starts:
+``_private/controller.py``); ``shutdown`` drains and kills every replica
+process and then the controller's, leaving no process.
 
 What differs: ``start``, ``ingress`` and ``run(_start_http=True)`` raise
 ``NotImplementedError``, since the HTTP and gRPC proxies are not ported
@@ -108,7 +110,7 @@ def delete(name: str) -> None:
 
 def shutdown() -> None:
     """Stop every router, drain and kill every replica process, and end
-    the controller's thread. Safe to call when serve is not running."""
+    the controller's process. Safe to call when serve is not running."""
     from raytpu_torch.serve._private.router import Router
 
     Router.reset_all()

@@ -2,15 +2,14 @@
 :mod:`raytpu.serve.deployment`.
 
 A ``Deployment`` is the declarative unit; ``.bind(*args)`` produces an
-application node; ``build_app`` resolves it into one ``ReplicaConfig`` a
-deployment. What differs from the JAX package:
-
-- no ``cloudpickle``: the target is pickled by name (a class or function
-  at a module's top level), and ``build_app`` refuses, before any process
-  starts, a target or an init argument that does not pickle, naming it;
-- no composition: a bound node in another node's arguments, or a
-  ``DeploymentHandle`` among them, raises ``NotImplementedError`` — the
-  port's handles do not cross processes yet (ROADMAP.md).
+application node; ``build_app`` resolves the graph into one
+``ReplicaConfig`` a deployment: a bound node in another node's arguments
+becomes that deployment's ``DeploymentHandle`` there, and is deployed as
+part of the application (composition); a ``DeploymentHandle`` among the
+arguments passes as it is. What differs from the JAX package: no
+``cloudpickle``; the target is pickled by name (a class or function at a
+module's top level), and ``build_app`` refuses, before any process
+starts, a target or an init argument that does not pickle, naming it.
 """
 
 from __future__ import annotations
@@ -21,12 +20,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from raytpu_torch.serve.config import (AutoscalingConfig, DeploymentConfig,
                                        ReplicaConfig)
-
-_NO_COMPOSITION = (
-    "the port's serve does not compose deployments yet: a deployment "
-    "handle in a replica's init arguments needs handles across processes "
-    "(ROADMAP.md, Queue 1)")
-
 
 class Deployment:
     def __init__(self, target: Callable, name: str, config: DeploymentConfig):
@@ -72,10 +65,30 @@ class DeploymentNode:
 
 
 class Application:
-    """A bound ingress node (the port composes no others)."""
+    """A bound ingress node plus (transitively) everything it depends on."""
 
     def __init__(self, ingress: DeploymentNode):
         self._ingress = ingress
+
+    def _collect(self) -> List[DeploymentNode]:
+        """Every node of the graph, each once, a node after those in its
+        arguments."""
+        seen: Dict[int, DeploymentNode] = {}
+        order: List[DeploymentNode] = []
+
+        def visit(node: DeploymentNode):
+            if id(node) in seen:
+                return
+            seen[id(node)] = node
+            for a in list(node.args) + list(node.kwargs.values()):
+                if isinstance(a, Application):
+                    visit(a._ingress)
+                elif isinstance(a, DeploymentNode):
+                    visit(a)
+            order.append(node)
+
+        visit(self._ingress)
+        return order
 
 
 def _check_pickles(what: str, value) -> None:
@@ -92,31 +105,55 @@ def _check_pickles(what: str, value) -> None:
 def build_app(
     app: Application, app_name: str
 ) -> Tuple[str, List[ReplicaConfig], Dict[str, DeploymentConfig]]:
-    """The application's ingress name, its ``ReplicaConfig``, and its
-    ``DeploymentConfig`` by name; raises before any process starts."""
+    """The application's ingress name, a ``ReplicaConfig`` for each of its
+    deployments (nested bound nodes become DeploymentHandles in their
+    parent's init arguments; two nodes of one deployment get the names
+    ``name`` and ``name_1``), and each ``DeploymentConfig`` by name;
+    raises before any process starts."""
     from raytpu_torch.serve.handle import DeploymentHandle
 
-    node = app._ingress
-    dep = node.deployment
-    for key, value in [*enumerate(node.args), *node.kwargs.items()]:
-        if isinstance(value, (Application, DeploymentNode, DeploymentHandle)):
-            raise NotImplementedError(
-                f"deployment {dep.name}: init argument {key!r} is a "
-                f"{type(value).__name__}: {_NO_COMPOSITION}")
-        _check_pickles(f"deployment {dep.name}: init argument {key!r}",
-                       value)
-    try:
-        serialized = pickle.dumps(dep._target)
-    except Exception as exc:
-        raise TypeError(
-            f"deployment {dep.name}: its target {dep._target!r} does not "
-            f"pickle by name ({type(exc).__name__}: {exc}); define it at a "
-            f"module's top level") from exc
-    config = ReplicaConfig(
-        deployment_name=dep.name, app_name=app_name,
-        serialized_callable=serialized, init_args=tuple(node.args),
-        init_kwargs=dict(node.kwargs), deployment_config=dep.config)
-    return dep.name, [config], {dep.name: dep.config}
+    nodes = app._collect()
+    names: Dict[int, str] = {}
+    used: Dict[str, int] = {}
+    for node in nodes:
+        base = node.deployment.name
+        n = used.get(base, 0)
+        used[base] = n + 1
+        names[id(node)] = base if n == 0 else f"{base}_{n}"
+
+    def resolve(what: str, v):
+        if isinstance(v, Application):
+            v = v._ingress
+        if isinstance(v, DeploymentNode):
+            return DeploymentHandle(
+                names[id(v)], app_name,
+                max_ongoing=v.deployment.config.max_ongoing_requests)
+        _check_pickles(what, v)
+        return v
+
+    configs: List[ReplicaConfig] = []
+    dep_configs: Dict[str, DeploymentConfig] = {}
+    for node in nodes:
+        dep, name = node.deployment, names[id(node)]
+        try:
+            serialized = pickle.dumps(dep._target)
+        except Exception as exc:
+            raise TypeError(
+                f"deployment {name}: its target {dep._target!r} does not "
+                f"pickle by name ({type(exc).__name__}: {exc}); define it "
+                f"at a module's top level") from exc
+        configs.append(ReplicaConfig(
+            deployment_name=name, app_name=app_name,
+            serialized_callable=serialized,
+            init_args=tuple(
+                resolve(f"deployment {name}: init argument {i!r}", a)
+                for i, a in enumerate(node.args)),
+            init_kwargs={
+                k: resolve(f"deployment {name}: init argument {k!r}", v)
+                for k, v in node.kwargs.items()},
+            deployment_config=dep.config))
+        dep_configs[name] = dep.config
+    return names[id(app._ingress)], configs, dep_configs
 
 
 def deployment(

@@ -4,30 +4,28 @@ of :mod:`raytpu.serve.handle`.
 ``handle.remote(...)`` routes through the power-of-two-choices router;
 the response wraps an ObjectRef of the port's runtime and supports
 ``.result()``, ``await``, and being passed as an argument to another
-deployment call (resolved in the caller before it is sent).
-``handle.method.remote_streaming(...)`` returns an iterator of the
-handler's chunks, consumable while the handler still runs.
+deployment call. ``handle.method.remote_streaming(...)`` returns an
+iterator of the handler's chunks, consumable while the handler still
+runs. A handle pickles by name and routes from any process of the tree
+(a composed deployment's replica holds its children's handles): its
+router looks the controller up by name there.
 
-What differs from the JAX package: a handle does not cross processes. It
-pickles, but unpickling it in another process than the one that pickled
-it (where the serve controller runs) raises ``TypeError`` naming
-ROADMAP.md; ``remote_asgi`` and ``is_asgi`` raise with the proxy, which is
-not ported.
+What differs from the JAX package: a response passed as an argument is
+resolved in the caller before the call is sent (the port has no object
+store a replica could fetch it from); ``remote_asgi`` and ``is_asgi``
+raise with the proxy, which is not ported.
 """
 
 from __future__ import annotations
 
 import asyncio
-import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from raytpu_torch import runtime
 from raytpu_torch.runtime import ObjectRef
 from raytpu_torch.util import serve_slo, task_events
 
-_NO_CROSSING = ("a DeploymentHandle does not cross processes in the port "
-                "(handles across processes: ROADMAP.md, Queue 1)")
 _NO_PROXY = ("the port has no HTTP proxy or ASGI ingress yet (ROADMAP.md, "
              "Queue 1)")
 
@@ -38,9 +36,6 @@ class DeploymentResponse:
 
     def result(self, timeout_s: Optional[float] = None) -> Any:
         return runtime.get(self._ref, timeout=timeout_s)
-
-    def _to_object_ref(self) -> ObjectRef:
-        return self._ref
 
     def __await__(self):
         return asyncio.get_event_loop().run_in_executor(
@@ -212,16 +207,7 @@ class DeploymentHandle:
         return self.options(method_name=name)
 
     def remote(self, *args, **kwargs) -> DeploymentResponse:
-        # Resolve nested DeploymentResponses into their refs so the replica
-        # fetches results directly (composition without a round-trip here).
-        args = tuple(
-            a._to_object_ref() if isinstance(a, DeploymentResponse) else a
-            for a in args
-        )
-        kwargs = {
-            k: (v._to_object_ref() if isinstance(v, DeploymentResponse) else v)
-            for k, v in kwargs.items()
-        }
+        args, kwargs = _resolved(args, kwargs)
         ref = self._get_router().assign_request(
             self._method_name, args, kwargs, request_meta=self._meta
         )
@@ -237,14 +223,7 @@ class DeploymentHandle:
         """Call a streaming handler: returns an iterator of its chunks,
         consumable while the handler still runs (reference: Serve response
         streaming over ObjectRefGenerator)."""
-        args = tuple(
-            a._to_object_ref() if isinstance(a, DeploymentResponse) else a
-            for a in args
-        )
-        kwargs = {
-            k: (v._to_object_ref() if isinstance(v, DeploymentResponse) else v)
-            for k, v in kwargs.items()
-        }
+        args, kwargs = _resolved(args, kwargs)
         gen = self._get_router().assign_request_streaming(
             self._method_name, args, kwargs, request_meta=self._meta
         )
@@ -257,9 +236,9 @@ class DeploymentHandle:
 
     def __reduce__(self):
         return (
-            _unpickle_handle,
-            (os.getpid(), self.deployment_name, self.app_name,
-             self._method_name, self._max_ongoing, self._meta),
+            DeploymentHandle,
+            (self.deployment_name, self.app_name, self._method_name,
+             self._max_ongoing, self._meta),
         )
 
     def __eq__(self, other):
@@ -278,9 +257,11 @@ class DeploymentHandle:
         return hash((self.deployment_name, self.app_name, self._method_name))
 
 
-def _unpickle_handle(pid: int, *args) -> DeploymentHandle:
-    """A pickled handle comes back only in the process that pickled it."""
-    if os.getpid() != pid:
-        raise TypeError(f"{_NO_CROSSING}: this one was pickled in process "
-                        f"{pid} and unpickled in {os.getpid()}")
-    return DeploymentHandle(*args)
+def _resolved(args: tuple, kwargs: dict) -> Tuple[tuple, dict]:
+    """A call's arguments with every DeploymentResponse among them
+    replaced by its value (waited for here)."""
+    def value(a):
+        return a.result() if isinstance(a, DeploymentResponse) else a
+
+    return (tuple(value(a) for a in args),
+            {k: value(v) for k, v in kwargs.items()})

@@ -14,7 +14,9 @@ observability, in-process only, and the ambient tenant.
 - :mod:`~raytpu_torch.util.stepprof` — ``StepProfiler``: step times,
   MFU from an analytic FLOP count, device-memory gauges;
 - :mod:`~raytpu_torch.util.tenancy` — the ambient tenant the serve
-  router stamps into request metadata.
+  router stamps into request metadata;
+- :mod:`~raytpu_torch.util.failpoints` — named failpoints for chaos
+  tests, armed in process or through ``RAYTPU_TORCH_FAILPOINTS``.
 
 Nothing here ships to a head or serves a scrape endpoint: the port has
 no runtime to ship through (ROADMAP.md).

@@ -30,7 +30,7 @@ UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
 
 # The port's runtime layer and the JAX modules whose calls it copies.
 RUNTIME_MODULES = ("core.errors", "runtime.api", "runtime.generator",
-                   "util.tenancy")
+                   "util.tenancy", "util.failpoints")
 
 # The serve library, each module with its JAX module of the same path.
 SERVE_MODULES = ("serve/__init__.py", "serve/api.py", "serve/batching.py",

@@ -62,6 +62,32 @@ class Adder:
     def echo(self, x):
         return ("echo", x)
 
+    def count(self, n):
+        for i in range(n):
+            yield i + self.increment
+
+
+class Combiner:
+    """tests/test_serve.py:78's ingress: it calls the two deployments it
+    is bound to, through their handles."""
+
+    def __init__(self, doubler, adder):
+        self.doubler = doubler
+        self.adder = adder
+
+    def __call__(self, x):
+        d = self.doubler.remote(x).result()
+        return self.adder.remote(d).result()
+
+    def chained(self, x):
+        # A response passed as an argument of the next call.
+        return self.adder.remote(self.doubler.remote(x)).result()
+
+    def count(self, n):
+        # A stream of a composed deployment, streamed on.
+        for v in self.adder.count.remote_streaming(n):
+            yield 10 * v
+
 
 def square(x):
     return x * x
@@ -278,6 +304,33 @@ def test_get_deployment_handle(pkgs):
     jax, port = run_both(pkgs, "gdh", lambda s: deploy(s, Adder).bind(1),
                          scenario)
     assert jax == port == 2
+
+
+def test_composition(pkgs):
+    def app(serve):
+        return deploy(serve, Combiner).bind(deploy(serve, Doubler).bind(),
+                                            deploy(serve, Adder).bind(100))
+
+    jax, port = run_both(pkgs, "comp", app,
+                         lambda s, h: h.remote(7).result())
+    assert jax == port == 114
+
+
+def test_a_composition_streams_and_chains(pkgs):
+    handle = port_serve.run(
+        deploy(port_serve, Combiner).bind(
+            deploy(port_serve, Doubler).bind(),
+            deploy(port_serve, Adder).bind(100)),
+        name="comp-stream", route_prefix=None)
+    try:
+        assert list(handle.count.remote_streaming(3)) == [1000, 1010, 1020]
+        assert handle.chained.remote(7).result() == 114
+        assert handle.remote(handle.chained.remote(1)).result() == 304
+        deps = port_serve.status()["comp-stream"]["deployments"]
+        assert {name: d["status"] for name, d in deps.items()} == {
+            "Combiner": "RUNNING", "Doubler": "RUNNING", "Adder": "RUNNING"}
+    finally:
+        port_serve.delete("comp-stream")
 
 
 def test_reconfigure_user_config(pkgs):
@@ -636,6 +689,10 @@ def test_prefix_routing_decisions_equal_the_jax_package_s():
 
 
 def test_the_proxies_and_composition_raise_naming_the_roadmap(pkgs):
+    """The proxies still raise, naming ROADMAP.md; composition, which
+    raised here before, now runs: a bound node in the arguments is
+    deployed with the application and arrives as its handle, and a
+    handle among them passes as it is."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_serve.start()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -643,38 +700,61 @@ def test_the_proxies_and_composition_raise_naming_the_roadmap(pkgs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_serve.run(deploy(port_serve, Doubler).bind(), name="http",
                        _start_http=True)
-    composed = deploy(port_serve, Adder).bind(
-        deploy(port_serve, Doubler).bind())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_serve.run(composed, name="comp", route_prefix=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_serve.run(deploy(port_serve, Adder).bind(
-            port_serve.get_deployment_handle("Doubler", "x")), name="comp2")
     handle = port_serve.get_deployment_handle("Doubler", "x")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         handle.remote_asgi({}, b"")
+    composed = deploy(port_serve, Adder).bind(
+        deploy(port_serve, Doubler).bind())
+    port_serve.run(composed, name="comp", route_prefix=None)
+    port_serve.run(deploy(port_serve, Adder).bind(handle), name="comp2",
+                   route_prefix=None)
+    try:
+        for app, want in (("comp", port_serve.get_deployment_handle(
+                "Doubler", "comp")), ("comp2", handle)):
+            [(_, replica)] = get_controller().call(
+                "get_running_replicas", f"{app}#Adder")
+            got = runtime.get(runtime.call(replica, increment_of),
+                              timeout=DEADLINE_S)
+            assert isinstance(got, port_serve.DeploymentHandle)
+            assert got == want
+        assert set(port_serve.status()["comp"]["deployments"]) == {
+            "Adder", "Doubler"}
+    finally:
+        port_serve.delete("comp")
+        port_serve.delete("comp2")
     assert "comp" not in port_serve.status()
 
 
+def increment_of(replica):
+    """Run in a replica process: what its Adder was built with."""
+    return replica._callable.increment
+
+
 def unpickle_in_replica(replica, blob):
-    """Run in a replica process: unpickle ``blob`` there."""
+    """Run in a replica process: unpickle the handle ``blob`` there and
+    call it: its router finds the controller by name."""
     import pickle
 
-    return pickle.loads(blob)
+    return pickle.loads(blob).remote(21).result(timeout_s=DEADLINE_S)
 
 
 def test_a_handle_unpickled_in_another_process_raises(pkgs):
+    """It raised before; now a handle pickles by name and routes from a
+    replica process, which finds the running controller (and starts
+    none)."""
     import pickle
 
     handle = port_serve.get_deployment_handle("Doubler", "x").echo
-    blob = pickle.dumps(handle)
-    again = pickle.loads(blob)  # this process: the same handle
+    again = pickle.loads(pickle.dumps(handle))  # this process: equal
     assert again == handle and again._method_name == "echo"
+    controller = get_controller().actor.pid
     [(_, replica)] = get_controller().call("get_running_replicas",
                                            "pickle#Doubler")
-    with pytest.raises(runtime.TaskError, match="(?s)TypeError.*ROADMAP.md"):
-        runtime.get(runtime.call(replica, unpickle_in_replica, blob),
-                    timeout=DEADLINE_S)
+    blob = pickle.dumps(port_serve.get_deployment_handle("Doubler",
+                                                         "pickle"))
+    assert runtime.get(runtime.call(replica, unpickle_in_replica, blob),
+                       timeout=DEADLINE_S) == 42
+    assert get_controller().actor.pid == controller
     port_serve.delete("pickle")
 
 
