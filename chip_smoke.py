@@ -124,7 +124,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     launches of all five kernels; two decode steps inside
     ``tracing.profile`` whose trace names the paged and RMSNorm kernels.
     Readings: the per-token cost of all hooks and of each alone, each
-    run beside a run with everything off, over eight rounds in turns; the
+    run beside a run with everything off, over four rounds in turns; the
     same for single decode steps of eight in one engine; and the hooks'
     host µs a decode step;
 22. RL with remote runners (run after phase 18): PPO at phase 16's
@@ -203,6 +203,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     the handoff's bytes, seconds and GB/s; TTFT at the client with the
     pull and without it (colocated); each replica's and the controller's
     start; each replica's peak memory.
+26. tune (run after phase 23; this process launches no kernel): GPT-2
+    124M trials (full width and depth, phase 9's batch of 8 x 1024, full
+    remat, fp32 parameters, bf16 compute, AdamW) through
+    ``raytpu_torch.tune``: a grid of four learning rates under ASHA over
+    the loss (rungs at 2 and 4 steps, max_t 6), two trial processes on
+    the card at a time, a report a step, a DCP checkpoint a trial at step
+    4; the trial at the largest rate takes step 5, raises once, and is
+    retried from that checkpoint (``FailureConfig(max_failures=1)``).
+    Fails unless every trial process launched the flash kernels 24, 12
+    and 12 times a step and paged attention and RMSNorm never, without
+    JAX and under ``__mp_main__``; this process launched nothing and
+    loaded no JAX; every trial's first loss is the same to the bit; the
+    tuner's ASHA decisions equal a fresh scheduler's fed the same results
+    in the same order, and each trial it stopped keeps no result past its
+    rung; the retried trial resumed at step 5, its loss there within
+    1e-3 of the first attempt's; the best result has the lowest final
+    loss; and no trial process is left. Readings: each trial's start
+    (process creation to its first report), step ms alone and with two
+    trials on the card at once beside phase 9's bare loop and phase 23's
+    trainer, the tuner's overhead (fit seconds less the trials' step
+    time), the retry's seconds (the crash to the resumed first report),
+    peak memory a trial.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -2332,10 +2354,10 @@ def phase_disagg(card_line: str) -> dict:
 # adjacent pair a flag arm: off then on in even rounds, on then off in
 # odd ones (off, on, on, off, ...), so each arm is read against an off run
 # beside it, first as often as second.
-# (10 rounds until PR 14 cut them to 8, PR 15 to 6: with phase 25 the
-# whole script took 628.5 s at 8 rounds on one machine, over half its
-# 1200 s limit.)
-OBS_ROUNDS = 6
+# (10 rounds at first, cut to 8, 6 and 4 as phases were added: with
+# phase 26 the whole script took 752 s at 6 rounds on one host, over half
+# its 1200 s limit.)
+OBS_ROUNDS = 4
 OBS_ARMS = {"off": (False, False, False), "all": (True, True, True),
             "events": (True, False, False), "spans": (False, True, False),
             "profiler": (False, False, True)}
@@ -5289,6 +5311,355 @@ def phase_disagg_serve(card_line: str, disagg: dict) -> dict:
     return result
 
 
+# ---- phase 26: tune --------------------------------------------------
+
+# GPT-2 124M trials through raytpu_torch.tune, sharing the card: phase
+# 9's model, batch, remat and AdamW, a learning rate a trial; ASHA over
+# the loss with rungs at 2 and 4 steps (max_t 6, factor 2), two trials at
+# a time. Each trial saves its state after step TUNE_CKPT_STEP; the trial
+# at TUNE_CRASH_LR then takes one more step and raises once, and the
+# tuner retries it from that checkpoint (FailureConfig(max_failures=1)).
+TUNE_LRS = (6e-4, 3e-4, 1e-4, 3e-5)
+TUNE_CRASH_LR = 6e-4  # the largest: its loss leads each rung it reaches
+TUNE_MAX_T = 6
+TUNE_GRACE = 2
+TUNE_FACTOR = 2
+TUNE_CONCURRENT = 2
+TUNE_CKPT_STEP = 4
+TUNE_FIT_DEADLINE_S = 300.0
+
+
+def process_started_at() -> float:
+    """This process's creation time (seconds since the epoch), from
+    /proc: its start in clock ticks after boot, plus the boot time."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(line.split()[1]) for line in f
+                    if line.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def gpt2_tune_trainable(config):
+    """A trial (it runs in the trial's process): GPT-2 at ``config['lr']``
+    for steps up to ``max_t``, one report a step (loss, step ms, the
+    step's wall-clock span, this process's launches and steps, peak
+    memory; the first also the process's creation time, the split of its
+    start and its facts).
+    After step ``ckpt_step`` it saves model and AdamW state with
+    ``save_pytree`` and reports it as a checkpoint; a trial resumed from
+    it restores the state in place and goes on at the next step. The
+    trial at ``crash_lr``, on its first attempt, takes one step past the
+    checkpoint, writes that step's loss, the time and its launches into
+    ``marker`` and raises."""
+    from torch.distributed.checkpoint.state_dict import (get_state_dict,
+                                                         set_state_dict)
+
+    from raytpu_torch import train
+    from raytpu_torch.models.gpt2 import GPT2, make_train_step
+
+    started = process_started_at()
+    entered = time.time()
+    dev = train.get_context().device
+    cfg = config["gpt2"]
+    _reset_counters()
+    model = GPT2(cfg, device=dev, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=config["lr"],
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1,
+                            foreach=True)
+    step = make_train_step(model, opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (config["batch"], cfg.block_size))).to(dev)
+    resume = train.get_checkpoint()
+    done = 0
+    if resume is not None:
+        model_sd, optim_sd = get_state_dict(model, opt)
+        tree = train.restore_pytree(resume, target={
+            "model": model_sd, "optim": optim_sd,
+            "step": torch.zeros((), dtype=torch.int64)})
+        set_state_dict(model, opt, model_state_dict=tree["model"],
+                       optim_state_dict=tree["optim"])
+        done = int(tree["step"])
+    built = time.time()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    first = True
+    for s in range(done + 1, config["max_t"] + 1):
+        t0 = time.time()
+        p0 = time.perf_counter()
+        loss = step(tokens).item()  # waits for the step's end
+        metrics = {"loss": loss, "step": s, "training_iteration": s,
+                   "step_ms": (time.perf_counter() - p0) * 1e3,
+                   "span": [t0, time.time()], "steps_here": s - done,
+                   "pid": os.getpid(),
+                   "launches": {n: c.count
+                                for n, c in kernel_counters().items()},
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                   if dev.type == "cuda" else 0.0}
+        if first:
+            metrics.update(started_at=started, resumed_from=done,
+                           facts=process_facts(), start_split={
+                               "to_trainable_s": entered - started,
+                               "build_s": built - entered,
+                               "first_step_s": metrics["span"][1] - built})
+            first = False
+        if s == config["ckpt_step"]:
+            model_sd, optim_sd = get_state_dict(model, opt)
+            ckpt = train.save_pytree(
+                {"model": model_sd, "optim": optim_sd,
+                 "step": torch.tensor(s)},
+                tempfile.mkdtemp(prefix="gpt2-trial-"))
+            train.report(metrics, checkpoint=ckpt)
+            shutil.rmtree(ckpt.path)  # report() staged its own copy
+        else:
+            train.report(metrics)
+        if (config["lr"] == config["crash_lr"]
+                and s == config["ckpt_step"] + 1
+                and not os.path.exists(config["marker"])):
+            with open(config["marker"], "w") as f:
+                json.dump({"loss": loss, "at": time.time(),
+                           "pid": os.getpid(),
+                           "step_ms": metrics["step_ms"],
+                           "launches": metrics["launches"]}, f)
+            raise RuntimeError("planted crash after the checkpoint")
+
+
+class RecordingScheduler:
+    """A scheduler that hands every call the tuner makes to the one it
+    wraps, and logs the results it was fed, their decisions and the
+    removals, in order."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def on_result(self, trial, result):
+        d = self.inner.on_result(trial, result)
+        self.calls.append(("result", trial.trial_id, dict(result), d))
+        return d
+
+    def on_trial_remove(self, trial):
+        self.calls.append(("remove", trial.trial_id, None, None))
+        self.inner.on_trial_remove(trial)
+
+    def exploit_target(self, trial):
+        return self.inner.exploit_target(trial)
+
+
+def tune_asha():
+    from raytpu_torch.tune import ASHAScheduler
+
+    return ASHAScheduler(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                         grace_period=TUNE_GRACE,
+                         reduction_factor=TUNE_FACTOR)
+
+
+def replay_asha(calls) -> list:
+    """The decisions of a fresh ASHAScheduler fed ``calls`` in order."""
+    import types
+
+    fresh = tune_asha()
+    out = []
+    for kind, tid, result, _ in calls:
+        trial = types.SimpleNamespace(trial_id=tid)
+        if kind == "result":
+            out.append(fresh.on_result(trial, result))
+        else:
+            fresh.on_trial_remove(trial)
+    return out
+
+
+def run_tune(device: str, gcfg, batch: int) -> dict:
+    """The experiment: a Tuner over ``gpt2_tune_trainable``, one trial a
+    learning rate, ASHA, two at a time, one retry allowed. Its grid, the
+    scheduler's log, the crash marker and the fit's seconds."""
+    import multiprocessing
+
+    from raytpu_torch import tune
+    from raytpu_torch.train import FailureConfig, RunConfig
+
+    storage = tempfile.mkdtemp(prefix="tune-")
+    marker = os.path.join(storage, "crashed")
+    asha = RecordingScheduler(tune_asha())
+    before = {p.pid for p in multiprocessing.active_children()}
+    tuner = tune.Tuner(
+        gpt2_tune_trainable,
+        param_space={"lr": tune.grid_search(list(TUNE_LRS)), "gpt2": gcfg,
+                     "batch": batch, "max_t": TUNE_MAX_T,
+                     "ckpt_step": TUNE_CKPT_STEP,
+                     "crash_lr": TUNE_CRASH_LR, "marker": marker},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", scheduler=asha,
+            max_concurrent_trials=TUNE_CONCURRENT, device=device),
+        run_config=RunConfig(name="gpt2-tune", storage_path=storage,
+                             failure_config=FailureConfig(max_failures=1)))
+    out = {}
+    t0 = time.perf_counter()
+    fit = threading.Thread(target=lambda: out.update(grid=tuner.fit()),
+                           daemon=True)
+    fit.start()
+    fit.join(TUNE_FIT_DEADLINE_S)
+    fit_s = time.perf_counter() - t0
+    if fit.is_alive():
+        raise AssertionError(f"tune: fit did not end in {fit_s:.0f} s")
+    if "grid" not in out:
+        raise AssertionError("tune: fit raised")
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    crash = None
+    if os.path.exists(marker):
+        with open(marker) as f:
+            crash = json.load(f)
+    shutil.rmtree(storage, ignore_errors=True)
+    return {"grid": out["grid"], "calls": asha.calls, "crash": crash,
+            "fit_s": fit_s, "left": left}
+
+
+def tune_readings(run: dict, per_step: dict) -> dict:
+    """The experiment's checks (raising on the first that fails) and its
+    readings."""
+    grid = run["grid"]
+    trials = grid._trials
+    by_lr = {t.config["lr"]: t for t in trials}
+    # Every report the tuner kept (the crashed attempt's step past the
+    # checkpoint was rolled back; the crash marker holds its numbers).
+    reports = [(t, m) for t in trials for m in t.history]
+    firsts = [m for _, m in reports if "facts" in m]
+    for m in firsts:
+        if m["facts"]["forbidden"] or (
+                m["facts"]["main"][1] == "chip_smoke.py"
+                and m["facts"]["main"][0] != "__mp_main__"):
+            raise AssertionError(f"tune: a trial process: {m['facts']}")
+    # Launches: each report carries its process's counts after
+    # steps_here steps.
+    for t, m in reports:
+        check_launches(m["launches"], {k: v * m["steps_here"]
+                                       for k, v in per_step.items()})
+    if run["crash"] is not None:
+        check_launches(run["crash"]["launches"],
+                       {k: v * (TUNE_CKPT_STEP + 1)
+                        for k, v in per_step.items()})
+    fresh = [m["loss"] for _, m in reports if m["step"] == 1]
+    if len(fresh) != len(TUNE_LRS) or len(set(fresh)) != 1:
+        raise AssertionError(f"tune: first losses differ: {fresh}")
+    decisions = [c[3] for c in run["calls"] if c[0] == "result"]
+    replayed = replay_asha(run["calls"])
+    if decisions != replayed:
+        raise AssertionError(f"tune: ASHA decisions {decisions} against "
+                             f"the replay's {replayed}")
+    # A trial stopped at a rung keeps no result past it, and ends
+    # STOPPED (TERMINATED where its loop had finished by that poll).
+    results = [c for c in run["calls"] if c[0] == "result"]
+    stops = {c[1]: c[2]["training_iteration"]
+             for c, d in zip(results, replayed)
+             if d == "STOP" and c[2]["training_iteration"] < TUNE_MAX_T}
+    for t in trials:
+        if t.trial_id in stops and not (
+                t.history[-1]["training_iteration"] == stops[t.trial_id]
+                and t.state in ("STOPPED", "TERMINATED")):
+            raise AssertionError(
+                f"tune: {t.trial_id} stopped at {stops[t.trial_id]} but "
+                f"{t.state} after {len(t.history)} results")
+    crashed = by_lr[TUNE_CRASH_LR]
+    resumed = [m for m in crashed.history if m.get("resumed_from")]
+    if not (run["crash"] is not None and crashed.failures == 1
+            and crashed.state != "ERROR" and len(resumed) == 1
+            and resumed[0]["resumed_from"] == TUNE_CKPT_STEP
+            and resumed[0]["step"] == TUNE_CKPT_STEP + 1
+            and [m["step"] for m in crashed.history]
+            == list(range(1, len(crashed.history) + 1))):
+        raise AssertionError(
+            f"tune: the retry: crash {run['crash']}, failures "
+            f"{crashed.failures}, state {crashed.state}, steps "
+            f"{[m['step'] for m in crashed.history]}")
+    resume_rel = abs(resumed[0]["loss"] - run["crash"]["loss"]) \
+        / abs(run["crash"]["loss"])
+    if not resume_rel <= RESUME_LOSS_TOL:
+        raise AssertionError(f"tune: resumed loss {resumed[0]['loss']} "
+                             f"against the first attempt's "
+                             f"{run['crash']['loss']}")
+    best = grid.get_best_result()
+    finals = {t.trial_id: t.last_result["loss"] for t in trials}
+    if best.metrics["loss"] != min(finals.values()) or grid.errors:
+        raise AssertionError(f"tune: best {best.metrics['loss']} of "
+                             f"{finals}, errors {grid.errors}")
+    if run["left"]:
+        raise AssertionError(f"tune: trial processes left: {run['left']}")
+
+    # Readings. A step is shared when another trial's step overlaps it;
+    # a process's first step (warm-up, allocation) is left out.
+    alone, shared = [], []
+    for t, m in reports:
+        if m["steps_here"] == 1:
+            continue
+        lo, hi = m["span"]
+        overlapped = any(a < hi and lo < b for u, o in reports
+                         if u is not t for a, b in [o["span"]])
+        (shared if overlapped else alone).append(m["step_ms"])
+    steps_s = (sum(m["step_ms"] for _, m in reports)
+               + run["crash"]["step_ms"]) / 1e3
+    # Each process's launches: its last report's counts (the crashed
+    # attempt's from its marker).
+    totals = {m["pid"]: m["launches"] for _, m in reports}
+    totals[run["crash"]["pid"]] = run["crash"]["launches"]
+    return {
+        "trials": {f"{t.config['lr']:g}": {
+            "state": t.state, "steps": len(t.history),
+            "losses": [m["loss"] for m in t.history],
+            "failures": t.failures} for t in trials},
+        "start_s": [m["span"][1] - m["started_at"] for m in firsts],
+        # Process creation to the trainable (spawn, imports, the worker's
+        # set-up), the model, optimizer and any restore, the first step.
+        "start_split": [m["start_split"] for m in firsts],
+        "step_ms_alone": quantiles_ms([x / 1e3 for x in alone])
+        if alone else "not measured",
+        "step_ms_shared": quantiles_ms([x / 1e3 for x in shared])
+        if shared else "not measured",
+        "n_alone": len(alone), "n_shared": len(shared),
+        "fit_s": run["fit_s"], "steps_s": steps_s,
+        "overhead_s": run["fit_s"] - steps_s,
+        "retry_s": resumed[0]["span"][1] - run["crash"]["at"],
+        "peak_gb": max(m["peak_gb"] for _, m in reports),
+        "first_loss": fresh[0], "resumed_loss": resumed[0]["loss"],
+        "crashed_attempt_loss": run["crash"]["loss"],
+        "resume_loss_rel": resume_rel,
+        "decisions": decisions, "stopped": len(stops),
+        "best_lr": best.config["lr"], "best_loss": best.metrics["loss"],
+        "launches": {k: sum(c[k] for c in totals.values())
+                     for k in per_step},
+    }
+
+
+def phase_tune(card_line: str, bare: dict, trainlib: dict) -> dict:
+    """GPT-2 124M trials through ``raytpu_torch.tune`` sharing the card:
+    ASHA over four learning rates, two trials at a time, a checkpoint a
+    trial at step 4, one trial crashing once past it and retried from it.
+    Fails unless each trial process launched the flash kernels 24, 12
+    and 12 times a step (paged attention and RMSNorm 0) without JAX, the
+    first losses are equal to the bit, the tuner's ASHA decisions equal a
+    fresh scheduler's fed the same results, the retried trial resumed at
+    step 4 within RESUME_LOSS_TOL of its first attempt's step-5 loss,
+    the best result is the lowest final loss, and no trial process is
+    left (this process launches none: main checks)."""
+    from raytpu_torch.models.gpt2 import GPT2Config
+
+    t_phase = time.perf_counter()
+    gcfg = GPT2Config.small()
+    n = gcfg.n_layer
+    per_step = {"flash_forward": 2 * n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n, "paged_attention": 0, "rmsnorm": 0}
+    result = tune_readings(run_tune("cuda", gcfg, TRAIN_BATCH), per_step)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0]
+                    in ("jax", "jaxlib", "flax", "raytpu"))
+    if loaded:
+        raise AssertionError(f"tune: this process loaded {loaded}")
+    result["bare_step_ms"] = bare["step_ms"]
+    result["trainer_step_ms"] = trainlib["gpt2"]["step_ms"]
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tune] {json.dumps(result)} | {card_line}")
+    return result
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -5400,6 +5771,13 @@ def main() -> int:
     trainlib = phase_trainlib(card_line, train)
     check_launches({name: c.count for name, c in counters.items()},
                    {name: 0 for name in counters})
+    torch.cuda.empty_cache()
+    # The trial processes launch the kernels; this process launches none.
+    for counter in counters.values():
+        counter.reset()
+    tuned = phase_tune(card_line, train, trainlib)
+    check_launches({name: c.count for name, c in counters.items()},
+                   {name: 0 for name in counters})
     runs = {"serve": serve["launches"],
             "observability": observability["launches"],
             "deployment": deployment["launches"],
@@ -5410,7 +5788,7 @@ def main() -> int:
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],
             "mixtral_train": mixtral["launches"], "rllib": rllib,
-            "trainlib": trainlib["launches"]}
+            "trainlib": trainlib["launches"], "tune": tuned["launches"]}
     log(json.dumps(kernel_line(cases, runs)))
     log(card())
     log(json.dumps({"ok": True, "device": {

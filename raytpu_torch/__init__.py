@@ -2,7 +2,7 @@
 
 Ported so far: serving Llama and GPT-2 through the paged inference
 engine and ``LLMDeployment``, training GPT-2 (with its dropout), Llama
-and Mixtral on one card, RLlib, and the Train library:
+and Mixtral on one card, RLlib, the Train library and Tune:
 
 - :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
   two kernels, dQ and dK/dV), paged attention and RMSNorm, each a CUDA
@@ -37,7 +37,11 @@ and Mixtral on one card, RLlib, and the Train library:
   processes of that layer with one ``torch.distributed`` group (NCCL on
   the card, gloo on the CPU), sessions and ``report``, checkpoints
   through ``torch.distributed.checkpoint``, gang restarts; its models,
-  the fashion-MNIST MLP and ResNet, are in :mod:`raytpu_torch.models`.
+  the fashion-MNIST MLP and ResNet, are in :mod:`raytpu_torch.models`;
+- :mod:`raytpu_torch.tune` — the Tune library: searchers (grid, random,
+  TPE, BOHB, ask/tell), schedulers (FIFO, ASHA, HyperBand, PBT), trials
+  as Train worker processes (on the card, sharing it, or on the CPU),
+  crash retries from checkpoints, and ``Tuner.restore``.
 
 The port imports nothing from ``raytpu`` or JAX; the host-side modules it
 needs are its own copies. Every entry point runs on ``cuda`` unless the

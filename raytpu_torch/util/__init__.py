@@ -16,7 +16,10 @@ observability, in-process only, and the ambient tenant.
 - :mod:`~raytpu_torch.util.tenancy` — the ambient tenant the serve
   router stamps into request metadata;
 - :mod:`~raytpu_torch.util.failpoints` — named failpoints for chaos
-  tests, armed in process or through ``RAYTPU_TORCH_FAILPOINTS``.
+  tests, armed in process or through ``RAYTPU_TORCH_FAILPOINTS``;
+- :mod:`~raytpu_torch.util.events` — structured events (severity,
+  label, fields) in a per-process ring, and a JSONL file where a log
+  directory is set.
 
 Nothing here ships to a head or serves a scrape endpoint: the port has
 no runtime to ship through (ROADMAP.md).

@@ -46,6 +46,11 @@ TRAIN_MODULES = ("train/__init__.py", "train/config.py",
                  "train/trainer.py", "train/torch_trainer.py",
                  "models/mlp.py", "models/resnet.py")
 
+# The Tune library and the events module its retries record through,
+# each with its JAX module of the same path.
+TUNE_MODULES = ("tune/__init__.py", "tune/search.py", "tune/schedulers.py",
+                "tune/external.py", "tune/tuner.py", "util/events.py")
+
 # Run in a fresh interpreter: this test process has JAX loaded
 # (tests/conftest.py imports it).
 _IMPORT_ALL = """
@@ -322,6 +327,73 @@ def test_train_workers_import_no_jax_and_nothing_of_raytpu(tmp_path):
     assert result.error is None
     assert result.metrics["forbidden"] == []
     assert {p.pid for p in multiprocessing.active_children()} <= before
+
+
+def test_tune_modules_are_held_to_the_rules():
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for name in TUNE_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+    import raytpu.tune as jtune
+
+    import raytpu_torch.tune as ptune
+
+    assert ptune.__all__ == jtune.__all__
+    assert all(hasattr(ptune, n) for n in ptune.__all__)
+
+
+def test_importing_tune_loads_no_jax_cloudpickle_or_raytpu():
+    code = ("import json, sys; import raytpu_torch.tune, "
+            "raytpu_torch.util.events; "
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
+        ".__init__", "") for m in TUNE_MODULES} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_tune_trials_raise_without_a_card(monkeypatch, tmp_path):
+    # A trial on "cuda" (the default) raises at fit, before any trial
+    # process starts; so does a trainer trainable on the card.
+    import multiprocessing
+
+    from raytpu_torch import train, tune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = {p.pid for p in multiprocessing.active_children()}
+    rc = train.RunConfig(storage_path=str(tmp_path))
+    for tuner in (
+            tune.Tuner(report_forbidden, run_config=rc),
+            tune.Tuner(report_forbidden, run_config=rc,
+                       tune_config=tune.TuneConfig(device="cuda")),
+            tune.Tuner(train.DataParallelTrainer(report_forbidden),
+                       run_config=rc)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tuner.fit()
+    assert {p.pid for p in multiprocessing.active_children()} <= before
+
+
+def test_tune_trials_import_no_jax_and_nothing_of_raytpu(tmp_path):
+    import threading
+
+    from raytpu_torch import train, tune
+
+    out = []
+    tuner = tune.Tuner(report_forbidden,
+                       tune_config=tune.TuneConfig(device="cpu"),
+                       run_config=train.RunConfig(storage_path=str(tmp_path)))
+    fit = threading.Thread(target=lambda: out.append(tuner.fit()),
+                           daemon=True)
+    fit.start()
+    fit.join(180)  # a hang fails here, not at the suite's limit
+    assert not fit.is_alive()
+    [grid] = out
+    assert not grid.errors
+    assert grid[0].metrics["forbidden"] == []
 
 
 # The JAX package's RL modules, each with its port (raytpu_torch/rllib).
