@@ -160,7 +160,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     is left;
 24. serve app (run after phase 20, once this process holds no Llama):
     Llama-2-7B at full width and depth (bf16, kernels on, phase 19's
-    engine, seed 0) as two replica processes behind ``serve.run``, phase
+    engine, seed 0) as two replica processes behind ``serve.start`` and
+    ``serve.run`` (route ``/llm``, the HTTP proxy serving it), phase
     19's eight prompts and a stream closed after 4 tokens from client
     threads through ``handle.generate.remote_streaming``. Fails unless
     every stream takes its tokens (their agreement with phase 5's is
@@ -175,7 +176,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     leaves no replica process. Readings: each replica's start (spawn to
     ready; the replacement's too), client TTFT and the decode rate beside
     phase 19's, the router's pick (probes included) a request, each
-    replica's peak memory;
+    replica's peak memory. Phase 27 runs inside it;
 25. P/D through serve (run after phase 24, once that application is
     shut down): a prefill and a decode deployment of Llama-2-7B (full
     width and depth, bf16, kernels on, phase 19's engine, seed 0), each
@@ -224,7 +225,37 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     trials on the card at once beside phase 9's bare loop and phase 23's
     trainer, the tuner's overhead (fit seconds less the trials' step
     time), the retry's seconds (the crash to the resumed first report),
-    peak memory a trial.
+    peak memory a trial;
+27. HTTP ingress (inside phase 24, after its handle traffic and before
+    its replica kill; tracing armed for the whole of phase 24, before its
+    proxy, controller and replicas spawn): phase 24's app is a
+    module-level subclass of ``LLMDeployment`` whose ``__call__`` reads
+    ``{"prompt", "max_new_tokens"}`` and yields ``generate``'s tokens, at
+    route ``/llm`` behind the port's HTTP proxy (``serve.start``). From
+    client threads on ``http.client``, one a stream, over SSE: phase 19's
+    eight prompts with phase 24's arrival events, a stream the client
+    drops after 4 tokens, a 404, ``/-/healthz`` and ``/-/routes``, one
+    request alone for the trace, and a prompt over ``max_model_len``.
+    Fails unless every stream takes its 32 tokens and ``[DONE]``, each
+    stream's first event reaches the client before its replica yields
+    its last token, the dropped stream leaves no page held, the
+    over-long prompt ends in an in-band ``event: error``, the replicas
+    launch paged attention, the flash forward and RMSNorm (65 a
+    forward) while this process and the proxies launch none, no process
+    of the phase loads JAX, ``cluster_timeline()`` holds a track per
+    process labelled by identity (the driver, the proxy, the controller,
+    both replicas) with a flow pair from the proxy's ``rpc.client.*`` to
+    a replica's ``rpc.server.*`` and no dangling parent in the traced
+    request's trace, and ``serve.shutdown()`` leaves no proxy,
+    controller or replica process. Where ``grpc`` imports, a unary and
+    a stream call through the gRPC proxy reach the same app; else the
+    phase prints ``grpc: absent``. Readings: the proxy's start (spawn to
+    ``ready()``) and the start split of every process of phase 24,
+    client TTFT and tokens/s through HTTP beside the handle leg's, the
+    traced request's TTFT split (client send, the proxy's
+    ``rpc.client``, the replica's ``rpc.server``, its first prefill
+    span, the first SSE byte), the tracing's cost a call, the
+    timeline's size. Agreement with the handle leg's tokens is reported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -233,10 +264,18 @@ kernel with its launches, error, times and bound.
 
 from __future__ import annotations
 
+import time
+
+# When this process's interpreter began to run this script (a worker
+# that re-imports it as ``__mp_main__``: its start split).
+PYTHON_UP = time.time()
+
 import contextlib
 import copy
 import dataclasses
 import gc
+import http.client
+import importlib.util
 import json
 import os
 import pathlib
@@ -246,10 +285,14 @@ import subprocess
 import sys
 import tempfile
 import threading
-import time
 
 import numpy as np
 import torch
+
+# When this script's own imports (numpy, torch) were done.
+SCRIPT_IMPORTED = time.time()
+
+from raytpu_torch.inference.serving import LLMDeployment
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
 # on the tensor cores, fp32 outside them.
@@ -448,6 +491,10 @@ MIXTRAL_E2E_SEED = 5
 
 
 def log(*args) -> None:
+    """Print a line; a phase's line (``[name] ...``) ends with the
+    script's seconds so far, where its time goes."""
+    if args and str(args[0]).startswith("["):
+        args = (*args, f"| t={time.time() - PYTHON_UP:.1f} s")
     print(*args, flush=True)
 
 
@@ -2356,8 +2403,11 @@ def phase_disagg(card_line: str) -> dict:
 # beside it, first as often as second.
 # (10 rounds at first, cut to 8, 6 and 4 as phases were added: with
 # phase 26 the whole script took 752 s at 6 rounds on one host, over half
-# its 1200 s limit.)
-OBS_ROUNDS = 4
+# its 1200 s limit; cut to 2 with phase 27, the least that still reads
+# each arm once first and once second. Its result was unresolved,
+# +-20-60 %, at every count tried; its on/off checks of tokens and
+# launches run every round.)
+OBS_ROUNDS = 2
 OBS_ARMS = {"off": (False, False, False), "all": (True, True, True),
             "events": (True, False, False), "spans": (False, True, False),
             "profiler": (False, False, True)}
@@ -4719,19 +4769,22 @@ def serve_app_streams(handle, prompts: dict, closed: list) -> dict:
     greedy tokens, arriving by events (p0-p3 at once, p4, p5 and the
     ``closed`` stream, closed after CLOSED_AFTER tokens, at p1's first
     token, p6 and p7 at p4's); client TTFT from the call to the first
-    token, routing included."""
+    token, routing included; each request's id and the wall-clock times
+    of its call and first token (``requests``)."""
     tokens = {rid: [] for rid in [*prompts, "closed"]}
-    started, first_at, errors = {}, {}, []
+    started, first_at, errors, requests = {}, {}, [], {}
     got = {rid: threading.Event() for rid in tokens}
 
     def consume(rid, prompt, n):
         started[rid] = time.perf_counter()
+        called = time.time()
         try:
             gen = handle.generate.remote_streaming(prompt, max_new_tokens=n)
             for tok in gen:
                 tokens[rid].append(tok)
                 if len(tokens[rid]) == 1:
                     first_at[rid] = time.perf_counter()
+                    requests[rid] = (gen.request_id, called, time.time())
                 if len(tokens[rid]) == (CLOSED_AFTER if rid == "closed"
                                         else 1):
                     got[rid].set()
@@ -4770,11 +4823,527 @@ def serve_app_streams(handle, prompts: dict, closed: list) -> dict:
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"streams failed or hung: {errors}")
     ttft = [first_at[r] - started[r] for r in prompts]
-    return {"tokens": tokens, "wall_s": wall,
+    return {"tokens": tokens, "wall_s": wall, "requests": requests,
             "client_ttft_p50_s": float(np.percentile(ttft, 50)),
             "client_ttft_p95_s": float(np.percentile(ttft, 95)),
             "client_tokens_per_s": sum(len(tokens[r]) for r in prompts)
             / wall}
+
+
+# ---- phase 27: HTTP ingress, inside phase 24's app ---------------------
+
+HTTP_ROUTE = "/llm"
+# Over the engine's max_model_len (2048): an in-band error, no page.
+OVERLONG_PROMPT = 2100
+# No-op calls on a replica a turn of the tracing's cost reading.
+TRACE_COST_CALLS = 100
+
+
+class HttpLLMDeployment(LLMDeployment):
+    """Phase 24's deployment with an HTTP ingress: user code, as a serve
+    user writes it (``raytpu_torch`` gains nothing for it). ``__call__``
+    reads ``{"prompt": [ids], "max_new_tokens": n}`` and yields the
+    tokens of ``generate``; a body with ``"stream": false`` (a unary
+    gRPC call) gets them as one list. It keeps each stream's request id
+    and the wall-clock time of its last token by the client's
+    ``X-Stream`` header."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.last_token_at = {}
+        self.request_ids = {}
+
+    def __call__(self, request):
+        body = request.json()
+        tokens = self.generate(body["prompt"],
+                               max_new_tokens=body["max_new_tokens"])
+        if not body.get("stream", True):
+            return list(tokens)
+        return self._streamed(tokens, request.headers.get("X-Stream", ""))
+
+    def _streamed(self, tokens, name: str):
+        from raytpu_torch.serve._private.replica import get_request_context
+
+        # Runs under the request's context: the id its router minted.
+        self.request_ids[name] = get_request_context().get("request_id")
+        try:
+            for tok in tokens:
+                self.last_token_at[name] = time.time()
+                yield tok
+        finally:
+            tokens.close()  # a dropped stream's request ends here
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_split(instance) -> dict:
+    """Run inside a worker process (through ``runtime.call``): seconds
+    from its owner's ``Process.start`` to each stage of its start — the
+    interpreter running this script (``PYTHON_UP``), this script's
+    imports (numpy, torch), the runtime's worker body entered (the
+    ``raytpu_torch`` package imported), its class unpickled (its module
+    imported), its instance built. Stages before the body read None
+    where this script is not the process's main module."""
+    from raytpu_torch.runtime import api
+
+    m = api.START_MARKS
+    main = sys.modules.get("__main__")
+    up = getattr(main, "PYTHON_UP", None)
+    imported = getattr(main, "SCRIPT_IMPORTED", None)
+    stages = [("python_up", up), ("script_imports", imported),
+              ("runtime_entered", m["entered"]),
+              ("class_imported", m["imported"]),
+              ("constructed", m["constructed"])]
+    out, last = {"spawned": m["spawned"]}, m["spawned"]
+    for name, at in stages:
+        out[name] = None if at is None else at - last
+        last = at if at is not None else last
+    out["total_s"] = m["constructed"] - m["spawned"]
+    return out
+
+
+def worker_start_split(worker) -> dict:
+    """The start split of a worker, asked through its handle."""
+    from raytpu_torch import runtime
+
+    return runtime.get(runtime.call(worker, start_split),
+                       timeout=SERVE_APP_DEADLINE_S)
+
+
+def noop(instance) -> None:
+    """A call that does nothing: the tracing's cost reading."""
+
+
+def set_tracing(instance, on: bool) -> None:
+    """Run inside a worker: arm or disarm its tracing."""
+    from raytpu_torch.util import tracing
+
+    if on:
+        tracing.enable_tracing(sample_rate=1.0)
+    else:
+        tracing.disable_tracing()
+
+
+def tracing_cost(replica) -> dict:
+    """µs a no-op call's round trip on ``replica`` with tracing on in
+    this process and the replica, and off in both, in turns (off, on,
+    on, off, twice), TRACE_COST_CALLS calls a turn; the cost is the
+    median on turn less the median off turn."""
+    from raytpu_torch import runtime
+    from raytpu_torch.util import tracing
+
+    def turn(on: bool) -> float:
+        runtime.get(runtime.call(replica, set_tracing, on), timeout=60)
+        if on:
+            tracing.enable_tracing(sample_rate=1.0)
+        else:
+            tracing.disable_tracing()
+        t0 = time.perf_counter()
+        for _ in range(TRACE_COST_CALLS):
+            runtime.get(runtime.call(replica, noop), timeout=60)
+        return (time.perf_counter() - t0) / TRACE_COST_CALLS * 1e6
+
+    times = {"off": [], "on": []}
+    try:
+        for on in (False, True, True, False) * 2:
+            times["on" if on else "off"].append(turn(on))
+    finally:
+        runtime.get(runtime.call(replica, set_tracing, True), timeout=60)
+        tracing.enable_tracing(sample_rate=1.0)
+    return {"off_us": times["off"], "on_us": times["on"],
+            "cost_us": float(np.median(times["on"])
+                             - np.median(times["off"]))}
+
+
+def sse_request(port: int, body: dict, name: str, close_after: int = 0,
+                first: threading.Event = None) -> dict:
+    """One POST to the proxy's ``HTTP_ROUTE`` accepting
+    ``text/event-stream``, read line by line on ``http.client``: its
+    status, Content-Type, tokens, ``[DONE]``, an in-band error, the
+    wall-clock times of the send and of each event (``first`` is set at
+    the first). ``close_after`` tokens, where set, and the client drops
+    the connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=STREAM_DEADLINE_S)
+    out = {"tokens": [], "done": False, "error": None, "event_at": []}
+    try:
+        out["sent_at"] = time.time()
+        conn.request("POST", HTTP_ROUTE, body=json.dumps(body).encode(),
+                     headers={"Accept": "text/event-stream",
+                              "Content-Type": "application/json",
+                              "X-Stream": name})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        out["content_type"] = resp.getheader("Content-Type")
+        event = None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                out["event_at"].append(time.time())
+                if first is not None:
+                    first.set()
+                data = line[len("data: "):]
+                if event == "error":
+                    out["error"] = data
+                elif data == "[DONE]":
+                    out["done"] = True
+                else:
+                    out["tokens"].append(int(data))
+                    if len(out["tokens"]) == close_after:
+                        break
+            elif not line:
+                event = None
+    finally:
+        conn.close()
+    return out
+
+
+def http_get(port: int, path: str) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def serve_http_streams(port: int, prompts: dict, closed: list) -> dict:
+    """Phase 24's traffic over HTTP: each prompt on its own client thread
+    (``sse_request``), SERVE_NEW_TOKENS greedy tokens, by the same
+    arrival events as ``serve_app_streams`` (p0-p3 at once, p4, p5 and
+    the ``closed`` stream, dropped after CLOSED_AFTER tokens, at p1's
+    first token, p6 and p7 at p4's); client TTFT from the send to the
+    first event."""
+    results, errors = {}, []
+    got = {rid: threading.Event() for rid in [*prompts, "closed"]}
+
+    def consume(rid):
+        body = ({"prompt": prompts[rid], "max_new_tokens": SERVE_NEW_TOKENS}
+                if rid in prompts else
+                {"prompt": closed, "max_new_tokens": OPEN_ENDED})
+        try:
+            results[rid] = sse_request(
+                port, body, rid, first=got[rid],
+                close_after=CLOSED_AFTER if rid == "closed" else 0)
+        except Exception as exc:  # reported below, not lost in the thread
+            errors.append((rid, repr(exc)))
+            got[rid].set()
+
+    def arrive(*rids):
+        out = []
+        for rid in rids:
+            t = threading.Thread(target=consume, args=(rid,), daemon=True)
+            t.start()
+            out.append(t)
+        return out
+
+    def first_token(rid):
+        if not got[rid].wait(STREAM_DEADLINE_S):
+            raise AssertionError(f"{rid}: no token within "
+                                 f"{STREAM_DEADLINE_S} s")
+
+    t0 = time.perf_counter()
+    threads = arrive("p0", "p1", "p2", "p3")
+    first_token("p1")
+    threads += arrive("p4", "p5", "closed")
+    first_token("p4")
+    threads += arrive("p6", "p7")
+    for t in threads:
+        t.join(timeout=STREAM_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"HTTP streams failed or hung: {errors}")
+    ttft = [results[r]["event_at"][0] - results[r]["sent_at"]
+            for r in prompts]
+    return {"results": results, "wall_s": wall,
+            "client_ttft_p50_s": float(np.percentile(ttft, 50)),
+            "client_ttft_p95_s": float(np.percentile(ttft, 95)),
+            "client_tokens_per_s": sum(len(results[r]["tokens"])
+                                       for r in prompts) / wall}
+
+
+def replica_last_tokens(replica) -> dict:
+    """Run inside a replica process: each HTTP stream's last token's
+    wall-clock time and its request id, by its X-Stream name."""
+    dep = replica._callable
+    return {"last_token_at": dict(dep.last_token_at),
+            "request_ids": dict(dep.request_ids)}
+
+
+def request_events(instance) -> list:
+    """Run inside a worker process: its request lifecycle events."""
+    from raytpu_torch.util import task_events
+
+    return task_events.get_events()
+
+
+# A request's stages, in order, from its request events (RECEIVED and
+# ROUTED in the router's process, QUEUED in the replica, ADMITTED and
+# FIRST_TOKEN in its engine) between the client's call and first token.
+LIFECYCLE = ("RECEIVED", "ROUTED", "QUEUED", "ADMITTED", "FIRST_TOKEN")
+
+
+def lifecycle_split(events: list, requests: dict) -> dict:
+    """Mean and largest ms of each stage of client TTFT over ``requests``
+    (name: (request id, call wall time, first token wall time)): the call
+    to the router's RECEIVED, to ROUTED (the replica picked), to the
+    replica's QUEUED (the call's hop), to the engine's ADMITTED (the
+    replica's executor, the engine lock, the wait for a step), to
+    FIRST_TOKEN (the engine), to the client's first token (the way
+    back). The means add up to the mean client TTFT where every request
+    has every event. Every process's clock is the host's."""
+    first = {}
+    for ev in events:
+        key = (ev["id"], ev["transition"])
+        if key not in first or ev["ts"] < first[key]:
+            first[key] = ev["ts"]
+    stages = {}
+    for request_id, called, got in requests.values():
+        marks = [called] + [first.get((request_id, t)) for t in LIFECYCLE] \
+            + [got]
+        names = [f"to_{t.lower()}" for t in LIFECYCLE] + ["to_client"]
+        for name, a, b in zip(names, marks, marks[1:]):
+            if a is not None and b is not None:
+                stages.setdefault(name, []).append((b - a) * 1e3)
+    ttft = [(g - c) * 1e3 for _, c, g in requests.values()]
+    return {"mean_ms": {name: float(np.mean(ms))
+                        for name, ms in stages.items()},
+            "max_ms": {name: float(np.max(ms)) for name, ms in stages.items()},
+            "client_ttft_mean_ms": float(np.mean(ttft)),
+            "requests": len(requests),
+            "complete": all(len(ms) == len(requests)
+                            for ms in stages.values())}
+
+
+def proxy_facts(proxy) -> dict:
+    """Run inside a proxy's process: its facts."""
+    return process_facts()
+
+
+def ttft_split(dumps: list, sent_at: float, first_at: float) -> dict:
+    """The traced request's client TTFT split from every process's span
+    dump: the send → the proxy's ``rpc.client.handle_request_streaming``
+    start → the replica's ``rpc.server.handle_request_streaming`` start
+    (its child) → the replica's first ``infer.prefill*`` span start
+    after it → the first SSE event at the client. The request went
+    alone, so the proxy's is the one span of that name in its window."""
+    def spans(kind, name):
+        return [(d, s) for d in dumps if d["identity"][1].startswith(kind)
+                for s in d["spans"] if s["name"] == name
+                and sent_at <= s["start"] <= first_at]
+
+    [(_, client)] = spans("ProxyActor", "rpc.client.handle_request_streaming")
+    [(replica, server)] = [
+        (d, s) for d, s in spans("Replica", "rpc.server.handle_request_"
+                                 "streaming")
+        if s["parent_span_id"] == client["span_id"]]
+    prefill = min(s["start"] for s in replica["spans"]
+                  if s["name"].startswith("infer.prefill")
+                  and s["start"] >= server["start"])
+    trace = [s for d in dumps for s in d["spans"]
+             if s["trace_id"] == client["trace_id"]]
+    ids = {s["span_id"] for s in trace}
+    return {
+        "send_to_proxy_rpc_ms": (client["start"] - sent_at) * 1e3,
+        "proxy_rpc_to_replica_ms": (server["start"] - client["start"]) * 1e3,
+        "replica_to_prefill_ms": (prefill - server["start"]) * 1e3,
+        "prefill_to_first_byte_ms": (first_at - prefill) * 1e3,
+        "client_ttft_ms": (first_at - sent_at) * 1e3,
+        "trace_id": client["trace_id"], "replica_pid": replica["pid"],
+        "server_span_id": server["span_id"],
+        "trace_spans": sorted(s["name"] for s in trace),
+        "dangling": [s["name"] for s in trace if s["parent_span_id"]
+                     and s["parent_span_id"] not in ids]}
+
+
+def grpc_calls(port: int, prompt: list) -> dict:
+    """One unary and one stream call through the gRPC proxy to phase
+    24's app."""
+    import grpc
+
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        meta = (("route", HTTP_ROUTE),)
+        unary = json.loads(ch.unary_unary("/raytpu.serve/Call")(
+            json.dumps({"prompt": prompt, "max_new_tokens": 4,
+                        "stream": False}).encode(), metadata=meta,
+            timeout=STREAM_DEADLINE_S))
+        stream = [int(c) for c in ch.unary_stream("/raytpu.serve/Stream")(
+            json.dumps({"prompt": prompt, "max_new_tokens": 4}).encode(),
+            metadata=meta, timeout=STREAM_DEADLINE_S)]
+    finally:
+        ch.close()
+    return {"unary": unary, "stream": stream}
+
+
+def phase_serve_http(port: int, grpc_port, handle, handle_run: dict,
+                     prompts: dict, closed: list, on_replicas, replica,
+                     proxy, cfg) -> dict:
+    """Phase 27, inside phase 24's app (see the module docstring): its
+    traffic, readings and checks, on the replicas ``on_replicas`` reaches
+    (``replica`` one of them), the HTTP proxy ``proxy`` and phase 24's
+    ``handle`` (its streams again after the HTTP leg, as warm)."""
+    from raytpu_torch import runtime
+    from raytpu_torch.runtime import api
+    from raytpu_torch.serve.api import GRPC_PROXY_NAME
+    from raytpu_torch.util import task_events, tracing
+
+    t_leg = time.perf_counter()
+    on_replicas(replica_reset_counters)
+    pre = on_replicas(replica_report)
+    run = serve_http_streams(port, prompts, closed)
+    idle = on_replicas(replica_idle)
+    last_token, request_ids = {}, {}
+    for marks in on_replicas(replica_last_tokens).values():
+        last_token.update(marks["last_token_at"])
+        request_ids.update(marks["request_ids"])
+    results = run.pop("results")
+    # -- the other paths --------------------------------------------------
+    missing = http_get(port, "/nope")
+    healthz = http_get(port, "/-/healthz")
+    routes = http_get(port, "/-/routes")
+    overlong = sse_request(port, {"prompt": [1] * OVERLONG_PROMPT,
+                                  "max_new_tokens": 4}, "overlong")
+    traced = sse_request(port, {"prompt": prompts["p0"],
+                                "max_new_tokens": SERVE_NEW_TOKENS},
+                         "traced")
+    grpc = (grpc_calls(grpc_port, prompts["p3"])
+            if grpc_port is not None else None)
+    post = on_replicas(replica_report)
+    proxy_report = runtime.get(runtime.call(proxy, proxy_facts),
+                               timeout=SERVE_APP_DEADLINE_S)
+    grpc_report = None if grpc_port is None else runtime.get(
+        runtime.call(runtime.get_actor(GRPC_PROXY_NAME), proxy_facts),
+        timeout=SERVE_APP_DEADLINE_S)
+    # The handle leg again, its prompts now as warm in the prefix caches
+    # as they were for the HTTP leg: the like-for-like comparison.
+    warm = serve_app_streams(handle, prompts, closed)
+    warm.pop("tokens")
+    on_replicas(replica_idle)
+    # Where each leg's client TTFT goes, from every process's request
+    # events (the handle legs route in this process, HTTP in the proxy).
+    events = task_events.get_events() + runtime.get(
+        runtime.call(proxy, request_events), timeout=SERVE_APP_DEADLINE_S) \
+        + [e for evs in on_replicas(request_events).values() for e in evs]
+    run["lifecycle_ms"] = lifecycle_split(events, {
+        r: (request_ids[r], results[r]["sent_at"], results[r]["event_at"][0])
+        for r in prompts})
+    warm["lifecycle_ms"] = lifecycle_split(events, {
+        r: v for r, v in warm.pop("requests").items() if r in prompts})
+    # -- the traced request across processes ------------------------------
+    t0 = time.perf_counter()
+    dumps = api.trace_dumps() + [tracing.dump()]
+    events = tracing.cluster_timeline()
+    timeline_s = time.perf_counter() - t0
+    split = ttft_split(dumps, traced["sent_at"], traced["event_at"][0])
+    flows = {(e["ph"], e["pid"], e["id"]) for e in events
+             if e.get("cat") == "flow"}
+    tracks = {e["pid"]: e["args"]["name"] for e in events
+              if e.get("ph") == "M"}
+    kinds = sorted(name.split("-")[0].split(" (")[0]
+                   for name in tracks.values())
+    cost = tracing_cost(replica)
+    launches = {rid: rep["launches"] for rid, rep in post.items()}
+    forwards = {rid: forwards_of(post[rid]["stats"])
+                - forwards_of(pre[rid]["stats"]) for rid in post}
+    tokens = {r: results[r]["tokens"] for r in prompts}
+    result = {
+        "route": HTTP_ROUTE, **run,
+        "handle_leg": {k: handle_run[k] for k in (
+            "wall_s", "client_ttft_p50_s", "client_ttft_p95_s",
+            "client_tokens_per_s", "lifecycle_ms")},
+        "handle_leg_warm": warm,
+        "handle_token_agreement": token_agreement(tokens,
+                                                  handle_run["tokens"]),
+        "first_event_before_last_token_s": {
+            r: last_token[r] - results[r]["event_at"][0] for r in prompts},
+        "closed_tokens": len(results["closed"]["tokens"]), "idle": idle,
+        "not_found": missing[:2], "healthz": [healthz[0], healthz[2].decode()],
+        "routes": json.loads(routes[2]), "overlong_error":
+            (overlong["error"] or "")[:160],
+        "traced_split": split, "grpc": grpc,
+        "timeline": {"events": len(events),
+                     "bytes": len(json.dumps(events)), "s": timeline_s,
+                     "tracks": sorted(tracks.values())},
+        "tracing_cost_a_call": cost,
+        "replica_launches": launches, "forwards": forwards,
+        "proxy_launches": proxy_report["launches"],
+        "proxy_forbidden": proxy_report["forbidden"],
+        "grpc_proxy_facts": grpc_report and {
+            k: grpc_report[k] for k in ("launches", "forbidden")},
+        "leg_s": time.perf_counter() - t_leg,
+    }
+    result["launches"] = {name: sum(l[name] for l in launches.values())
+                          for name in launches[next(iter(launches))]}
+    log(f"[serve-http] {json.dumps(result)}")
+    short = {r: (len(results[r]["tokens"]), results[r]["done"])
+             for r in prompts if len(results[r]["tokens"]) != SERVE_NEW_TOKENS
+             or not results[r]["done"] or results[r]["status"] != 200}
+    if short:
+        raise AssertionError(f"HTTP streams without {SERVE_NEW_TOKENS} "
+                             f"tokens and [DONE]: {short}")
+    late = {r: v for r, v in result["first_event_before_last_token_s"].items()
+            if not v > 0}
+    if late:
+        raise AssertionError(f"first events not before the last token: "
+                             f"{late}")
+    if len(results["closed"]["tokens"]) != CLOSED_AFTER:
+        raise AssertionError(f"the dropped stream took "
+                             f"{len(results['closed']['tokens'])} tokens")
+    if missing[0] != 404 or healthz[:3] != (
+            200, "text/plain; charset=utf-8", b"ok") or \
+            result["routes"] != {HTTP_ROUTE: [SERVE_APP, "LLMDeployment"]}:
+        raise AssertionError(f"404 {missing}, healthz {healthz}, routes "
+                             f"{routes}")
+    if overlong["error"] is None or overlong["tokens"] or overlong["done"]:
+        raise AssertionError(f"the over-long prompt did not end in an "
+                             f"in-band error: {overlong}")
+    # Each replica: RMSNorm 65 a forward, no backward kernel; the two
+    # together: the flash forward and paged attention (a replica whose
+    # prompts all hit its prefix cache prefills on the paged chunk path).
+    for rid in post:
+        check_launches(launches[rid], {
+            "flash_forward": launches[rid]["flash_forward"],
+            "paged_attention": launches[rid]["paged_attention"],
+            "rmsnorm": (2 * cfg.n_layer + 1) * forwards[rid],
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    deployment_launches(result["launches"], sum(forwards.values()),
+                        cfg.n_layer)
+    for name, rep in (("proxy", proxy_report), ("gRPC proxy", grpc_report)):
+        if rep is not None and (rep["forbidden"] or any(
+                rep["launches"].values())):
+            raise AssertionError(f"the {name} loaded {rep['forbidden']} or "
+                                 f"launched {rep['launches']}")
+    want = {"driver", "worker:ProxyActor", "worker:Replica",
+            "worker:ServeController"}
+    if not want <= set(kinds) or kinds.count("worker:Replica") < 2:
+        raise AssertionError(f"timeline tracks {sorted(tracks.values())}")
+    pids = {label.rsplit("pid ", 1)[1].rstrip(")"): pid
+            for pid, label in tracks.items()}
+    proxy_track = pids[str(proxy.pid)]
+    replica_track = pids[str(split["replica_pid"])]
+    if not {("s", proxy_track, split["server_span_id"]),
+            ("f", replica_track, split["server_span_id"])} <= flows:
+        raise AssertionError("no flow pair from the proxy's rpc.client to "
+                             "the replica's rpc.server")
+    if split["dangling"]:
+        raise AssertionError(f"dangling parents: {split['dangling']}")
+    if grpc is not None and (len(grpc["unary"]) != 4 or grpc["stream"]
+                             != grpc["unary"]):
+        raise AssertionError(f"gRPC calls: {grpc}")
+    return result
 
 
 def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
@@ -4805,6 +5374,8 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     from raytpu_torch.serve._private import prefix_router
     from raytpu_torch.serve._private import router as router_mod
     from raytpu_torch.serve._private.controller import get_controller
+    from raytpu_torch.serve.api import PROXY_NAME
+    from raytpu_torch.util import task_events, tracing
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -4834,21 +5405,74 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
 
     router_mod.Router._choose = timed_choose
     routing = tuning.PREFIX_ROUTING
+    # Phase 27: traced, and request events recorded, from here on in
+    # every process the phase starts.
+    tracing.enable_tracing(sample_rate=1.0, env=True)
+    task_events.enable_request_events(env=True)
+    http_port = free_port()
+    grpc_port = free_port() if importlib.util.find_spec("grpc") else None
+    if grpc_port is None:
+        log("[serve-http] grpc: absent (not installed on this machine: "
+            "the gRPC proxy is held by the CPU tests only)")
+    pids = set()
     try:
         t0 = time.perf_counter()
-        handle = port_serve.run(
-            port_serve.LLMDeployment.options(
-                num_replicas=SERVE_APP_REPLICAS,
-                health_check_period_s=SERVE_APP_HEALTH_S).bind(
-                model="llama", model_config=cfg,
-                engine_options=DEPLOYMENT_ENGINE, seed=0),
-            name=SERVE_APP, route_prefix=None,
-            wait_for_ready_timeout_s=SERVE_APP_DEADLINE_S)
-        run_s = time.perf_counter() - t0
+        port_serve.start(host="127.0.0.1", port=http_port)
+        proxy_ready_at = time.time()
+        serve_start_s = time.perf_counter() - t0
+        proxy = runtime.get_actor(PROXY_NAME)
+        t0 = time.perf_counter()
+        ran = {}
+
+        def deploy():
+            try:
+                ran["handle"] = port_serve.run(
+                    port_serve.deployment(HttpLLMDeployment).options(
+                        name="LLMDeployment",
+                        num_replicas=SERVE_APP_REPLICAS,
+                        health_check_period_s=SERVE_APP_HEALTH_S).bind(
+                        model="llama", model_config=cfg,
+                        engine_options=DEPLOYMENT_ENGINE, seed=0),
+                    name=SERVE_APP, route_prefix=HTTP_ROUTE,
+                    wait_for_ready_timeout_s=SERVE_APP_DEADLINE_S)
+            except Exception as exc:  # raised below, not lost in the thread
+                ran["error"] = exc
+            ran["s"] = time.perf_counter() - t0
+
+        deploying = threading.Thread(target=deploy, daemon=True)
+        deploying.start()
+        grpc_start_s = None
+        if grpc_port is not None:
+            # The gRPC proxy starts while the replicas do, once the
+            # controller has the app (the HTTP proxy is found by name).
+            while SERVE_APP not in port_serve.status():
+                if not deploying.is_alive():
+                    break
+                time.sleep(0.05)
+            t1 = time.perf_counter()
+            port_serve.start(host="127.0.0.1", port=http_port,
+                             grpc_port=grpc_port)
+            grpc_start_s = time.perf_counter() - t1
+        deploying.join(timeout=SERVE_APP_DEADLINE_S)
+        if "error" in ran or "handle" not in ran:
+            raise AssertionError(f"serve.run failed: {ran}")
+        handle, run_s = ran["handle"], ran["s"]
         router = handle._get_router()
         controller = get_controller()
         starts = controller.call("replica_starts", full_name)
         replicas = dict(controller.call("get_running_replicas", full_name))
+        splits = {"controller": worker_start_split(controller.actor),
+                  "proxy": worker_start_split(proxy),
+                  **{rid: worker_start_split(r)
+                     for rid, r in replicas.items()}}
+        pids |= {controller.actor.pid, proxy.pid,
+                 *(r.pid for r in replicas.values())}
+        proxy_start_s = proxy_ready_at - splits["proxy"]["spawned"]
+        log("[serve-app-starts] " + json.dumps({
+            "serve_start_s": serve_start_s, "proxy_start_s": proxy_start_s,
+            "grpc_proxy_start_s": grpc_start_s,
+            "run_s": run_s, "replica_start_s": starts,
+            "splits": splits}))
 
         def on_replicas(fn, reps=None):
             reps = replicas if reps is None else reps
@@ -4862,6 +5486,10 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         reports = on_replicas(replica_report)
         probes = list(probe_s)
         idle = on_replicas(replica_idle)
+        run["lifecycle_ms"] = lifecycle_split(
+            task_events.get_events() + [e for evs in on_replicas(
+                request_events).values() for e in evs],
+            {r: v for r, v in run.pop("requests").items() if r in prompts})
 
         # -- a pair of prompts sharing a fresh prefix --------------------
         tuning.PREFIX_ROUTING = 1
@@ -4886,6 +5514,16 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         pair_hits = {rid: after[rid]["prefix_hits"] - mid[rid]["prefix_hits"]
                      for rid in replicas}
         tuning.PREFIX_ROUTING = routing
+
+        # -- phase 27: the same app over HTTP ---------------------------
+        http = phase_serve_http(
+            http_port, grpc_port, handle,
+            {**run, "tokens": {r: run["tokens"][r] for r in prompts}},
+            prompts, closed, on_replicas, next(iter(replicas.values())),
+            proxy, cfg)
+        controller_report = runtime.get(
+            runtime.call(controller.actor, controller_facts),
+            timeout=SERVE_APP_DEADLINE_S)
 
         # -- a replica killed under an open stream, and replaced --------
         gen = handle.generate.remote_streaming(killed_prompt,
@@ -4916,6 +5554,7 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         [new] = fresh
         replaced_after_s = time.perf_counter() - t_kill
         restarts = controller.call("replica_starts", full_name)
+        pids.add(now[new].pid)
         after_kill = list(handle.generate.remote_streaming(
             prompts["p2"], max_new_tokens=SERVE_NEW_TOKENS))
         new_report = on_replicas(replica_report, {new: now[new]})[new]
@@ -4923,8 +5562,11 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         router_mod.Router._choose = choose
         tuning.PREFIX_ROUTING = routing
         port_serve.shutdown()
+        tracing.disable_tracing(env=True)
+        task_events.disable_request_events(env=True)
     left = sorted({p.pid for p in multiprocessing.active_children()}
                   - before)
+    left += sorted(pid for pid in pids if running_process(pid))
     parent = {name: c.count for name, c in kernel_counters().items()}
     tokens = run.pop("tokens")
     launches = {rid: rep["launches"] for rid, rep in reports.items()}
@@ -4932,6 +5574,10 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     result = {
         "model": "Llama-2-7B, 32 layers, bf16, random weights (seed 0)",
         "engine": DEPLOYMENT_ENGINE, "replicas": SERVE_APP_REPLICAS,
+        "serve_start_s": serve_start_s, "proxy_start_s": proxy_start_s,
+        "grpc_proxy_start_s": grpc_start_s,
+        "start_splits": splits,
+        "controller_forbidden": controller_report["forbidden"],
         "run_s": run_s, "start_s": starts,
         "replacement": {"replica": new, "start_s": restarts[new],
                         "replaced_after_kill_s": replaced_after_s,
@@ -4968,6 +5614,7 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     }
     result["launches"] = {name: sum(l[name] for l in launches.values())
                           for name in parent}
+    result["serve_http"] = http
     log(f"[serve-app] {json.dumps(result)} | {card_line}")
     short = {r: len(tokens[r]) for r in prompts
              if len(tokens[r]) != SERVE_NEW_TOKENS}
@@ -4995,9 +5642,12 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     if len(after_kill) != SERVE_NEW_TOKENS:
         raise AssertionError(f"after the replacement a stream took "
                              f"{len(after_kill)} tokens")
+    if controller_report["forbidden"]:
+        raise AssertionError(f"the controller loaded "
+                             f"{controller_report['forbidden']}")
     if left:
-        raise AssertionError(f"replica processes left after "
-                             f"serve.shutdown(): {left}")
+        raise AssertionError(f"proxy, controller or replica processes left "
+                             f"after serve.shutdown(): {left}")
     return result
 
 
@@ -5783,6 +6433,7 @@ def main() -> int:
             "deployment": deployment["launches"],
             "disagg": disagg["launches"],
             "serve_app": serve_app["launches"],
+            "serve_http": serve_app["serve_http"]["launches"],
             "disagg_serve": disagg_serve["launches"],
             "gpt2_serve": gpt2_serve["launches"],
             "gpt2_train": train["launches"],

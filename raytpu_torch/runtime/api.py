@@ -86,6 +86,19 @@ starts workers keeps its entry point under ``if __name__ ==
 "__main__"``). :func:`call` runs a module-level function on the instance
 inside the worker (Ray's ``__ray_call__``), for callers that need to
 reach into a worker without adding a method to its class.
+
+Traces cross it as they cross the JAX package's RPC frames: every
+message carries the caller's ambient :class:`~raytpu_torch.util.tracing.TraceContext`
+in its wire form. With tracing on, the send sits inside an
+``rpc.client.<method>`` span (the port's calls are futures, so the span
+covers the submission, not the wait); the worker anchors the context
+around its dispatch in ``rpc.server.<method>`` and re-anchors it on the
+pool thread or the event loop in ``worker.actor_task.run``, the JAX
+worker's span names. With tracing off a context that came in is
+forwarded unchanged; with none, a call pays one flag check.
+:func:`trace_dumps` is the counterpart of the JAX head's ``trace_dump``
+fan-out: a process asks every live worker it started for its span
+buffer, and each asks its own.
 """
 
 from __future__ import annotations
@@ -113,6 +126,7 @@ import torch.multiprocessing as mp
 from multiprocessing.reduction import ForkingPickler
 
 from raytpu_torch.core.errors import ActorDiedError, GetTimeoutError, TaskError
+from raytpu_torch.util import tracing
 
 # How long a worker whose process has exited may keep its connection open
 # before it counts as dead all the same (its last replies drain first).
@@ -128,14 +142,24 @@ _ALIGN = 64  # bytes: each packed tensor starts on a cache line
 # starts to accept them.
 _BACKLOG = 128
 
-# Messages to a worker: (kind, call id, pickled (method, args, kwargs)).
-_CALL, _STREAM, _CANCEL = "call", "stream", "cancel"
+# Messages to a worker: (kind, call id, pickled (method, args, kwargs),
+# the caller's trace context in its wire form or None). A dump carries
+# the seconds its worker may wait on its own workers in the blob's place.
+_CALL, _STREAM, _CANCEL, _DUMP = "call", "stream", "cancel", "dump"
 # Messages from a worker: (call id, status, pickled value). A call gets
 # one _OK or _ERR; a stream any number of _ITEM, then _END or _ERR.
 _OK, _ERR, _ITEM, _END = 0, 1, 2, 3
 
 # Every reply lands under this condition; get and wait sleep on it.
 _READY = threading.Condition(threading.RLock())
+# How long trace_dumps waits for the workers below it to answer.
+TRACE_DUMP_TIMEOUT_S = 10.0
+# In a worker: the wall-clock times (time.time()) of its start's stages:
+# "spawned" (its owner's Process.start), "entered" (the worker's body
+# runs: the interpreter, the owner's main module and this module
+# imported), "imported" (its class unpickled, with the modules that
+# takes) and "constructed" (the instance built).
+START_MARKS: Dict[str, float] = {}
 
 
 def _dumps(obj) -> bytes:
@@ -270,13 +294,20 @@ class _Host:
         self._lines.add(line)
         while True:
             try:
-                kind, call_id, blob = line.conn.recv()
+                kind, call_id, blob, tc = line.conn.recv()
             except (EOFError, OSError):
                 break  # the caller is gone
             if kind == _CANCEL:
                 self._cancel(line, call_id)
+            elif kind == _DUMP:
+                # Off the pool: a busy worker still answers, and asking
+                # its own workers must not hold this reader.
+                threading.Thread(target=self._dump, args=(line, call_id,
+                                                          blob),
+                                 name=f"{self._name}-dump",
+                                 daemon=True).start()
             else:
-                self._dispatch(line, kind, call_id, blob)
+                self._dispatch(line, kind, call_id, blob, tc)
         self._cancel_all(line)
         self._lines.discard(line)
 
@@ -290,8 +321,11 @@ class _Host:
         if cancel is not None:
             cancel()
 
+    def _dump(self, line: _Line, call_id: int, timeout: float) -> None:
+        self.send(line, call_id, _OK, [tracing.dump(), *trace_dumps(timeout)])
+
     def _dispatch(self, line: _Line, kind: str, call_id: int,
-                  blob: bytes) -> None:
+                  blob: bytes, tc) -> None:
         label = f"call {call_id}"
         try:
             method, args, kwargs = pickle.loads(blob)
@@ -305,23 +339,49 @@ class _Host:
             self.send(line, call_id, _ERR, TaskError.from_exception(
                 f"{self._name}.{label}", exc))
             return
-        label = f"{self._name}.{label}"
+        tctx = None if tc is None else tracing.TraceContext.from_wire(tc)
+        if tctx is None and not tracing.enabled():
+            self._submit(line, kind, call_id, f"{self._name}.{label}", fn,
+                         args, kwargs, None)
+            return
+        token = tracing.set_current_trace(tctx) if tctx is not None else None
+        try:
+            with tracing.span("rpc.server." + label):
+                # The hop to the pool or the loop drops context
+                # variables: the call re-anchors this context there.
+                self._submit(line, kind, call_id, f"{self._name}.{label}",
+                             fn, args, kwargs, tracing.current_trace())
+        finally:
+            if token is not None:
+                tracing.reset_current_trace(token)
+
+    def _submit(self, line, kind, call_id, label, fn, args, kwargs,
+                tc) -> None:
+        """Run one call on the pool or the loop; ``tc`` (or None: an
+        untraced call) is anchored around it there."""
         if kind == _STREAM:
             if inspect.isasyncgenfunction(fn):
                 fut = self._on_loop(self._stream_async(line, call_id, label,
-                                                       fn, args, kwargs))
+                                                       fn, args, kwargs, tc))
                 self._register(line, call_id, fut.cancel)
             else:
                 stop = threading.Event()
                 self._register(line, call_id, stop.set)
-                self._pool.submit(self._stream_sync, line, call_id, label,
-                                  stop, fn, args, kwargs)
+                self._on_pool(tc, self._stream_sync, line, call_id, label,
+                              stop, fn, args, kwargs)
         elif inspect.iscoroutinefunction(fn):
             self._on_loop(self._call_async(line, call_id, label, fn, args,
-                                           kwargs))
+                                           kwargs, tc))
         else:
-            self._pool.submit(self._call_sync, line, call_id, label, fn,
-                              args, kwargs)
+            self._on_pool(tc, self._call_sync, line, call_id, label, fn,
+                          args, kwargs)
+
+    def _on_pool(self, tc, fn, *args) -> None:
+        if tc is None:
+            self._pool.submit(fn, *args)
+        else:
+            self._pool.submit(tracing.run_with_trace, tc,
+                              "worker.actor_task.run", fn, *args)
 
     def _register(self, line: _Line, call_id: int, cancel) -> None:
         with self._cancels_lock:
@@ -349,11 +409,15 @@ class _Host:
         self.send(line, call_id, status, value)
 
     async def _call_async(self, line, call_id, label, fn, args,
-                          kwargs) -> None:
+                          kwargs, tc) -> None:
+        # A task runs in a context of its own: anchoring here stays in it.
+        if tc is not None:
+            tracing.set_current_trace(tc)
         self._tasks.add(asyncio.current_task())
         try:
             async with self._slots:
-                status, value = _OK, await fn(*args, **kwargs)
+                with tracing.span("worker.actor_task.run"):
+                    status, value = _OK, await fn(*args, **kwargs)
         except Exception as exc:
             status, value = _ERR, TaskError.from_exception(label, exc)
         finally:
@@ -382,18 +446,14 @@ class _Host:
                 close()  # a cancelled generator's finally runs here
 
     async def _stream_async(self, line, call_id, label, fn, args,
-                            kwargs) -> None:
+                            kwargs, tc) -> None:
+        if tc is not None:
+            tracing.set_current_trace(tc)
         self._tasks.add(asyncio.current_task())
         try:
             async with self._slots:
-                agen = fn(*args, **kwargs)
-                try:
-                    async for value in agen:
-                        if not self.send(line, call_id, _ITEM, value):
-                            return
-                    self.send(line, call_id, _END, None)
-                finally:
-                    await agen.aclose()
+                with tracing.span("worker.actor_task.run"):
+                    await self._drain(line, call_id, fn(*args, **kwargs))
         except asyncio.CancelledError:
             pass  # the caller closed the stream: this task was cancelled
         except Exception as exc:
@@ -403,13 +463,25 @@ class _Host:
             self._done(line, call_id)
             self._tasks.discard(asyncio.current_task())
 
+    async def _drain(self, line, call_id, agen) -> None:
+        """Send each value of an async generator, then the end."""
+        try:
+            async for value in agen:
+                if not self.send(line, call_id, _ITEM, value):
+                    return
+            self.send(line, call_id, _END, None)
+        finally:
+            await agen.aclose()
+
 
 def _worker_main(conn, listener: socket.socket, name: str, blob: bytes,
                  num_threads: int, max_concurrency: int,
-                 registry: str) -> None:
+                 registry: str, spawned: float) -> None:
     """The body of a worker process: build the instance, then serve calls
     until the owner closes its pipe."""
     global _REGISTRY
+    START_MARKS.update(spawned=spawned, entered=time.time())
+    tracing.set_process_identity("worker", name)
     # A daemonic process may not start children; this flag is the
     # worker's own record of itself (its owner started it as a daemon,
     # which the owner's exit terminates), so clearing it here lets the
@@ -422,7 +494,9 @@ def _worker_main(conn, listener: socket.socket, name: str, blob: bytes,
     owner = _Line(conn)
     try:
         cls, args, kwargs = pickle.loads(blob)
+        START_MARKS["imported"] = time.time()
         host._instance = cls(*args, **kwargs)
+        START_MARKS["constructed"] = time.time()
     except Exception as exc:
         host.send(owner, 0, _ERR,
                   TaskError.from_exception(f"{name}.__init__", exc))
@@ -516,14 +590,37 @@ class _Caller:
         args = tuple(_resolve(a) for a in args)
         kwargs = {k: _resolve(v) for k, v in kwargs.items()}
         blob = _dumps((method, args, kwargs))  # a bad argument raises here
+        call_id = self._new_call(kind)
+        tc = tracing.current_trace()
+        if not tracing.enabled():
+            # An untraced hop in a traced request forwards the context
+            # unchanged, so the chain is not severed downstream.
+            self._send((kind, call_id, blob,
+                        None if tc is None else tc.to_wire()))
+            return call_id
+        label = method if isinstance(method, str) else getattr(
+            method, "__name__", repr(method))
+        with tracing.span("rpc.client." + label) as attrs:
+            attrs["peer"] = self.name
+            self._send((kind, call_id, blob,
+                        tracing.current_trace().to_wire()))
+        return call_id
+
+    def _new_call(self, kind: str) -> int:
         with _READY:
             call_id = next(self._ids)
             if kind == _STREAM:
                 self.streams[call_id] = deque()
             else:
                 self._wanted.add(call_id)
-        self._send((kind, call_id, blob))
         return call_id
+
+    def submit_dump(self, timeout: float) -> "ObjectRef":
+        """Ask the worker for its span buffers and those of its workers,
+        which it waits on for at most ``timeout`` seconds."""
+        call_id = self._new_call(_DUMP)
+        self._send((_DUMP, call_id, timeout, None))
+        return ObjectRef(self, call_id)
 
     def _send(self, message) -> None:
         raise NotImplementedError
@@ -535,7 +632,7 @@ class _Caller:
             if self.streams.pop(call_id, None) is None:
                 return
         if self.dead is None:
-            self._send((_CANCEL, call_id, None))
+            self._send((_CANCEL, call_id, None, None))
 
     def forget(self, call_id: int) -> None:
         with _READY:
@@ -560,7 +657,7 @@ class _Worker(_Caller):
         self.proc = ctx.Process(target=_worker_main,
                                 args=(child, listener, self.name, blob,
                                       num_threads, max_concurrency,
-                                      _registry_address()),
+                                      _registry_address(), time.time()),
                                 name=self.name, daemon=True)
         try:
             self.proc.start()
@@ -1042,12 +1139,34 @@ def _registry_address() -> str:
         if _registry_socket is None:
             address = _new_address()
             sock = _listen(address)
+            # The process the runtime did not start: its timeline track.
+            tracing.set_process_identity("driver")
             threading.Thread(target=_serve_socket,
                              args=(sock, _answer, "registry"),
                              name="raytpu-torch-registry",
                              daemon=True).start()
             _registry_socket = (address, sock)
         return _registry_socket[0]
+
+
+def trace_dumps(timeout: float = TRACE_DUMP_TIMEOUT_S) -> List[dict]:
+    """The span buffers (``tracing.dump()`` payloads) of every live worker
+    this process started and of the workers below them, each asked by
+    its owner. A dead worker is skipped, as is one that does not answer
+    within ``timeout`` seconds; its workers wait half as long on theirs."""
+    with _HANDLES_LOCK:
+        workers = [h._worker for h in list(_OWNED.values())]
+    refs = [w.submit_dump(timeout / 2) for w in workers if w.dead is None]
+    if not refs:
+        return []
+    ready, _ = wait(refs, num_returns=len(refs), timeout=timeout)
+    dumps: List[dict] = []
+    for ref in ready:
+        try:
+            dumps.extend(get(ref))
+        except (ActorDiedError, TaskError):
+            pass  # it died meanwhile: nothing of it to merge
+    return dumps
 
 
 def get_actor(name: str, namespace: str = "default") -> ActorHandle:

@@ -65,6 +65,8 @@ class ObjectRefGenerator:
         deadline = None if timeout is None else time.monotonic() + timeout
         with api._READY:
             while True:
+                if self._closed:  # closed from another thread meanwhile
+                    raise StopIteration
                 buf = w.streams.get(self._call_id)
                 if buf:
                     status, value = buf.popleft()

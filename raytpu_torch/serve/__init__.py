@@ -8,8 +8,15 @@ client-side power-of-two choices over queue-length probes, or by
 prefix-cache match (``RAYTPU_PREFIX_ROUTING``), from any process that
 holds a handle; responses stream chunk by chunk. Applications compose:
 a bound deployment in another's arguments is a ``DeploymentHandle`` in
-its replicas. The JAX package's exports, less the proxy's ``Request``:
-the HTTP and gRPC proxies wait for a later slice (ROADMAP.md).
+its replicas. HTTP ingress is a proxy actor on the standard library's
+asyncio streams (``serve.start``; handlers get a ``Request``, streams
+go out as server-sent events, ``@serve.ingress`` forwards to an ASGI
+app), and gRPC ingress a generic byte service. The JAX package's
+exports::
+
+    serve.start(host="127.0.0.1", port=8000)
+    serve.run(Tokens.bind(), route_prefix="/gen")
+    # GET /gen, "Accept: text/event-stream": data: <chunk> ... data: [DONE]
 
 ``serve.LLMDeployment`` is a deployment whose target is the port's
 :class:`raytpu_torch.inference.serving.LLMDeployment` (imported at first
@@ -40,11 +47,12 @@ from raytpu_torch.serve.config import (AutoscalingConfig, DeploymentConfig,
 from raytpu_torch.serve.deployment import Application, Deployment, deployment
 from raytpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from raytpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
+from raytpu_torch.serve._private.proxy import Request
 
 __all__ = [
     "Application", "AutoscalingConfig", "Deployment", "DeploymentConfig",
     "DeploymentHandle", "DeploymentResponse", "HTTPOptions",
-    "LLMDeployment",
+    "LLMDeployment", "Request",
     "batch", "delete", "deployment", "get_app_handle",
     "get_deployment_handle", "get_multiplexed_model_id", "multiplexed",
     "run",

@@ -16,8 +16,13 @@ the runtime's cancel: the handler is closed at once, or, when its
 ``next()`` is in flight on the executor, right after that ``next()``
 returns.
 
+An ASGI deployment (``@serve.ingress(app)``) runs its app here, next to
+the model: the proxy ships each request's wire-safe scope (str headers,
+query and raw path) and body to ``handle_request_asgi``, which
+rehydrates them to ASGI's bytes and buffers the app's reply.
+
 What differs from the JAX package: the target arrives pickled by name (no
-``cloudpickle``); the ASGI methods wait for the proxy (not ported).
+``cloudpickle``).
 """
 
 from __future__ import annotations
@@ -204,6 +209,87 @@ class Replica:
             if not dequeued:
                 # The semaphore acquire itself failed/cancelled: undo enqueue.
                 self._num_queued -= 1
+
+    def is_asgi(self) -> bool:
+        """Whether this deployment wraps an ASGI app (``@serve.ingress``);
+        probed once by the proxy to pick the transport."""
+        return getattr(type(self._callable), "__raytpu_asgi_app__",
+                       None) is not None or \
+            getattr(self._callable, "__raytpu_asgi_app__", None) is not None
+
+    async def handle_request_asgi(self, scope: dict, body: bytes,
+                                  request_meta: Optional[dict] = None
+                                  ) -> dict:
+        """Run one HTTP request through the deployment's ASGI app. The
+        proxy ships (scope, body); the reply carries status, headers and
+        body (a multi-chunk body is buffered; token streaming takes the
+        SSE path instead)."""
+        app = getattr(self._callable, "__raytpu_asgi_app__", None) or \
+            getattr(type(self._callable), "__raytpu_asgi_app__", None)
+        if app is None:
+            raise RuntimeError(
+                f"deployment {self._config.deployment_name} has no ASGI "
+                "app (missing @serve.ingress)")
+        if self._shutting_down:
+            raise RuntimeError(f"replica {self._replica_id} is draining")
+        if self._max_queued >= 0 and self._num_queued >= self._max_queued:
+            raise TooManyQueuedRequests(
+                f"replica {self._replica_id}: {self._num_queued} queued >= "
+                f"max_queued_requests={self._max_queued}"
+            )
+        self._num_queued += 1
+        dequeued = False
+        try:
+            async with self._sem:
+                self._num_queued -= 1
+                dequeued = True
+                self._num_ongoing += 1
+                self._metric_samples.append(
+                    (time.monotonic(), self._num_ongoing + self._num_queued)
+                )
+                token = _request_context.set(dict(request_meta or {}))
+                try:
+                    return await self._run_asgi(app, scope, body)
+                finally:
+                    _request_context.reset(token)
+                    self._num_ongoing -= 1
+                    self._total_handled += 1
+        finally:
+            if not dequeued:
+                self._num_queued -= 1
+
+    @staticmethod
+    async def _run_asgi(app, scope: dict, body: bytes) -> dict:
+        # Rehydrate wire-safe scope fields into the ASGI byte types.
+        scope = dict(scope)
+        scope["headers"] = [(k.encode("latin-1"), v.encode("latin-1"))
+                            for k, v in scope.get("headers", [])]
+        scope["query_string"] = scope.get("query_string", "").encode()
+        scope["raw_path"] = scope.get("raw_path", "/").encode()
+        sent = {"status": 500, "headers": [], "chunks": []}
+        received = {"done": False}
+
+        async def receive():
+            if received["done"]:
+                return {"type": "http.disconnect"}
+            received["done"] = True
+            return {"type": "http.request", "body": body,
+                    "more_body": False}
+
+        async def send(message):
+            if message["type"] == "http.response.start":
+                sent["status"] = int(message["status"])
+                sent["headers"] = [
+                    (k.decode("latin-1"), v.decode("latin-1"))
+                    for k, v in message.get("headers", [])]
+            elif message["type"] == "http.response.body":
+                chunk = message.get("body", b"")
+                if chunk:
+                    sent["chunks"].append(bytes(chunk))
+
+        await app(scope, receive, send)
+        return {"status": sent["status"], "headers": sent["headers"],
+                "body": b"".join(sent["chunks"])}
 
     async def handle_request_streaming(
         self,

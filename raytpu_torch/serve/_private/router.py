@@ -305,6 +305,19 @@ class Router:
             method_name, args, kwargs, meta
         )
 
+    def probe_asgi(self, timeout_s: float = 30.0) -> bool:
+        """One-shot transport probe: does this deployment serve ASGI?"""
+        replica = self._replica_set.choose(timeout_s=timeout_s)
+        return bool(runtime.get(replica.is_asgi.remote(), timeout=10))
+
+    def assign_request_asgi(self, scope: dict, body: bytes,
+                            request_meta: Optional[dict] = None,
+                            timeout_s: float = 30.0):
+        replica = self._replica_set.choose(timeout_s=timeout_s)
+        meta = _stamp_tenant(request_meta)
+        _tick_request(self._full_name, meta.get("tenant", ""))
+        return replica.handle_request_asgi.remote(scope, body, meta)
+
     def assign_request_streaming(
         self,
         method_name: str,

@@ -7,7 +7,8 @@ JAX package: ``ray_actor_options`` takes what the port's runtime takes
 ``ValueError`` naming it; and ``ReplicaConfig.serialized_callable`` is
 the target pickled by name with the standard pickle (no ``cloudpickle``),
 so a deployment's class or function sits at a module's top level.
-``HTTPOptions`` is kept as data: the proxies are not ported (ROADMAP.md).
+``HTTPOptions`` says where ``serve.start`` binds the HTTP proxy (and the
+gRPC proxy, given ``grpc_port``).
 """
 
 from __future__ import annotations

@@ -12,8 +12,7 @@ router looks the controller up by name there.
 
 What differs from the JAX package: a response passed as an argument is
 resolved in the caller before the call is sent (the port has no object
-store a replica could fetch it from); ``remote_asgi`` and ``is_asgi``
-raise with the proxy, which is not ported.
+store a replica could fetch it from).
 """
 
 from __future__ import annotations
@@ -25,10 +24,6 @@ from typing import Any, Dict, Optional, Tuple
 from raytpu_torch import runtime
 from raytpu_torch.runtime import ObjectRef
 from raytpu_torch.util import serve_slo, task_events
-
-_NO_PROXY = ("the port has no HTTP proxy or ASGI ingress yet (ROADMAP.md, "
-             "Queue 1)")
-
 
 class DeploymentResponse:
     def __init__(self, ref: ObjectRef):
@@ -214,10 +209,13 @@ class DeploymentHandle:
         return DeploymentResponse(ref)
 
     def is_asgi(self, timeout_s: float = 30.0) -> bool:
-        raise NotImplementedError(_NO_PROXY)
+        return self._get_router().probe_asgi(timeout_s=timeout_s)
 
     def remote_asgi(self, scope: dict, body: bytes) -> DeploymentResponse:
-        raise NotImplementedError(_NO_PROXY)
+        """Route one HTTP request into the deployment's ASGI app."""
+        ref = self._get_router().assign_request_asgi(
+            scope, body, request_meta=self._meta)
+        return DeploymentResponse(ref)
 
     def remote_streaming(self, *args, **kwargs) -> DeploymentResponseGenerator:
         """Call a streaming handler: returns an iterator of its chunks,

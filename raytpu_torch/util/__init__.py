@@ -4,8 +4,10 @@ observability, in-process only, and the ambient tenant.
 - :mod:`~raytpu_torch.util.metrics` — ``Counter`` / ``Gauge`` /
   ``Histogram`` with tags and the cardinality cap, and the
   ``DECLARED_METRICS`` table of every name the port mints;
-- :mod:`~raytpu_torch.util.tracing` — spans, trace contexts, the local
-  chrome-trace timeline, and ``profile`` over ``torch.profiler``;
+- :mod:`~raytpu_torch.util.tracing` — spans, trace contexts (carried by
+  every call of :mod:`raytpu_torch.runtime`), the local and the
+  every-process chrome-trace timelines, and ``profile`` over
+  ``torch.profiler``;
 - :mod:`~raytpu_torch.util.task_events` — the request lifecycle
   recorder (``RequestTransition``, ``emit_request``);
 - :mod:`~raytpu_torch.util.serve_slo` — the serve SLO histograms and
@@ -22,5 +24,6 @@ observability, in-process only, and the ambient tenant.
   directory is set.
 
 Nothing here ships to a head or serves a scrape endpoint: the port has
-no runtime to ship through (ROADMAP.md).
+no cluster head (ROADMAP.md); spans are gathered on demand through the
+runtime's process tree (``tracing.cluster_timeline``).
 """

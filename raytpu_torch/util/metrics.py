@@ -3,7 +3,7 @@
 
 The JAX package registers every metric with ``prometheus_client`` as
 well and ships registry deltas to the head's store; the port does
-neither (no runtime to ship through, and registering the same
+neither (no head to ship to, ROADMAP.md, and registering the same
 ``raytpu_infer_*`` names would collide with the JAX package's in a
 process that imports both). Values are read through ``value`` /
 ``values`` / ``observations`` / ``observations_by_tag``.

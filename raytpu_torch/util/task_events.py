@@ -15,7 +15,7 @@ processes via ``RAYTPU_REQUEST_EVENTS``. An event carries the trace id
 of the ambient sampled :class:`~raytpu_torch.util.tracing.TraceContext`.
 
 Not ported: the task/actor/object/node vocabulary, shipping to a head
-and the head's ``TaskEventStore`` — they need a runtime (ROADMAP.md).
+and the head's ``TaskEventStore`` — they need a cluster head (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
-"""Tracing and profiling; the port of ``raytpu/util/tracing.py`` for one
-process.
+"""Tracing and profiling; the port of ``raytpu/util/tracing.py``.
 
 Spans (Dapper model): a :class:`TraceContext` — trace id, span id,
 parent span id, sampled flag — lives in a context variable; a span
 entered under it records as its child, and each process keeps its
-closed spans in a bounded ring buffer (:func:`get_spans`). The JAX
-package also carries the context across RPC frames and merges every
-process's buffer into one cluster timeline; the port has no runtime, so
-:func:`timeline` is this process's spans only.
+closed spans in a bounded ring buffer (:func:`get_spans`). The context
+rides every call of the port's runtime (:mod:`raytpu_torch.runtime.api`)
+as its wire form, as it rides the JAX package's RPC frames, and is
+re-anchored in the worker, so a caller's ``rpc.client.*`` span is the
+parent of the worker's ``rpc.server.*`` span. :func:`cluster_timeline`
+gathers every process's buffer through the runtime's fan-out (each
+process asks the workers it started, which ask theirs) and
+:func:`assemble_timeline` merges them into one chrome trace, a track a
+process, with flow arrows on the parent links that cross processes.
 
 Cost model: with tracing disabled a span site is one module-flag check
 plus returning a shared no-op context manager — nothing allocates, no
@@ -33,7 +37,7 @@ import random
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 ENV_VAR = "RAYTPU_TRACING"
 SAMPLE_ENV_VAR = "RAYTPU_TRACE_SAMPLE"
@@ -58,10 +62,16 @@ _enabled = _env_truthy(ENV_VAR)
 _sample_rate = _env_float(SAMPLE_ENV_VAR, 1.0)
 
 
+# [kind, ident] — e.g. ["driver", ""], ["worker", "Replica-ab12cd34"].
+# Mutated in place so dump() sees updates without rebinding.
+_identity: List[str] = ["proc", ""]
+
+
 class TraceContext:
     """Immutable Dapper-style context: which trace, which span, whose
-    child, and whether anything records. (The JAX package also carries
-    it across RPC frames; the port has none.)"""
+    child, and whether anything records. On the wire only
+    ``[trace_id, span_id, sampled]`` travels — the receiver's parent IS
+    the sender's span id, so ``parent_span_id`` never needs to ride."""
 
     __slots__ = ("trace_id", "span_id", "parent_span_id", "sampled")
 
@@ -81,6 +91,20 @@ class TraceContext:
         return TraceContext(self.trace_id, os.urandom(8).hex(),
                             self.span_id, self.sampled)
 
+    def to_wire(self) -> list:
+        return [self.trace_id, self.span_id, 1 if self.sampled else 0]
+
+    @classmethod
+    def from_wire(cls, w: Any) -> Optional["TraceContext"]:
+        """The context of a wire form; None where it is malformed."""
+        try:
+            trace_id, span_id, sampled = w[0], w[1], bool(w[2])
+        except (TypeError, IndexError, KeyError):
+            return None
+        if not isinstance(trace_id, str) or not isinstance(span_id, str):
+            return None
+        return cls(trace_id, span_id, None, sampled)
+
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"TraceContext({self.trace_id[:8]}…/{self.span_id}"
                 f" parent={self.parent_span_id} sampled={self.sampled})")
@@ -93,6 +117,15 @@ _current: "contextvars.ContextVar[Optional[TraceContext]]" = \
 def current_trace() -> Optional[TraceContext]:
     """The ambient trace context (None outside any span)."""
     return _current.get()
+
+
+def set_current_trace(ctx: Optional[TraceContext]):
+    """Anchor ``ctx`` as the ambient context; returns a reset token."""
+    return _current.set(ctx)
+
+
+def reset_current_trace(token) -> None:
+    _current.reset(token)
 
 
 def enabled() -> bool:
@@ -122,6 +155,12 @@ def disable_tracing(env: bool = False) -> None:
         os.environ.pop(SAMPLE_ENV_VAR, None)
 
 
+def set_process_identity(kind: str, ident: str = "") -> None:
+    """Name this process for cluster timelines (driver, worker:<name>)."""
+    _identity[0] = str(kind)
+    _identity[1] = str(ident)
+
+
 def get_spans() -> List[dict]:
     with _spans_lock:
         return list(_spans)
@@ -133,9 +172,9 @@ def clear_spans() -> None:
 
 
 def dump() -> dict:
-    """This process's span buffer, with the JAX package's dump keys (the
-    identity a cluster daemon sets there is the port's default)."""
-    return {"identity": ["proc", ""], "pid": os.getpid(),
+    """This process's span buffer plus identity — what the runtime's
+    trace fan-out gathers from every process."""
+    return {"identity": list(_identity), "pid": os.getpid(),
             "spans": get_spans()}
 
 
@@ -289,11 +328,77 @@ def profile(logdir: str):
 
 def timeline(filename: Optional[str] = None) -> List[dict]:
     """Chrome-trace events of this process's recorded spans (each on its
-    real pid/tid track). The JAX package adds the runtime's task events
-    and, in ``cluster_timeline``, every process's spans; the port has
-    no runtime."""
+    real pid/tid track). The JAX package adds the runtime's task events,
+    which the port's runtime does not record; for every process, see
+    :func:`cluster_timeline`."""
     trace = [_span_event(s) for s in get_spans()]
     if filename:
         with open(filename, "w") as f:
             json.dump(trace, f)
     return trace
+
+
+def assemble_timeline(dumps: List[dict],
+                      filename: Optional[str] = None) -> List[dict]:
+    """Merge per-process trace dumps (:func:`dump` payloads) into one
+    chrome-trace JSON. Each dump becomes one ``pid`` track named by its
+    identity via a ``process_name`` metadata event; spans whose parent
+    lives in a DIFFERENT process get a flow-event pair (``ph:"s"`` at the
+    parent, ``ph:"f", bp:"e"`` at the child) so Perfetto draws the
+    cross-process arrow."""
+    events: List[dict] = []
+    # span_id -> (track pid, record)
+    index: Dict[str, Tuple[int, dict]] = {}
+    for i, d in enumerate(dumps or []):
+        if not isinstance(d, dict):
+            continue
+        ident = list(d.get("identity") or ("proc", ""))
+        label = str(ident[0]) if ident else "proc"
+        if len(ident) > 1 and ident[1]:
+            label += f":{ident[1]}"
+        label += f" (pid {d.get('pid', '?')})"
+        track = i + 1
+        events.append({"name": "process_name", "ph": "M", "pid": track,
+                       "tid": 0, "args": {"name": label}})
+        for s in d.get("spans") or []:
+            events.append(_span_event(s, pid=track))
+            sid = s.get("span_id")
+            if sid:
+                index[sid] = (track, s)
+    for sid, (track, s) in index.items():
+        parent = s.get("parent_span_id")
+        if not parent or parent not in index:
+            continue
+        ptrack, ps = index[parent]
+        if ptrack == track:
+            continue  # local nesting draws itself; arrows are for hops
+        events.append({
+            "name": "trace", "cat": "flow", "ph": "s", "id": sid,
+            "pid": ptrack, "tid": ps.get("tid", 0),
+            "ts": ps["start"] * 1e6,
+        })
+        events.append({
+            "name": "trace", "cat": "flow", "ph": "f", "bp": "e",
+            "id": sid, "pid": track, "tid": s.get("tid", 0),
+            "ts": s["start"] * 1e6,
+        })
+    if filename:
+        with open(filename, "w") as f:
+            json.dump(events, f)
+    return events
+
+
+def cluster_timeline(filename: Optional[str] = None) -> List[dict]:
+    """Pull every process's span buffer through the runtime's fan-out
+    (this process → the workers it started → theirs; a dead or silent
+    worker is skipped) and assemble one chrome trace. A process that
+    started no worker gets its own spans only."""
+    from raytpu_torch.runtime import api as _api
+
+    # Should the fan-out ever return this very process's buffer, the
+    # local one, which is fresher, takes its place: one track a process.
+    me = os.getpid()
+    dumps = [d for d in _api.trace_dumps()
+             if not (isinstance(d, dict) and d.get("pid") == me)]
+    dumps.append(dump())
+    return assemble_timeline(dumps, filename)

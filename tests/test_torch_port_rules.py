@@ -38,7 +38,8 @@ SERVE_MODULES = ("serve/__init__.py", "serve/api.py", "serve/batching.py",
                  "serve/multiplex.py", "serve/_private/autoscaling_policy.py",
                  "serve/_private/controller.py", "serve/_private/long_poll.py",
                  "serve/_private/prefix_router.py",
-                 "serve/_private/replica.py", "serve/_private/router.py")
+                 "serve/_private/replica.py", "serve/_private/router.py",
+                 "serve/_private/proxy.py", "serve/_private/grpc_proxy.py")
 
 # The Train library and its models, each with its JAX module.
 TRAIN_MODULES = ("train/__init__.py", "train/config.py",
@@ -151,14 +152,28 @@ def test_serve_modules_are_held_to_the_rules():
 
 
 def test_importing_serve_loads_no_jax():
+    # Nor aiohttp or grpc: the HTTP proxy is on the standard library's
+    # asyncio streams, and grpc is imported when the gRPC proxy starts.
     code = ("import json, sys; import raytpu_torch.serve as s; "
+            "import raytpu_torch.serve._private.proxy, "
+            "raytpu_torch.serve._private.grpc_proxy; "
             "s.LLMDeployment; print(json.dumps(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "raytpu_torch.inference.serving" in loaded
-    assert [m for m in loaded if _forbidden(m)] == []
+    assert [m for m in loaded if _forbidden(m)
+            or m.split(".")[0] in ("aiohttp", "grpc")] == []
+
+
+def test_serve_exports_the_jax_packages_names():
+    import raytpu.serve as jserve
+
+    import raytpu_torch.serve as pserve
+
+    assert pserve.__all__ == jserve.__all__
+    assert all(hasattr(pserve, n) for n in pserve.__all__)
 
 
 class Plain:

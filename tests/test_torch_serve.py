@@ -7,9 +7,9 @@ spreading load, status and delete, ``reconfigure``, a redeploy of
 dropped, scale from zero, autoscale up, a replica replaced after its
 death, batching and multiplexing — and the router's probe hardening, and
 the autoscaling policy's and the prefix router's decisions equal to the
-JAX package's on the same inputs. Then what the port refuses: the
-proxies, composition, a handle unpickled in another process, a target or
-an argument that does not pickle, an unknown actor option.
+JAX package's on the same inputs. Then composition, a handle unpickled
+in another process, and what the port refuses: a target or an argument
+that does not pickle, an unknown actor option.
 
 Replicas are processes that rebuild a deployment's class by importing
 this module by name, so it imports nothing of JAX or of the JAX package
@@ -688,21 +688,13 @@ def test_prefix_routing_decisions_equal_the_jax_package_s():
 # ---- what the port refuses ---------------------------------------------
 
 
-def test_the_proxies_and_composition_raise_naming_the_roadmap(pkgs):
-    """The proxies still raise, naming ROADMAP.md; composition, which
-    raised here before, now runs: a bound node in the arguments is
-    deployed with the application and arrives as its handle, and a
-    handle among them passes as it is."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_serve.start()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_serve.ingress(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_serve.run(deploy(port_serve, Doubler).bind(), name="http",
-                       _start_http=True)
+def test_composition_deploys_bound_nodes_and_passes_handles(pkgs):
+    """Composition: a bound node in the arguments is deployed with the
+    application and arrives as its handle, and a handle among them
+    passes as it is. (The proxies and ASGI ingress, which this test held
+    to raising before, are held to the JAX package's in
+    tests/test_torch_serve_http.py and tests/test_torch_serve_grpc.py.)"""
     handle = port_serve.get_deployment_handle("Doubler", "x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        handle.remote_asgi({}, b"")
     composed = deploy(port_serve, Adder).bind(
         deploy(port_serve, Doubler).bind())
     port_serve.run(composed, name="comp", route_prefix=None)
