@@ -169,7 +169,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     page after it, the second of two prompts sharing a fresh 160-token
     prefix goes to the replica that holds it (prefix routing on), this
     process launches no kernel while each replica launches paged
-    attention, the flash forward and RMSNorm (65 a forward), every
+    attention and RMSNorm (65 a forward) and the two the flash forward
+    (a replica whose prompts all hit its prefix cache prefills on the
+    paged chunk path, as phase 27 found), every
     replica runs on the card without JAX, a replica killed by its pid
     ends its open stream with ActorDiedError and is replaced by the
     controller, after which a request streams, and ``serve.shutdown()``
@@ -256,6 +258,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     ``rpc.client``, the replica's ``rpc.server``, its first prefill
     span, the first SSE byte), the tracing's cost a call, the
     timeline's size. Agreement with the handle leg's tokens is reported.
+28. Data into the trainer (inside phase 23's ResNet-50 fit, so no gang
+    starts for it): a ``raytpu_torch.data.from_numpy`` dataset of
+    64 x 12 = 768 NHWC uint8 images of 224 x 224 x 3 from a numpy seed
+    with int labels (the row's index), cut into 16 blocks of 48 rows
+    (batches straddle blocks), ``map_batches`` to float32 normalized by
+    ImageNet's mean and std in the task pool's worker processes (8
+    CPUs, started with ``runtime.init`` just before the fit, so that
+    their start overlaps the gang's), given to the fit as
+    ``datasets={"train": ds}``. After its tensor-fed steps the ResNet
+    loop takes 12 more SGD steps from
+    ``get_dataset_shard("train").iter_torch_batches(batch_size=64,
+    device="cuda")``. Fails unless every batch equals the driver's
+    numpy transform of the same images to the bit (two int64 sums of
+    the float32 bits, one weighted by position, taken on the card),
+    all 768 rows arrived once each, the losses are finite, no JAX is
+    loaded in the task workers, the coordinator or the train worker,
+    this process's connections carried less than one block's bytes
+    during the fit, the store holds no segment of the dataset once the
+    fit ends and the dataset is dropped, and no worker process is left.
+    Readings: images/s from the dataset beside phase 23's from tensors
+    in the same worker, each batch's wait (p50, max), the task pool's
+    start split (its first start, with a server's launch where none of
+    this environment ran yet, then each worker's fork to ready) and its
+    overlap with the gang's start, the
+    coordinator's peak blocks and bytes in flight; then
+    ``raytpu_torch.perf.run_all`` (task round trip, batched tasks,
+    actor calls, ``put``/``get``) in µs an operation.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -4407,6 +4436,35 @@ RESNET_SIZE = 224
 # Training FLOPs an image: 3 x the forward's 4.1 GFLOP (multiply-adds
 # counted twice) at 224 x 224.
 RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9
+# Phase 28: the dataset of the ResNet-50 fit's dataset-fed steps.
+DATASET_SEED = 28
+DATASET_BLOCKS = 16  # 48 rows a block: 64-image batches straddle blocks
+DATASET_POOL_CPUS = 8
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+# Seconds each of raytpu_torch.perf's benchmarks runs.
+PERF_DURATION_S = 0.25
+# Positions' weights of phase 28's batch checksum: int64 sums of the
+# float32 bits are exact in any order (they wrap the same way on the
+# card and in numpy).
+CHECKSUM_MODULUS = 65521
+
+
+def imagenet_normalize(batch: dict) -> dict:
+    """Phase 28's transform (a task's, and the driver's reference): NHWC
+    uint8 images to float32, normalized by ImageNet's mean and std."""
+    x = batch["image"].astype(np.float32) / np.float32(255.0)
+    return {"image": (x - IMAGENET_MEAN) / IMAGENET_STD,
+            "label": batch["label"]}
+
+
+def bits_checksum(bits: np.ndarray) -> list:
+    """Phase 28's checksum of a batch's float32 bits (int32), as the
+    card computes it: the sum, and the sum weighted by position."""
+    flat = bits.reshape(-1).astype(np.int64)
+    weights = np.arange(flat.size, dtype=np.int64) % CHECKSUM_MODULUS + 1
+    with np.errstate(over="ignore"):
+        return [int(flat.sum()), int((flat * weights).sum())]
 
 
 def tensor_sums(tree, prefix: str = "") -> dict:
@@ -4544,10 +4602,10 @@ def resnet_trainer_loop(config):
     y = torch.from_numpy(rng.integers(0, cfg.n_classes, b)).to(dev)
     stats0 = {n: t.clone() for n, t in model.named_buffers()}
 
-    def resnet_step(_=None):
+    def resnet_step(_=None, xb=x, yb=y):
         opt.zero_grad(set_to_none=True)
-        logp = F.log_softmax(model(x, train=True), dim=-1)
-        loss = -logp.gather(-1, y[:, None]).mean()
+        logp = F.log_softmax(model(xb, train=True), dim=-1)
+        loss = -logp.gather(-1, yb[:, None]).mean()
         loss.backward()
         opt.step()
         return loss.detach()
@@ -4578,11 +4636,105 @@ def resnet_trainer_loop(config):
             torch.cuda.max_memory_allocated(dev) / 1e9
         facts["profile"] = profile_step(resnet_step, None,
                                         wall / steps * 1e3)
+    if config.get("dataset"):
+        facts["dataset"] = dataset_steps(resnet_step, dev, b, size,
+                                         warmup + steps)
     train.report(facts)
 
 
+def dataset_steps(step, dev, batch_size: int, size: int,
+                  n_steps: int) -> dict:
+    """Phase 28, in the train worker: SGD steps on batches of 64 from this
+    rank's dataset shard on ``dev``, each reporting its loss; each
+    batch's wait, its checksum (taken on the card) and labels, the
+    wall time, the worker's start marks and the coordinator's facts."""
+    from raytpu_torch import runtime, train
+    from raytpu_torch.runtime import api
+
+    shard = train.get_dataset_shard("train")
+    fetches = []
+    blocks = shard.iter_blocks
+
+    def timed_blocks():
+        """The shard's blocks, each fetch (the coordinator's call, the
+        ref resolved, its segment mapped) timed."""
+        it = blocks()
+        while True:
+            t = time.perf_counter()
+            block = next(it, None)
+            fetches.append(time.perf_counter() - t)
+            if block is None:
+                return
+            yield block
+
+    shard.iter_blocks = timed_blocks
+    batches = shard.iter_torch_batches(batch_size=batch_size, device=dev)
+    weights = torch.arange(batch_size * size * size * 3, device=dev,
+                           dtype=torch.int64) % CHECKSUM_MODULUS + 1
+    waits, steps_s, sums, labels, losses = [], [], [], [], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    while True:
+        t_wait = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        t_step = time.perf_counter()
+        waits.append(t_step - t_wait)
+        xb, yb = batch["image"], batch["label"]
+        bits = xb.view(torch.int32).reshape(-1).to(torch.int64)
+        sums.append(torch.stack([bits.sum(),
+                                 (bits * weights[:bits.numel()]).sum()]))
+        labels.append(yb)
+        loss = step(None, xb, yb).item()
+        steps_s.append(time.perf_counter() - t_step)
+        losses.append(loss)
+        train.report({"step": len(losses), "loss": loss, "fed": "dataset"})
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    # One batch's assembly and copy apart: 64 rows concatenated from
+    # two blocks' worth of float32 images, then a pageable host-to-card
+    # copy, as iter_torch_batches does them.
+    rows = np.zeros((batch_size * 3 // 2, size, size, 3), np.float32)
+    t = time.perf_counter()
+    whole = np.concatenate([rows[:batch_size // 2], rows[batch_size // 2:]])
+    t_concat = time.perf_counter() - t
+    host = torch.from_numpy(whole[:batch_size])
+    _sync(dev)
+    t = time.perf_counter()
+    host.to(dev)
+    _sync(dev)
+    t_copy = time.perf_counter() - t
+    return {"steps": len(losses), "wanted_steps": n_steps, "wall_s": wall,
+            "losses": losses, "waits_s": waits, "steps_s": steps_s,
+            "fetches_s": fetches[:-1], "concat_s": t_concat,
+            "h2d_copy_s": t_copy,
+            "checksums": torch.stack(sums).cpu().tolist() if sums else [],
+            "labels": torch.cat(labels).cpu().tolist() if labels else [],
+            "start_marks": dict(api.START_MARKS),
+            "coordinator": runtime.get(runtime.call(
+                shard._coordinator, coordinator_facts), timeout=60)}
+
+
+def coordinator_facts(instance) -> dict:
+    """Run inside phase 28's split coordinator: its pid, its store's
+    counters (its peak blocks and bytes in flight) and the forbidden
+    modules it has loaded."""
+    from raytpu_torch.runtime import object_store
+
+    return {"pid": os.getpid(), "store": object_store.stats(),
+            "forbidden": process_facts()["forbidden"]}
+
+
+def task_facts(_=None) -> tuple:
+    """A task of phase 28's probe: its worker's pid and the forbidden
+    modules it has loaded."""
+    time.sleep(0.05)  # long enough for the probe to reach every worker
+    return os.getpid(), process_facts()["forbidden"]
+
+
 def fit_in_gang(loop, config: dict, name: str, storage: str,
-                resume=None):
+                resume=None, datasets=None):
     """One ``fit`` of ``loop`` at world size 1 on the card: its Result,
     with the wall time of the whole fit (processes, rendezvous, loop and
     teardown). A failed fit raises."""
@@ -4590,7 +4742,7 @@ def fit_in_gang(loop, config: dict, name: str, storage: str,
 
     t0 = time.perf_counter()
     result = train.DataParallelTrainer(
-        loop, train_loop_config=config,
+        loop, train_loop_config=config, datasets=datasets,
         scaling_config=train.ScalingConfig(num_workers=1, device="cuda"),
         run_config=train.RunConfig(name=name, storage_path=storage),
         resume_from_checkpoint=resume).fit()
@@ -4600,7 +4752,138 @@ def fit_in_gang(loop, config: dict, name: str, storage: str,
 
 
 def _losses(result) -> list:
-    return [m["loss"] for m in result.metrics_history if "loss" in m]
+    """The tensor-fed steps' losses (phase 28's dataset-fed ones are
+    reported apart)."""
+    return [m["loss"] for m in result.metrics_history
+            if "loss" in m and m.get("fed") != "dataset"]
+
+
+def phase28_dataset():
+    """Phase 28's dataset (see the module docstring) and the driver's
+    reference: the images, their labels and the transform's output."""
+    import raytpu_torch.data as rd
+
+    rows = RESNET_BATCH * (TRAIN_WARMUP + TRAIN_STEPS)
+    rng = np.random.default_rng(DATASET_SEED)
+    images = rng.integers(0, 256, (rows, RESNET_SIZE, RESNET_SIZE, 3),
+                          dtype=np.uint8)
+    labels = np.arange(rows, dtype=np.int64)
+    ds = rd.from_numpy({"image": images, "label": labels},
+                       blocks=DATASET_BLOCKS).map_batches(imagenet_normalize)
+    want = imagenet_normalize({"image": images, "label": labels})["image"]
+    return ds, want
+
+
+def task_probe(pids) -> dict:
+    """Phase 28: every task worker's forbidden modules, by pid, from
+    probe tasks sent until each worker of ``pids`` has answered."""
+    from raytpu_torch import runtime
+
+    probe = runtime.remote(task_facts)
+    seen: dict = {}
+    for _ in range(20):
+        for pid, forbidden in runtime.get(
+                [probe.remote() for _ in range(4 * len(pids))], timeout=120):
+            seen[pid] = forbidden
+        if set(pids) <= set(seen):
+            break
+    return seen
+
+
+def phase_data(result: dict, r: dict, want: np.ndarray, wire: dict,
+               pool_split: dict, segments_before: list,
+               owned_before: int, workers: list, forbidden: dict,
+               card_line: str) -> dict:
+    """Phase 28's readings and checks, once the fit has ended and the
+    dataset is dropped (see the module docstring)."""
+    from raytpu_torch.runtime import object_store, refcount, starter
+
+    d = r["dataset"]
+    rows = want.shape[0]
+    block_bytes = rows // DATASET_BLOCKS * want[0].nbytes
+    bits = want.view(np.int32)
+    expected = [bits_checksum(bits[i:i + RESNET_BATCH])
+                for i in range(0, rows, RESNET_BATCH)]
+    waits = sorted(d["waits_s"])
+    images_per_s = RESNET_BATCH * d["steps"] / d["wall_s"]
+    marks = d["start_marks"]
+    workers_marks = pool_split["workers"]
+    pool_ready = max(w.get("ready", 0.0) for w in workers_marks)
+    coord = d["coordinator"]
+    out = {
+        "rows": rows, "blocks": DATASET_BLOCKS, "block_bytes": block_bytes,
+        "float32_bytes": int(want.nbytes), "steps": d["steps"],
+        "images_per_s_dataset": images_per_s,
+        "images_per_s_tensors": result["resnet50"]["images_per_s"],
+        "images_per_s_dataset_after_first": RESNET_BATCH * (d["steps"] - 1)
+        / (d["wall_s"] - d["waits_s"][0]) if d["steps"] > 1 else None,
+        "wait_ms": {"p50": waits[len(waits) // 2] * 1e3,
+                    "max": waits[-1] * 1e3, "first": d["waits_s"][0] * 1e3},
+        "step_ms_dataset_p50": sorted(d["steps_s"])[len(d["steps_s"]) // 2]
+        * 1e3,
+        "step_ms_tensors": result["resnet50"]["step_ms"],
+        "block_fetch_ms": {"p50": sorted(d["fetches_s"])[
+            len(d["fetches_s"]) // 2] * 1e3, "max": max(d["fetches_s"]) * 1e3,
+            "blocks": len(d["fetches_s"])},
+        "one_batch_concat_ms": d["concat_s"] * 1e3,
+        "one_batch_h2d_copy_ms": d["h2d_copy_s"] * 1e3,
+        "losses": d["losses"],
+        "checksums_equal": d["checksums"] == expected,
+        "rows_once": sorted(d["labels"]) == list(range(rows)),
+        "pool_start": {
+            "workers": len(workers_marks),
+            "server_s": pool_split["server_s"],
+            "fork_to_ready_s": [w["ready"] - w["spawned"]
+                                for w in workers_marks if "ready" in w],
+            "start_to_all_ready_s": pool_ready - pool_split["started_at"],
+            "servers_in_this_process": starter.servers()},
+        "gang_start": {"spawned": marks.get("spawned"),
+                       "constructed": marks.get("constructed")},
+        "pool_overlapped_gang": (pool_split["started_at"]
+                                 < marks.get("constructed", 0.0)
+                                 and pool_ready > marks.get("spawned", 0.0)),
+        "coordinator_peak_blocks": coord["store"]["peak_objects"],
+        "coordinator_peak_bytes": coord["store"]["peak_bytes"],
+        "driver_wire_bytes_in_fit": wire,
+        "segments_left": [n for n, _ in object_store.segments()
+                          if n not in segments_before],
+        "driver_objects_left": refcount.owned_stats()["owned"]
+        - owned_before,
+        "forbidden": {"train_worker": r["forbidden"],
+                      "coordinator": coord["forbidden"],
+                      "task_workers": forbidden},
+    }
+    log(f"[data] {json.dumps(out)} | {card_line}")
+    if d["steps"] != d["wanted_steps"]:
+        raise AssertionError(f"phase 28: {d['steps']} dataset-fed steps")
+    if not out["checksums_equal"]:
+        raise AssertionError("phase 28: a batch differs from the driver's "
+                             "numpy transform of its images")
+    if not out["rows_once"]:
+        raise AssertionError("phase 28: the rows did not arrive once each")
+    if not np.all(np.isfinite(d["losses"])):
+        raise AssertionError(f"phase 28: losses {d['losses']}")
+    if (r["forbidden"] or coord["forbidden"]
+            or any(forbidden.values()) or set(forbidden) != set(workers)):
+        raise AssertionError(f"phase 28: forbidden modules {out}")
+    if sum(wire.values()) >= block_bytes:
+        raise AssertionError(f"phase 28: this process's connections carried "
+                             f"{wire} bytes, a block is {block_bytes}")
+    if out["segments_left"] or out["driver_objects_left"]:
+        raise AssertionError(f"phase 28: the store still holds {out}")
+    return out
+
+
+def phase_perf(card_line: str) -> dict:
+    """Phase 28's close: ``raytpu_torch.perf.run_all`` in µs an operation
+    (the task pool is stopped after it)."""
+    from raytpu_torch import perf
+
+    rows = perf.run_all(duration_s=PERF_DURATION_S)
+    out = {r["name"]: {"ops_per_s": r["ops_per_s"],
+                       "us": 1e6 / r["ops_per_s"]} for r in rows}
+    log(f"[perf] {json.dumps(out)} | {card_line}")
+    return out
 
 
 def phase_trainlib(card_line: str, bare: dict) -> dict:
@@ -4635,12 +4918,28 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
                                          resume=gpt.checkpoint)
     resnet_config = {"resnet": ResNetConfig.resnet50(),
                      "batch": RESNET_BATCH, "size": RESNET_SIZE,
-                     "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS}
+                     "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+                     "dataset": True}
+    # Phase 28: the task pool starts now, beside the gang's start.
+    from raytpu_torch import runtime
+    from raytpu_torch.runtime import object_store, refcount
+
+    segments_before = [n for n, _ in object_store.segments()]
+    owned_before = refcount.owned_stats()["owned"]
+    ds, want = phase28_dataset()
+    runtime.init(num_cpus=DATASET_POOL_CPUS)
+    wire0 = object_store.stats()
     resnet, resnet_fit_s = fit_in_gang(resnet_trainer_loop, resnet_config,
-                                       "resnet50", storage)
-    left = sorted({p.pid for p in multiprocessing.active_children()}
-                  - before)
-    shutil.rmtree(storage, ignore_errors=True)
+                                       "resnet50", storage,
+                                       datasets={"train": ds})
+    wire1 = object_store.stats()
+    del ds
+    gc.collect()
+    wire = {k: wire1[f"wire_bytes_{k}"] - wire0[f"wire_bytes_{k}"]
+            for k in ("sent", "received")}
+    pool_split = runtime.api.pool_start_split()
+    workers = runtime.api.pool_workers()
+    forbidden = task_probe(workers)
 
     g, r, gr = gpt.metrics, resnet.metrics, resumed.metrics
     saved = next(m["saved_sums"] for m in gpt.metrics_history
@@ -4687,7 +4986,6 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
             "profile": r["profile"], "fit_s": resnet_fit_s,
             "losses": _losses(resnet), "launches": r["launches"],
             "buffers_moved": r["buffers_moved"], "buffers": r["buffers"]},
-        "workers_left": left,
     }
     launches = {name: g["launches"][name] + gr["launches"][name]
                 + r["launches"][name] for name in g["launches"]}
@@ -4717,6 +5015,16 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
             and r["params_on"] == ["cuda"]
             and r["conv_weights_channels_last"]):
         raise AssertionError(f"ResNet-50 through the trainer: {r}")
+    result["data"] = phase_data(result, r, want, wire, pool_split,
+                                segments_before, owned_before, workers,
+                                forbidden, card_line)
+    del want
+    result["perf"] = phase_perf(card_line)  # stops the task pool
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    shutil.rmtree(storage, ignore_errors=True)
+    result["workers_left"] = left
+    result["phase_s"] = time.perf_counter() - t_phase
     if left:
         raise AssertionError(f"train worker processes left: {left}")
     return result
@@ -5624,9 +5932,19 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     if len(tokens["closed"]) != CLOSED_AFTER:
         raise AssertionError(f"the closed stream took "
                              f"{len(tokens['closed'])} tokens")
+    # Each replica: paged attention (every replica decodes), RMSNorm 65 a
+    # forward, no backward kernel; the two together: the flash forward (a
+    # replica whose prompts all hit its prefix cache prefills on the paged
+    # chunk path).
     for rid in replicas:
-        deployment_launches(launches[rid], forwards_of(stats[rid]),
-                            cfg.n_layer)
+        check_launches(launches[rid], {
+            "flash_forward": launches[rid]["flash_forward"],
+            "paged_attention": None,
+            "rmsnorm": (2 * cfg.n_layer + 1) * forwards_of(stats[rid]),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    deployment_launches(result["launches"],
+                        sum(forwards_of(stats[rid]) for rid in replicas),
+                        cfg.n_layer)
     check_launches(parent, {name: 0 for name in parent})
     for rid, rep in {**reports, new: new_report}.items():
         if rep["forbidden"] or rep["device"] != SERVE_APP_DEVICE or (

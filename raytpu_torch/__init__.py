@@ -2,7 +2,8 @@
 
 Ported so far: serving Llama and GPT-2 through the paged inference
 engine and ``LLMDeployment``, training GPT-2 (with its dropout), Llama
-and Mixtral on one card, RLlib, the Train library and Tune:
+and Mixtral on one card, RLlib, the Train library, Tune, serve, the
+runtime's tasks and object store, and the Data library:
 
 - :mod:`raytpu_torch.ops` — flash attention (forward, and a backward of
   two kernels, dQ and dK/dV), paged attention and RMSNorm, each a CUDA
@@ -29,10 +30,22 @@ and Mixtral on one card, RLlib, the Train library and Tune:
   package's entry points (``PPOConfig()...build().train()``), with a
   converter of the JAX package's RL weights. No kernel: RLlib reaches
   no TPU kernel;
-- :mod:`raytpu_torch.runtime` — a small worker-process layer (actors in
-  spawned processes, futures, ``put``/``get``/``wait``/``kill``, CPU
-  tensors through shared memory) with the shape of the JAX package's
-  calls, and :mod:`raytpu_torch.core.errors`, the errors it raises.
+- :mod:`raytpu_torch.runtime` — a worker-process layer with the shape
+  of the JAX package's calls: actors in processes of their own, tasks
+  on one pool of worker processes for the whole tree, all forked from a
+  server that imported torch once
+  (``remote(fn)``, ``num_returns``, streaming, retries), refs that
+  cross processes and are counted and freed, an object store of sealed
+  shared-memory segments that readers map without a copy, by-value
+  pickling of lambdas, closures and local classes (no ``cloudpickle``),
+  ``put``/``get``/``wait``/``cancel``/``kill``/``init``/``shutdown``;
+  :mod:`raytpu_torch.core.errors`, the errors it raises, and
+  :mod:`raytpu_torch.perf`, its microbenchmarks;
+- :mod:`raytpu_torch.data` — the Data library: lazy datasets whose
+  transforms and exchanges (shuffle, sort, groupby, zip, split) run as
+  tasks, the readers and writers of the JAX package (``pyarrow``,
+  ``pandas`` and ``PIL`` imported where needed), ``streaming_split`` for
+  the trainer's workers and ``iter_torch_batches`` onto the card.
 - :mod:`raytpu_torch.train` — the Train library: a gang of worker
   processes of that layer with one ``torch.distributed`` group (NCCL on
   the card, gloo on the CPU), sessions and ``report``, checkpoints

@@ -8,6 +8,11 @@ raises.
   exited (killed, crashed, or its constructor raised).
 - :class:`GetTimeoutError`: ``get`` ran out of its ``timeout``; it is a
   :class:`TimeoutError`.
+- :class:`ObjectLostError` and :class:`OwnerDiedError`: a ref whose
+  value was freed, or whose owner process exited.
+- :class:`WorkerCrashedError`: a task's worker process died on its last
+  try; :class:`TaskCancelledError`: the task was cancelled.
+- :class:`ObjectStoreFullError`: ``/dev/shm`` has no room for a value.
 """
 
 from __future__ import annotations
@@ -50,8 +55,38 @@ class ActorError(RayTpuError):
 class ActorDiedError(ActorError):
     def __init__(self, actor_id_hex: str, reason: str = ""):
         self.actor_id_hex = actor_id_hex
+        self.reason = reason
         super().__init__(f"actor {actor_id_hex} died: {reason}")
+
+    def __reduce__(self):
+        return (type(self), (self.actor_id_hex, self.reason))
 
 
 class GetTimeoutError(RayTpuError, TimeoutError):
+    pass
+
+
+class ObjectLostError(RayTpuError):
+    def __init__(self, object_id_hex: str, reason: str = "owner or store lost"):
+        self.object_id_hex = object_id_hex
+        self.reason = reason
+        super().__init__(f"object {object_id_hex} lost: {reason}")
+
+    def __reduce__(self):
+        return (type(self), (self.object_id_hex, self.reason))
+
+
+class OwnerDiedError(ObjectLostError):
+    pass
+
+
+class WorkerCrashedError(RayTpuError):
+    pass
+
+
+class TaskCancelledError(RayTpuError):
+    pass
+
+
+class ObjectStoreFullError(RayTpuError):
     pass

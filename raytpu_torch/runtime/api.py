@@ -1,14 +1,22 @@
-"""The port's worker-process layer: actors on ``torch.multiprocessing``.
+"""The port's worker-process layer: actors and tasks on
+``torch.multiprocessing``, with an object store between them.
 
 The calls of :mod:`raytpu.runtime.api` that the port's libraries use,
 with their shape: ``remote(cls)`` and ``.options(num_cpus=...,
 max_concurrency=..., name=..., namespace=..., lifetime=...)``, then
-``.remote(*args)`` to start one **spawned** process that holds one
-instance; ``handle.method.remote(*args, **kwargs)`` returns an
-:class:`ObjectRef`, a future;
+``.remote(*args)`` to start one process that holds one instance
+(forked from a server of the starter's environment,
+:mod:`raytpu_torch.runtime.starter`);
+``handle.method.remote(*args, **kwargs)`` returns an :class:`ObjectRef`,
+a future;
 ``handle.method.options(num_returns="streaming").remote(...)`` returns an
-:class:`~raytpu_torch.runtime.generator.ObjectRefGenerator`; ``put``,
-``get``, ``wait``, ``kill`` and ``get_actor``.
+:class:`~raytpu_torch.runtime.generator.ObjectRefGenerator`;
+``remote(fn)`` and ``remote(**options)(fn)`` make a remote function
+(:mod:`raytpu_torch.runtime.remote_function`), whose calls run as tasks
+on the tree's one task pool (:mod:`raytpu_torch.runtime.task_pool`);
+``put``, ``get``, ``wait``, ``cancel``, ``kill``, ``get_actor``,
+``init``, ``shutdown``, ``is_initialized``, ``cluster_resources`` and
+``available_resources``.
 
 What it keeps of the JAX package's semantics:
 
@@ -34,17 +42,21 @@ What it keeps of the JAX package's semantics:
   gone for :data:`EXIT_GRACE_S`: never a hang;
 - ``get`` with a ``timeout`` raises :class:`GetTimeoutError`; ``wait``
   returns the first ``num_returns`` ready refs in the order given;
-- top-level :class:`ObjectRef` arguments are resolved before the call is
-  sent;
+  ``get`` of a call whose value is itself a ref resolves it, one level;
+- **refs cross processes** (:mod:`raytpu_torch.runtime.object_ref`): an
+  :class:`ObjectRef` pickles to its owner's address and its id, borrows
+  are counted (:mod:`raytpu_torch.runtime.refcount`), and a top-level
+  ref argument of a call or task is resolved where it runs, from the
+  process that holds its value, not in the caller;
 - **handles cross processes.** An :class:`ActorHandle` pickles to the
   worker's address (an abstract Unix socket the worker listens on), its
   class and its pid; unpickled in another process of the tree, it
   connects at its first call, with a reader thread of its own, and every
   call, stream, cancel, ``call`` and ``kill`` works from there as from
   the owner. The sockets authenticate with the ``multiprocessing``
-  authkey, which spawned children inherit, so only processes of one tree
-  reach each other; a worker answers each call on the connection it came
-  in on;
+  authkey, which the runtime's children inherit, so only processes of
+  one tree reach each other; a worker answers each call on the
+  connection it came in on;
 - **named actors**: ``.options(name=..., namespace="default")`` registers
   the handle; :func:`get_actor` returns it from any process of the tree.
   The registry lives in the driver's process (the one the runtime did not
@@ -64,28 +76,24 @@ What it keeps of the JAX package's semantics:
   driver. Workers start workers of their own (the controller of
   :mod:`raytpu_torch.serve` starts its replicas).
 
-What crosses: arguments and results are pickled with
-``multiprocessing``'s pickler, so CPU tensors travel through shared
-memory by ``torch.multiprocessing``'s reductions (the descriptor is
-fetched from the sender's resource sharer, which every process of the
-tree may reach: they share the authkey) and everything else is copied
-through the connection. ``put`` copies the CPU tensors of its value into
-one shared-memory buffer once; every call that takes the ref maps those
-same pages, and one file descriptor crosses however many tensors the
-value holds.
+What crosses: a call's arguments, a result and a stream's values are
+**sealed** into the object store (:mod:`raytpu_torch.runtime.object_store`)
+by the process that has them, owned by the process that will read them:
+CPU tensors and large buffers go into one shared-memory segment that the
+reader maps, and only a small descriptor rides the connection. ``put``
+seals its value once; every call that takes the ref maps those same
+pages (a write there is seen by every holder). Functions and classes
+that cannot be found by name go by value
+(:mod:`raytpu_torch.runtime.serialization`).
 
-What it leaves out: no object store (a ref's value lives in the caller,
-or in the worker's reply; an :class:`ObjectRef` does not cross), no
-tasks (functions), no placement groups, no retries or restarts, no
-streaming backpressure, no cluster. ``num_cpus`` (the child's torch
-threads), ``max_concurrency``, ``name``, ``namespace`` and ``lifetime``
-are the only options; any other option raises. Arguments, results and
-the class go by pickle, so a class or function must be importable by
-name in the child (defined at a module's top level, and a script that
-starts workers keeps its entry point under ``if __name__ ==
-"__main__"``). :func:`call` runs a module-level function on the instance
-inside the worker (Ray's ``__ray_call__``), for callers that need to
-reach into a worker without adding a method to its class.
+What it leaves out: placement groups, actor restarts, streaming
+backpressure, resources other than CPUs, a cluster. ``num_cpus`` (the
+child's torch threads; 0 gives one thread and counts nothing against the
+task pool, whose slots are for tasks), ``max_concurrency``, ``name``,
+``namespace`` and ``lifetime`` are an actor's only options; any other
+option raises. :func:`call` runs a function on the instance inside the
+worker (Ray's ``__ray_call__``), for callers that need to reach into a
+worker without adding a method to its class.
 
 Traces cross it as they cross the JAX package's RPC frames: every
 message carries the caller's ambient :class:`~raytpu_torch.util.tracing.TraceContext`
@@ -104,13 +112,12 @@ buffer, and each asks its own.
 from __future__ import annotations
 
 import asyncio
+import atexit
 import concurrent.futures
 import functools
 import inspect
 import itertools
-import math
 import os
-import pickle
 import signal
 import socket
 import threading
@@ -118,14 +125,18 @@ import time
 import uuid
 import weakref
 from collections import deque
-from multiprocessing import connection as mpc
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.multiprocessing as mp
-from multiprocessing.reduction import ForkingPickler
 
-from raytpu_torch.core.errors import ActorDiedError, GetTimeoutError, TaskError
+from raytpu_torch.core.errors import (ActorDiedError, GetTimeoutError,
+                                      TaskError)
+from raytpu_torch.runtime import (object_store, refcount, remote_function,
+                                  starter, task_pool, transport)
+from raytpu_torch.runtime.object_ref import (ObjectRef, TopArg, is_ready,
+                                             pending_caller, top_arg,
+                                             value_of)
 from raytpu_torch.util import tracing
 
 # How long a worker whose process has exited may keep its connection open
@@ -137,21 +148,19 @@ _POLL_S = 0.05
 _REAP_S = 10.0
 OPTIONS = ("num_cpus", "max_concurrency", "name", "namespace", "lifetime")
 LIFETIMES = (None, "detached")
-_ALIGN = 64  # bytes: each packed tensor starts on a cache line
-# Connections a worker's socket holds before its instance is built and it
-# starts to accept them.
-_BACKLOG = 128
 
-# Messages to a worker: (kind, call id, pickled (method, args, kwargs),
-# the caller's trace context in its wire form or None). A dump carries
+# Messages to a worker: (kind, call id, the sealed (method, args,
+# kwargs), the caller's trace context in its wire form or None, the
+# caller's pid, who owns what the worker seals for it). A dump carries
 # the seconds its worker may wait on its own workers in the blob's place.
 _CALL, _STREAM, _CANCEL, _DUMP = "call", "stream", "cancel", "dump"
-# Messages from a worker: (call id, status, pickled value). A call gets
-# one _OK or _ERR; a stream any number of _ITEM, then _END or _ERR.
+# Messages from a worker: (call id, status, payload): a sealed value for
+# _OK and _ITEM, the error for _ERR. A call gets one _OK or _ERR; a
+# stream any number of _ITEM, then _END or _ERR.
 _OK, _ERR, _ITEM, _END = 0, 1, 2, 3
 
 # Every reply lands under this condition; get and wait sleep on it.
-_READY = threading.Condition(threading.RLock())
+READY = refcount.READY
 # How long trace_dumps waits for the workers below it to answer.
 TRACE_DUMP_TIMEOUT_S = 10.0
 # In a worker: the wall-clock times (time.time()) of its start's stages:
@@ -162,66 +171,46 @@ TRACE_DUMP_TIMEOUT_S = 10.0
 START_MARKS: Dict[str, float] = {}
 
 
-def _dumps(obj) -> bytes:
-    return bytes(ForkingPickler.dumps(obj))
+# ---- arguments ---------------------------------------------------------
 
 
-# ---- sockets -----------------------------------------------------------
+def pack_args(args, kwargs):
+    """A call's arguments as they cross: each top-level ref becomes a
+    :class:`TopArg`, resolved where the call runs; the refs come back to
+    be held by the submission until it ends."""
+    keep = [a for a in (*args, *kwargs.values()) if isinstance(a, ObjectRef)]
+    if not keep:
+        return tuple(args), dict(kwargs), keep
+    args = tuple(top_arg(a) if isinstance(a, ObjectRef) else a
+                 for a in args)
+    kwargs = {k: top_arg(v) if isinstance(v, ObjectRef) else v
+              for k, v in kwargs.items()}
+    return args, kwargs, keep
 
 
-def _new_address() -> str:
-    """An abstract Unix socket address: no file, gone with its socket."""
-    return f"\0raytpu_torch-{uuid.uuid4().hex}"
+def resolve_args(args, kwargs):
+    """The values of a call's top-level refs, got where the call runs."""
+    if not any(isinstance(a, TopArg) for a in (*args, *kwargs.values())):
+        return args, kwargs
+    return ([get(a.ref()) if isinstance(a, TopArg) else a for a in args],
+            {k: get(v.ref()) if isinstance(v, TopArg) else v
+             for k, v in kwargs.items()})
 
 
-def _listen(address: str) -> socket.socket:
-    sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-    sock.bind(address)
-    sock.listen(_BACKLOG)
-    return sock
+async def _resolved_off_loop(args, kwargs):
+    if not any(isinstance(a, TopArg) for a in (*args, *kwargs.values())):
+        return args, kwargs
+    return await asyncio.to_thread(resolve_args, args, kwargs)
 
 
-def _accepted(sock: socket.socket) -> mpc.Connection:
-    """An accepted socket as a connection, once the peer has proved it
-    holds this tree's authkey (and this side has proved it too)."""
-    conn = mpc.Connection(sock.detach())
-    authkey = mp.current_process().authkey
-    try:
-        mpc.deliver_challenge(conn, authkey)
-        mpc.answer_challenge(conn, authkey)
-    except BaseException:
-        conn.close()
-        raise
-    return conn
-
-
-def _connect(address: str) -> mpc.Connection:
-    return mpc.Client(address, family="AF_UNIX",
-                      authkey=mp.current_process().authkey)
-
-
-def _serve_socket(sock: socket.socket, handle: Callable[[mpc.Connection],
-                                                        None],
-                  name: str) -> None:
-    """Accept connections on ``sock`` until it closes; each on a daemon
-    thread of its own that authenticates it and runs ``handle``."""
-
-    def one(client: socket.socket) -> None:
-        try:
-            conn = _accepted(client)
-        except Exception:  # a process of another tree, or one that left
-            return
-        with conn:
-            handle(conn)
-
-    while True:
-        try:
-            client, _ = sock.accept()
-        except OSError:
-            return
-        client.setblocking(True)
-        threading.Thread(target=one, args=(client,), name=f"{name}-conn",
-                         daemon=True).start()
+def owned_ref(sealed) -> ObjectRef:
+    """A ref owned here to a sealed value (``put``'s, or a stream's that
+    its producer sealed)."""
+    oid = uuid.uuid4().hex
+    refcount.new_entry(oid)
+    ref = ObjectRef.owned(oid)
+    refcount.complete(oid, sealed)
+    return ref
 
 
 # ---- the child ---------------------------------------------------------
@@ -229,10 +218,12 @@ def _serve_socket(sock: socket.socket, handle: Callable[[mpc.Connection],
 
 class _Line:
     """The worker's side of one caller's connection: one lock over its
-    sends, and a cancel for every stream of that caller in flight."""
+    sends, a cancel for every stream of that caller in flight, and the
+    caller's pid (who owns what the worker seals for it)."""
 
-    def __init__(self, conn):
+    def __init__(self, conn, pid: int = 0):
         self.conn = conn
+        self.pid = pid
         self.send_lock = threading.Lock()
         self.cancels: Dict[int, Callable[[], Any]] = {}
 
@@ -259,26 +250,30 @@ class _Host:
         self._lines: set = set()
 
     def send(self, line: _Line, call_id: int, status: int, value) -> bool:
-        """Send one message; a value that does not pickle becomes a
-        TaskError (and False, which ends a stream). False also when the
-        caller is gone."""
+        """Send one message: a value (a result, or a stream's item) sealed
+        into the store for the caller, who owns it; an error as it is. A
+        value that does not pickle becomes a TaskError (and False, which
+        ends a stream). False also when the caller is gone."""
         ok = True
-        try:
-            blob = _dumps(value)
-        except Exception as exc:  # the method's result cannot cross
-            ok, status, blob = False, _ERR, _dumps(TaskError.from_exception(
-                f"pickling a result of call {call_id}", exc))
+        if status in (_OK, _ITEM):
+            try:
+                value = object_store.seal(value, line.pid)
+            except Exception as exc:  # the method's result cannot cross
+                ok, status, value = False, _ERR, TaskError.from_exception(
+                    f"pickling a result of call {call_id}", exc)
         try:
             with line.send_lock:
-                line.conn.send((call_id, status, blob))
+                transport.send(line.conn, (call_id, status, value))
         except (BrokenPipeError, OSError):
+            if status in (_OK, _ITEM):
+                refcount.discard(value)
             return False
         return ok
 
     def serve(self, owner: _Line, listener: socket.socket) -> None:
         """Serve every caller until the owner closes its pipe; then cancel
         every stream and let the calls in flight end."""
-        threading.Thread(target=_serve_socket,
+        threading.Thread(target=transport.serve_socket,
                          args=(listener, lambda c: self.read(_Line(c)),
                                self._name),
                          name=f"{self._name}-accept", daemon=True).start()
@@ -294,7 +289,7 @@ class _Host:
         self._lines.add(line)
         while True:
             try:
-                kind, call_id, blob, tc = line.conn.recv()
+                kind, call_id, blob, tc, line.pid = transport.recv(line.conn)
             except (EOFError, OSError):
                 break  # the caller is gone
             if kind == _CANCEL:
@@ -328,11 +323,9 @@ class _Host:
                   blob: bytes, tc) -> None:
         label = f"call {call_id}"
         try:
-            method, args, kwargs = pickle.loads(blob)
+            method, args, kwargs = object_store.unseal(blob)
             label = method if isinstance(method, str) else getattr(
                 method, "__name__", repr(method))
-            args = [_unpacked(a) for a in args]
-            kwargs = {k: _unpacked(v) for k, v in kwargs.items()}
             fn = (getattr(self._instance, method) if isinstance(method, str)
                   else functools.partial(method, self._instance))
         except Exception as exc:
@@ -403,6 +396,7 @@ class _Host:
 
     def _call_sync(self, line, call_id, label, fn, args, kwargs) -> None:
         try:
+            args, kwargs = resolve_args(args, kwargs)
             status, value = _OK, fn(*args, **kwargs)
         except Exception as exc:
             status, value = _ERR, TaskError.from_exception(label, exc)
@@ -415,6 +409,7 @@ class _Host:
             tracing.set_current_trace(tc)
         self._tasks.add(asyncio.current_task())
         try:
+            args, kwargs = await _resolved_off_loop(args, kwargs)
             async with self._slots:
                 with tracing.span("worker.actor_task.run"):
                     status, value = _OK, await fn(*args, **kwargs)
@@ -430,6 +425,7 @@ class _Host:
         try:
             if stop.is_set():
                 return
+            args, kwargs = resolve_args(args, kwargs)
             gen = fn(*args, **kwargs)
             for value in gen:
                 if not self.send(line, call_id, _ITEM, value) or \
@@ -451,6 +447,7 @@ class _Host:
             tracing.set_current_trace(tc)
         self._tasks.add(asyncio.current_task())
         try:
+            args, kwargs = await _resolved_off_loop(args, kwargs)
             async with self._slots:
                 with tracing.span("worker.actor_task.run"):
                     await self._drain(line, call_id, fn(*args, **kwargs))
@@ -474,12 +471,11 @@ class _Host:
             await agen.aclose()
 
 
-def _worker_main(conn, listener: socket.socket, name: str, blob: bytes,
+def _worker_main(conn, listener: socket.socket, name: str, blob,
                  num_threads: int, max_concurrency: int,
-                 registry: str, spawned: float) -> None:
+                 registry: str, owner_pid: int, spawned: float) -> None:
     """The body of a worker process: build the instance, then serve calls
     until the owner closes its pipe."""
-    global _REGISTRY
     START_MARKS.update(spawned=spawned, entered=time.time())
     tracing.set_process_identity("worker", name)
     # A daemonic process may not start children; this flag is the
@@ -488,13 +484,14 @@ def _worker_main(conn, listener: socket.socket, name: str, blob: bytes,
     # worker start workers of its own. Its children are daemons of its
     # own and end with it: nothing outlives the driver.
     mp.current_process().daemon = False
-    _REGISTRY = registry
+    set_registry(registry)
     torch.set_num_threads(num_threads)
     host = _Host(name, max_concurrency)
-    owner = _Line(conn)
+    owner = _Line(conn, owner_pid)
     try:
-        cls, args, kwargs = pickle.loads(blob)
+        cls, args, kwargs = object_store.unseal(blob)
         START_MARKS["imported"] = time.time()
+        args, kwargs = resolve_args(args, kwargs)
         host._instance = cls(*args, **kwargs)
         START_MARKS["constructed"] = time.time()
     except Exception as exc:
@@ -511,17 +508,17 @@ def _worker_main(conn, listener: socket.socket, name: str, blob: bytes,
 class _Caller:
     """A caller's side of one worker: the connection, a thread that reads
     every reply as it comes (so the worker never blocks on a full
-    connection), the replies still wanted, and the values of every open
-    stream not yet taken. :class:`_Worker` is the owner's (it started the
-    process); :class:`_Client` any other process's."""
+    connection), the calls still waiting for their replies (each an
+    entry of this process's object table), and the values of every open
+    stream not yet taken. :class:`_Worker` is the owner's (it started
+    the process); :class:`_Client` any other process's."""
 
     def __init__(self, name: str, address: str):
         self.name = name
         self.address = address
         self._ids = itertools.count(1)
         self._send_lock = threading.Lock()
-        self._wanted: set = set()
-        self._results: Dict[int, Tuple[bool, Any]] = {}
+        self._pending: Dict[int, refcount.Submission] = {}
         self.streams: Dict[int, deque] = {}  # call id: (status, value)s
         self.dead: Optional[str] = None
         self._exit_seen: Optional[float] = None
@@ -533,32 +530,40 @@ class _Caller:
     def _read_loop(self, conn) -> None:
         while True:
             try:
-                call_id, status, blob = conn.recv()
+                call_id, status, payload = transport.recv(conn)
             except (EOFError, OSError):
                 break
-            try:
-                value = pickle.loads(blob)
-            except Exception as exc:  # e.g. a class the caller cannot import
-                status, value = _ERR, TaskError.from_exception(
-                    f"{self.name}: unpickling a result of call {call_id}",
-                    exc)
-            with _READY:
+            with READY:
                 if call_id == 0:
-                    self._started(status == _OK, value)
-                elif call_id in self.streams:
-                    self.streams[call_id].append((status, value))
-                elif call_id in self._wanted:
-                    self._results[call_id] = (status == _OK, value)
-                _READY.notify_all()
+                    self._started(status == _OK, payload)
+                    continue
+                if call_id in self.streams:
+                    self.streams[call_id].append((status, payload))
+                    READY.notify_all()
+                    continue
+                sub = self._pending.pop(call_id, None)
+            if sub is None:  # a dump nobody waits for, or a closed stream
+                if status in (_OK, _ITEM):
+                    refcount.discard(payload)
+                continue
+            sub.finish()
+            if status == _OK:
+                refcount.complete(sub.oid, payload)
+            else:
+                refcount.fail(sub.oid, payload)
 
     def _started(self, ok: bool, value) -> None:
         """The owner's: the constructor's outcome (call id 0)."""
 
     def _mark_dead(self, reason: Optional[str]) -> None:
-        with _READY:
+        with READY:
             if self.dead is None:
                 self.dead = reason or self._death()
-            _READY.notify_all()
+            pending, self._pending = self._pending, {}
+            READY.notify_all()
+        for sub in pending.values():
+            sub.finish()
+            refcount.fail(sub.oid, ActorDiedError(self.name, self.dead))
 
     def _death(self) -> str:
         return f"process {self.pid} exited"
@@ -577,8 +582,8 @@ class _Caller:
         elif now - self._exit_seen >= EXIT_GRACE_S:
             self._mark_dead(None)
 
-    def submit(self, method, args, kwargs) -> "ObjectRef":
-        return ObjectRef(self, self._send_call(_CALL, method, args, kwargs))
+    def submit(self, method, args, kwargs) -> ObjectRef:
+        return self._send_call(_CALL, method, args, kwargs)
 
     def submit_stream(self, method, args, kwargs):
         from raytpu_torch.runtime.generator import ObjectRefGenerator
@@ -586,41 +591,55 @@ class _Caller:
         return ObjectRefGenerator(self, self._send_call(_STREAM, method,
                                                         args, kwargs))
 
-    def _send_call(self, kind: str, method, args, kwargs) -> int:
-        args = tuple(_resolve(a) for a in args)
-        kwargs = {k: _resolve(v) for k, v in kwargs.items()}
-        blob = _dumps((method, args, kwargs))  # a bad argument raises here
-        call_id = self._new_call(kind)
+    def _send_call(self, kind: str, method, args, kwargs):
+        """Send one call: a ref to its result (a stream's call id)."""
+        args, kwargs, keep = pack_args(args, kwargs)
+        # A bad argument raises here.
+        sealed = object_store.seal((method, args, kwargs), os.getpid())
+        call_id, ref = self._new_call(
+            kind, refcount.Submission(None, keep, sealed))
         tc = tracing.current_trace()
         if not tracing.enabled():
             # An untraced hop in a traced request forwards the context
             # unchanged, so the chain is not severed downstream.
-            self._send((kind, call_id, blob,
-                        None if tc is None else tc.to_wire()))
-            return call_id
+            self._send((kind, call_id, sealed,
+                        None if tc is None else tc.to_wire(), os.getpid()))
+            return call_id if ref is None else ref
         label = method if isinstance(method, str) else getattr(
             method, "__name__", repr(method))
         with tracing.span("rpc.client." + label) as attrs:
             attrs["peer"] = self.name
-            self._send((kind, call_id, blob,
-                        tracing.current_trace().to_wire()))
-        return call_id
+            self._send((kind, call_id, sealed,
+                        tracing.current_trace().to_wire(), os.getpid()))
+        return call_id if ref is None else ref
 
-    def _new_call(self, kind: str) -> int:
-        with _READY:
+    def _new_call(self, kind: str, sub: refcount.Submission):
+        """A call id, and (for a call, not a stream) the ref its reply
+        completes: failed at once if the worker is already dead."""
+        ref = None
+        with READY:
             call_id = next(self._ids)
             if kind == _STREAM:
                 self.streams[call_id] = deque()
-            else:
-                self._wanted.add(call_id)
-        return call_id
+                return call_id, None
+            sub.oid = uuid.uuid4().hex
+            refcount.new_entry(sub.oid, caller=self, call_id=call_id)
+            ref = ObjectRef.owned(sub.oid)
+            dead = self.dead
+            if dead is None:
+                self._pending[call_id] = sub
+        if dead is not None:
+            sub.finish()
+            refcount.fail(sub.oid, ActorDiedError(self.name, dead))
+        return call_id, ref
 
-    def submit_dump(self, timeout: float) -> "ObjectRef":
+    def submit_dump(self, timeout: float) -> ObjectRef:
         """Ask the worker for its span buffers and those of its workers,
         which it waits on for at most ``timeout`` seconds."""
-        call_id = self._new_call(_DUMP)
-        self._send((_DUMP, call_id, timeout, None))
-        return ObjectRef(self, call_id)
+        call_id, ref = self._new_call(
+            _DUMP, refcount.Submission(None, None, None))
+        self._send((_DUMP, call_id, timeout, None, os.getpid()))
+        return ref
 
     def _send(self, message) -> None:
         raise NotImplementedError
@@ -628,16 +647,23 @@ class _Caller:
     def cancel(self, call_id: int) -> None:
         """Close a stream: drop what it sent and has not been taken, and
         tell the worker to close its generator."""
-        with _READY:
-            if self.streams.pop(call_id, None) is None:
-                return
+        with READY:
+            buf = self.streams.pop(call_id, None)
+        if buf is None:
+            return
+        for status, payload in buf:
+            if status == _ITEM:
+                refcount.discard(payload)
         if self.dead is None:
-            self._send((_CANCEL, call_id, None, None))
+            self._send((_CANCEL, call_id, None, None, os.getpid()))
 
     def forget(self, call_id: int) -> None:
-        with _READY:
-            self._wanted.discard(call_id)
-            self._results.pop(call_id, None)
+        """No ref waits for the call's reply any more: its value is
+        discarded when it lands (the submission still ends then)."""
+        with READY:
+            sub = self._pending.get(call_id)
+            if sub is not None:
+                sub.oid = None
 
 
 class _Worker(_Caller):
@@ -647,18 +673,21 @@ class _Worker(_Caller):
     def __init__(self, cls, args, kwargs, num_threads: int,
                  max_concurrency: int = 1):
         super().__init__(f"{cls.__name__}-{uuid.uuid4().hex[:8]}",
-                         _new_address())
-        blob = _dumps((cls, args, kwargs))  # a bad argument raises here
-        ctx = mp.get_context("spawn")
-        self._conn, child = ctx.Pipe()
+                         transport.new_address())
+        args, kwargs, keep = pack_args(args, kwargs)
+        # A bad argument raises here.
+        self._ctor = refcount.Submission(None, keep, object_store.seal(
+            (cls, args, kwargs), os.getpid()))
+        self._conn, child = mp.Pipe()
         # The socket listens before the child starts, so a caller that
         # connects early waits in its backlog, never on a missing address.
-        listener = _listen(self.address)
-        self.proc = ctx.Process(target=_worker_main,
-                                args=(child, listener, self.name, blob,
-                                      num_threads, max_concurrency,
-                                      _registry_address(), time.time()),
-                                name=self.name, daemon=True)
+        listener = transport.listen(self.address)
+        self.proc = starter.Process(
+            target=_worker_main,
+            args=(child, listener, self.name, self._ctor.sealed, num_threads,
+                  max_concurrency, _registry_address(), os.getpid(),
+                  time.time()),
+            name=self.name, daemon=True)
         try:
             self.proc.start()
         finally:
@@ -679,9 +708,14 @@ class _Worker(_Caller):
         self._read_loop(self._conn)
         self.proc.join(timeout=_REAP_S)
         self._mark_dead(None)
+        self._ctor.finish()
+        # What the worker owned (its puts, its calls' results) is gone
+        # with it.
+        object_store.sweep_owner(self.proc.pid)
 
     def _started(self, ok: bool, value) -> None:
         self.started = (ok, value)
+        self._ctor.finish()
 
     def _death(self) -> str:
         if self._stop_reason is not None:
@@ -697,7 +731,7 @@ class _Worker(_Caller):
     def _send(self, message) -> None:
         try:
             with self._send_lock:
-                self._conn.send(message)
+                transport.send(self._conn, message)
         except (BrokenPipeError, OSError):
             pass  # the worker is gone: the reader marks it dead at EOF
 
@@ -744,7 +778,7 @@ class _Client(_Caller):
 
     def _connect_and_read(self) -> None:
         try:
-            conn = _connect(self.address)
+            conn = transport.connect(self.address)
         except Exception as exc:  # gone, or its constructor raised
             self._mark_dead(f"its socket refused the connection ({exc!r}): "
                             f"process {self._pid} has exited")
@@ -755,7 +789,7 @@ class _Client(_Caller):
             self._conn = conn
             try:
                 for message in queued:
-                    conn.send(message)
+                    transport.send(conn, message)
             except OSError:
                 pass  # the worker is gone: EOF follows
         self._read_loop(conn)
@@ -788,7 +822,7 @@ class _Client(_Caller):
                     self._queue.append(message)
                 return
             try:
-                self._conn.send(message)
+                transport.send(self._conn, message)
             except (BrokenPipeError, OSError):
                 pass  # the worker is gone: the reader marks it dead at EOF
 
@@ -801,74 +835,6 @@ class _Client(_Caller):
             except ProcessLookupError:
                 pass
         self._mark_dead(reason)
-
-
-class ObjectRef:
-    """A future: a value ``put`` holds, or the reply of one call on a
-    worker. Hashable by identity."""
-
-    __slots__ = ("_worker", "_call_id", "_value")
-
-    def __init__(self, worker: Optional[_Caller] = None, call_id: int = 0,
-                 value: Any = None):
-        self._worker = worker
-        self._call_id = call_id
-        self._value = value
-
-    def _ready(self) -> bool:
-        w = self._worker
-        return w is None or self._call_id in w._results or w.dead is not None
-
-    def _result(self):
-        w = self._worker
-        if w is None:
-            return self._value.unpack()
-        if self._call_id in w._results:
-            ok, value = w._results[self._call_id]
-            if not ok:
-                raise value
-            return value
-        raise ActorDiedError(w.name, w.dead)
-
-    def __del__(self):
-        if self._worker is not None:
-            try:
-                self._worker.forget(self._call_id)
-            except (AttributeError, TypeError):  # the interpreter's teardown
-                pass
-
-    def __reduce__(self):
-        raise TypeError("an ObjectRef does not cross processes; pass it "
-                        "as a top-level argument of a call, which resolves "
-                        "it, or get() it first")
-
-    def __repr__(self):
-        where = "put" if self._worker is None else \
-            f"{self._worker.name}#{self._call_id}"
-        return f"ObjectRef({where})"
-
-
-def _resolve(arg):
-    """A top-level argument as it crosses: a put's packed value (unpacked
-    in the worker), a stream's value or a call's result, anything else as
-    it is."""
-    if not isinstance(arg, ObjectRef):
-        return arg
-    if arg._worker is None and isinstance(arg._value, _Packed):
-        return arg._value
-    return get(arg)
-
-
-class _Value:
-    """What a ref to a value already in hand (a stream's) holds."""
-
-    __slots__ = ("value",)
-
-    def __init__(self, value):
-        self.value = value
-
-    def unpack(self):
-        return self.value
 
 
 class _Method:
@@ -972,9 +938,9 @@ class RemoteClass:
             raise ValueError(f"options {unknown}: the port's runtime takes "
                              f"only {list(OPTIONS)}")
         num_cpus = options.get("num_cpus", 1)
-        if not isinstance(num_cpus, (int, float)) or num_cpus < 1:
-            raise ValueError(f"num_cpus={num_cpus!r}: a worker needs at "
-                             f"least one CPU (it sets its torch threads)")
+        if not isinstance(num_cpus, (int, float)) or num_cpus < 0:
+            raise ValueError(f"num_cpus={num_cpus!r}: a number >= 0 (the "
+                             f"worker's torch threads; 0 gives one)")
         max_concurrency = options.get("max_concurrency", 1)
         if not isinstance(max_concurrency, int) or max_concurrency < 1:
             raise ValueError(f"max_concurrency={max_concurrency!r}: a "
@@ -988,7 +954,7 @@ class RemoteClass:
                              f"runtime takes {list(LIFETIMES)}")
         self._cls = cls
         self._options = options
-        self._threads = int(num_cpus)
+        self._threads = max(1, int(num_cpus))
         self._max_concurrency = max_concurrency
 
     def options(self, **options) -> "RemoteClass":
@@ -1020,23 +986,31 @@ class RemoteClass:
         return handle
 
 
-def remote(cls) -> RemoteClass:
-    """A class whose ``.remote(...)`` starts a worker process holding an
-    instance (``.options(num_cpus=..., max_concurrency=..., name=...,
-    namespace=..., lifetime=...)`` first to set its threads, how many
-    calls it runs at once, its name and its lifetime).
-    Classes only: the port's runtime has no tasks."""
-    if not inspect.isclass(cls):
-        raise TypeError(f"remote() takes a class, not {cls!r}: the port's "
-                        f"runtime hosts actors only")
-    return RemoteClass(cls)
+def remote(*args, **options):
+    """``remote(cls)`` / ``remote(fn)``, or ``remote(**options)`` as a
+    decorator: a class whose ``.remote(...)`` starts a worker process
+    holding an instance (:class:`RemoteClass`), or a function whose
+    ``.remote(...)`` runs it as a task
+    (:class:`~raytpu_torch.runtime.remote_function.RemoteFunction`)."""
+    if len(args) == 1 and not options and callable(args[0]):
+        return _remote(args[0], {})
+    if args:
+        raise TypeError("remote() takes a class or a function, or keyword "
+                        "options only, e.g. remote(num_cpus=2)")
+    return lambda target: _remote(target, options)
+
+
+def _remote(target, options: Dict[str, Any]):
+    if inspect.isclass(target):
+        return RemoteClass(target, options)
+    return remote_function.RemoteFunction(target, options)
 
 
 def call(actor: ActorHandle, fn, *args, **kwargs) -> ObjectRef:
     """Run ``fn(instance, *args, **kwargs)`` in the worker, as a method
     call (in order with its other calls at ``max_concurrency=1``; on the
-    event loop when ``fn`` is a coroutine function). ``fn`` must be
-    importable by name there."""
+    event loop when ``fn`` is a coroutine function). ``fn`` goes by name,
+    or by value where it cannot be found by name."""
     return actor._worker.submit(fn, args, kwargs)
 
 
@@ -1101,18 +1075,22 @@ def _names(op: str, namespace: str, name: str, *rest):
 
 def _ask_registry(op: str, *args):
     """One request to the driver's registry, on a connection of its own."""
-    with _connect(_REGISTRY) as conn:
-        conn.send((op, args))
-        ok, value = conn.recv()
+    with transport.connect(_REGISTRY) as conn:
+        transport.send(conn, (op, args))
+        ok, value = transport.recv(conn)
     if not ok:
         raise value
     return value
 
 
-def _answer(conn: mpc.Connection) -> None:
-    """Serve one worker's registry request (in the driver)."""
+def _answer(conn) -> None:
+    """Serve one worker's registry request (in the driver); a ``pool``
+    request keeps the connection for that process's tasks."""
     try:
-        op, args = conn.recv()
+        op, args = transport.recv(conn)
+        if op == "pool":
+            task_pool.serve_client(conn, _pool())
+            return
         if op == "create":
             cls, c_args, c_kwargs, options = args
             value = RemoteClass(cls, options).remote(*c_args, **c_kwargs)
@@ -1124,7 +1102,7 @@ def _answer(conn: mpc.Connection) -> None:
     except Exception as exc:  # the caller raises it
         reply = (False, exc)
     try:
-        conn.send(reply)
+        transport.send(conn, reply)
     except (BrokenPipeError, OSError):
         pass
 
@@ -1137,11 +1115,13 @@ def _registry_address() -> str:
         return _REGISTRY
     with _NAMED_LOCK:
         if _registry_socket is None:
-            address = _new_address()
-            sock = _listen(address)
+            object_store.tree()  # before the first child: it inherits it
+            address = transport.new_address()
+            sock = transport.listen(address)
             # The process the runtime did not start: its timeline track.
             tracing.set_process_identity("driver")
-            threading.Thread(target=_serve_socket,
+            atexit.register(_at_driver_exit)
+            threading.Thread(target=transport.serve_socket,
                              args=(sock, _answer, "registry"),
                              name="raytpu-torch-registry",
                              daemon=True).start()
@@ -1176,76 +1156,18 @@ def get_actor(name: str, namespace: str = "default") -> ActorHandle:
     return _names("lookup", namespace, name)
 
 
-class _Slot:
-    """Where a packed tensor stood in its value."""
-
-    def __init__(self, index: int):
-        self.index = index
-
-
-class _Packed:
-    """A ``put`` value with its CPU tensors (in dicts, lists and tuples)
-    copied into one shared-memory buffer: one file descriptor crosses to a
-    worker however many tensors there are (passing one costs a round trip
-    to the sender's descriptor server). ``unpack`` gives the value back
-    with views into the buffer."""
-
-    def __init__(self, value):
-        tensors: List[torch.Tensor] = []
-        self.skeleton = self._strip(value, tensors)
-        self.slots: List[Tuple[int, torch.dtype, Tuple[int, ...]]] = []
-        size = 0
-        for t in tensors:
-            self.slots.append((size, t.dtype, tuple(t.shape)))
-            size += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
-        self.buffer = (torch.empty(size, dtype=torch.uint8).share_memory_()
-                       if tensors else None)
-        for slot, t in zip(self.slots, tensors):
-            self._view(*slot).copy_(t)
-
-    @classmethod
-    def _strip(cls, value, tensors: list):
-        if isinstance(value, torch.Tensor):
-            if value.device.type != "cpu":
-                raise ValueError(f"put() shares CPU tensors; got one on "
-                                 f"{value.device}")
-            tensors.append(value.detach())
-            return _Slot(len(tensors) - 1)
-        if isinstance(value, dict):
-            return {k: cls._strip(v, tensors) for k, v in value.items()}
-        if isinstance(value, (list, tuple)):
-            return type(value)(cls._strip(v, tensors) for v in value)
-        return value
-
-    def _view(self, offset: int, dtype: torch.dtype, shape) -> torch.Tensor:
-        nbytes = math.prod(shape) * dtype.itemsize
-        return self.buffer[offset:offset + nbytes].view(dtype).view(shape)
-
-    def unpack(self):
-        views = [self._view(*slot) for slot in self.slots]
-
-        def fill(x):
-            if isinstance(x, _Slot):
-                return views[x.index]
-            if isinstance(x, dict):
-                return {k: fill(v) for k, v in x.items()}
-            if isinstance(x, (list, tuple)):
-                return type(x)(fill(v) for v in x)
-            return x
-
-        return fill(self.skeleton)
-
-
-def _unpacked(x):
-    return x.unpack() if isinstance(x, _Packed) else x
+def set_registry(address: Optional[str]) -> None:
+    """In a process the runtime started: the driver's registry address."""
+    global _REGISTRY
+    _REGISTRY = address
 
 
 def put(value: Any) -> ObjectRef:
-    """A ref to a snapshot of ``value``: its CPU tensors copied into one
-    shared-memory buffer, once, which every call that takes the ref maps
-    (a write there is seen by every holder); other objects are pickled
-    with each call."""
-    return ObjectRef(value=_Packed(value))
+    """A ref to a snapshot of ``value``, sealed into the object store
+    once (its CPU tensors and large buffers in one shared-memory segment,
+    which every call that takes the ref maps: a write there is seen by
+    every holder); owned by this process."""
+    return owned_ref(object_store.seal(value, os.getpid()))
 
 
 def _refs(refs) -> List[ObjectRef]:
@@ -1256,41 +1178,47 @@ def _refs(refs) -> List[ObjectRef]:
     return out
 
 
-def _block(workers, deadline: Optional[float]) -> bool:
+def _block(callers, deadline: Optional[float]) -> bool:
     """Sleep (holding nothing) until a reply lands or a poll is due;
-    False once the deadline has passed. ``workers`` are those whose exit
-    the wait looks at."""
+    False once the deadline has passed. ``callers`` are the actor callers
+    whose exit the wait looks at."""
     now = time.monotonic()
     if deadline is not None and now >= deadline:
         return False
-    for w in workers:
+    for w in callers:
         if w is not None:
             w.check_exit(now)
     wait_s = _POLL_S if deadline is None else min(_POLL_S, deadline - now)
-    _READY.wait(wait_s)
+    READY.wait(wait_s)
     return True
 
 
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *,
         timeout: Optional[float] = None) -> Any:
     """The values of ``refs`` (one ref, or a list), waiting at most
-    ``timeout`` seconds. Raises the first failure in the order given:
-    :class:`TaskError`, :class:`ActorDiedError`; or
-    :class:`GetTimeoutError`."""
+    ``timeout`` seconds; a value that is itself a ref is resolved, one
+    level. Raises the first failure in the order given:
+    :class:`TaskError`, :class:`ActorDiedError`, :class:`ObjectLostError`
+    ...; or :class:`GetTimeoutError`."""
     single = isinstance(refs, ObjectRef)
     ref_list = [refs] if single else _refs(refs)
     deadline = None if timeout is None else time.monotonic() + timeout
-    with _READY:
+    with READY:
         while True:
-            pending = [r for r in ref_list if not r._ready()]
+            pending = [r for r in ref_list if not is_ready(r)]
             if not pending:
                 break
-            if not _block([r._worker for r in pending], deadline):
+            if not _block([pending_caller(r) for r in pending], deadline):
                 raise GetTimeoutError(
                     f"get() timed out after {timeout} s: {len(pending)} of "
                     f"{len(ref_list)} results not ready ({pending[0]!r} "
                     f"first)")
-        values = [r._result() for r in ref_list]
+    values = [value_of(r) for r in ref_list]
+    for i, value in enumerate(values):
+        if isinstance(value, ObjectRef):
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+            values[i] = get(value, timeout=left)
     return values[0] if single else values
 
 
@@ -1303,15 +1231,14 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
     ref_list = _refs(refs)
     if num_returns > len(ref_list):
         raise ValueError("num_returns exceeds the number of refs")
-    if len({id(r) for r in ref_list}) != len(ref_list):
+    if len({r.hex() for r in ref_list}) != len(ref_list):
         raise ValueError("wait() got duplicate refs")
     deadline = None if timeout is None else time.monotonic() + timeout
-    with _READY:
+    with READY:
         while True:
-            ready = [r for r in ref_list if r._ready()]
+            ready = [r for r in ref_list if is_ready(r)]
             if len(ready) >= num_returns or not _block(
-                    [r._worker for r in ref_list if not r._ready()],
-                    deadline):
+                    [pending_caller(r) for r in ref_list], deadline):
                 break
     ready = ready[:num_returns]
     taken = {id(r) for r in ready}
@@ -1327,3 +1254,168 @@ def kill(actor: ActorHandle) -> None:
         actor._worker.shutdown("killed by kill()")
     else:
         actor._worker.kill("killed by kill()")
+
+
+# ---- the task pool -----------------------------------------------------
+
+# In the driver: the tree's task pool, once init() (or the first task)
+# started it.
+_POOL: Optional[task_pool.TaskPool] = None
+_POOL_LOCK = threading.Lock()
+# In any other process: its connection to the driver's pool.
+_LINK: Optional["_PoolLink"] = None
+
+
+def init(num_cpus: Optional[int] = None, *,
+         ignore_reinit_error: bool = False) -> None:
+    """Start the runtime in the driver: the task pool's ``num_cpus``
+    workers (``os.cpu_count()`` by default) start at once, from a thread,
+    while the caller goes on. A second ``init`` raises unless
+    ``ignore_reinit_error``; in a process the runtime started (which is
+    already connected to the driver's pool) it raises the same way."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is not None or _REGISTRY is not None:
+            if ignore_reinit_error:
+                return
+            raise RuntimeError("runtime.init() called twice (pass "
+                               "ignore_reinit_error=True to ignore)")
+        size = (os.cpu_count() or 1) if num_cpus is None else int(num_cpus)
+        pool = task_pool.TaskPool(size, _registry_address())
+        pool.start()
+        _POOL = pool
+
+
+def is_initialized() -> bool:
+    """Whether a task pool is there to run tasks: started in the driver,
+    or reachable (every process the runtime started)."""
+    return _POOL is not None or _REGISTRY is not None
+
+
+def _pool() -> task_pool.TaskPool:
+    """The driver's pool, started at the first need."""
+    if _POOL is None:
+        init(ignore_reinit_error=True)
+    return _POOL
+
+
+def shutdown() -> None:
+    """Stop the task pool (its workers are killed, queued tasks fail) and
+    every worker this process owns. In the driver a later ``init`` (or
+    task) starts a fresh pool."""
+    global _POOL
+    with _POOL_LOCK:
+        pool, _POOL = _POOL, None
+    if pool is not None:
+        pool.stop()
+    with _HANDLES_LOCK:
+        handles = list(_OWNED.values())
+    for handle in handles:
+        kill(handle)
+
+
+def pool_submit(spec: dict) -> None:
+    if _REGISTRY is None:
+        _pool().submit(task_pool.Task(spec, remote_function.deliver))
+    else:
+        _link().send(("submit", spec))
+
+
+def pool_cancel(tid: str, force: bool) -> None:
+    if _REGISTRY is None:
+        if _POOL is not None:
+            _POOL.cancel(tid, force)
+    else:
+        _link().send(("cancel", tid, force))
+
+
+def cancel(ref: ObjectRef, *, force: bool = False) -> None:
+    """Cancel the task whose return ``ref`` is (see
+    :mod:`raytpu_torch.runtime.task_pool`); a ref of anything else, or of
+    a task that has ended, is left as it is."""
+    with READY:
+        entry = refcount.OWNED.get(ref.hex())
+        tid = None if entry is None else entry.task
+    if tid is not None:
+        pool_cancel(tid, force)
+
+
+def _resources() -> dict:
+    if _REGISTRY is None:
+        return _pool().resources()
+    return _link().resources()
+
+
+def cluster_resources() -> Dict[str, float]:
+    """The task pool's CPUs."""
+    return _resources()["total"]
+
+
+def available_resources() -> Dict[str, float]:
+    """The task pool's CPUs that no running task holds."""
+    return _resources()["available"]
+
+
+class _PoolLink:
+    """A process's connection to the driver's task pool (through its
+    registry socket): submissions and cancels out, the tasks' messages
+    back, read by a thread of its own."""
+
+    def __init__(self):
+        self._conn = transport.connect(_REGISTRY)
+        transport.send(self._conn, ("pool", ()))
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._answers: Dict[int, Any] = {}
+        threading.Thread(target=self._read, name="raytpu-torch-pool-link",
+                         daemon=True).start()
+
+    def send(self, message) -> None:
+        with self._lock:
+            transport.send(self._conn, message)
+
+    def resources(self) -> dict:
+        rid = next(self._ids)
+        self.send(("resources", rid))
+        with READY:
+            while rid not in self._answers:
+                READY.wait(_POLL_S)
+            return self._answers.pop(rid)
+
+    def _read(self) -> None:
+        while True:
+            try:
+                message = transport.recv(self._conn)
+            except (EOFError, OSError):
+                return  # the driver is gone, and this process with it
+            if message[0] == "resources":
+                with READY:
+                    self._answers[message[1]] = message[2]
+                    READY.notify_all()
+            else:
+                remote_function.deliver(message)
+
+
+def _link() -> _PoolLink:
+    global _LINK
+    with _POOL_LOCK:
+        if _LINK is None:
+            _LINK = _PoolLink()
+        return _LINK
+
+
+def pool_start_split() -> Optional[dict]:
+    """The driver's pool's start split (:meth:`TaskPool.start_split`)."""
+    return None if _POOL is None else _POOL.start_split()
+
+
+def pool_workers() -> List[int]:
+    """The pids of the driver's task workers."""
+    return [] if _POOL is None else _POOL.workers()
+
+
+def _at_driver_exit() -> None:
+    """The driver's exit: its pool's workers, then every segment of the
+    tree that nobody freed (their owners are gone with it)."""
+    shutdown()
+    object_store.sweep_owner()

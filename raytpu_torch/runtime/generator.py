@@ -3,7 +3,10 @@
 
 ``handle.method.options(num_returns="streaming").remote(...)`` on a
 generator method (sync or async) returns an :class:`ObjectRefGenerator`,
-in the worker's owner or in any process that holds a copy of its handle.
+in the worker's owner or in any process that holds a copy of its handle;
+so does ``.remote(...)`` of a remote function with
+``num_returns="streaming"``, whose values a task worker sends through the
+task pool.
 The worker sends each value the generator yields as its own message the
 moment it is produced, on the connection the call came in on, then an
 end message, or the error in its place (see
@@ -16,9 +19,11 @@ cancel for the call, which closes the generator in the worker so that its
 connection's EOF); a caller's connection that closes (its process
 exited) closes that caller's streams in the worker.
 
-What it leaves out: backpressure (``generator_backpressure_num_objects``:
-no caller of the port sets it) and the object plane (a value lives in the
-caller's buffer until it is taken).
+Each value is sealed by the worker into the object store and owned by
+the caller; the ref ``__next__`` returns is an ordinary
+:class:`~raytpu_torch.runtime.object_ref.ObjectRef`. What it leaves
+out: backpressure (``generator_backpressure_num_objects``: no caller of
+the port sets it).
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ class ObjectRefGenerator:
             raise StopIteration
         w = self._worker
         deadline = None if timeout is None else time.monotonic() + timeout
-        with api._READY:
+        with api.READY:
             while True:
                 if self._closed:  # closed from another thread meanwhile
                     raise StopIteration
@@ -71,7 +76,7 @@ class ObjectRefGenerator:
                 if buf:
                     status, value = buf.popleft()
                     if status == api._ITEM:
-                        return api.ObjectRef(value=api._Value(value))
+                        return api.owned_ref(value)
                     self._end()
                     if status == api._END:
                         raise StopIteration
@@ -86,7 +91,7 @@ class ObjectRefGenerator:
 
     def _end(self) -> None:
         self._ended = True
-        with api._READY:
+        with api.READY:
             self._worker.streams.pop(self._call_id, None)
 
     def close(self) -> None:

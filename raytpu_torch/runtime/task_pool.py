@@ -1,0 +1,455 @@
+"""The task pool: one pool of task worker processes for the whole tree,
+the port's counterpart of the JAX package's task scheduling
+(``local_backend.py``'s dispatcher and its worker threads).
+
+The driver (the process the runtime did not start) owns the pool. It
+starts :data:`size` workers at once (``init(num_cpus=)``, or
+``os.cpu_count()`` when the first task starts it) and keeps that many:
+a worker that dies is replaced. Any other process of the tree submits
+over one connection to the driver's registry socket (``"pool"``), so an
+actor's tasks and the driver's share the pool. Each task goes first in,
+first out to an idle worker once its ``num_cpus`` fit in the free
+slots; a task's result descriptors come back through the pool to its
+submitter, who owns them (the bytes stay in the segments the worker
+sealed). A task runs in its worker's main thread with ``num_cpus``
+torch threads.
+
+- **Retries.** A task whose worker process dies runs again on another
+  worker while ``max_retries`` lasts (at the front of the queue); an
+  exception from the user's code is retried only where
+  ``retry_exceptions`` says so (``True``, or a list of exception
+  types). Then the submitter gets :class:`WorkerCrashedError` or the
+  :class:`TaskError`. A streaming task is not run again once it has
+  sent a value.
+- **Cancel.** A queued task is dropped (:class:`TaskCancelledError`); a
+  running one, with ``force=True``, has its worker killed (not retried);
+  without it, a stream stops at its next value and any other task's
+  result becomes :class:`TaskCancelledError`.
+- **Start.** Workers are forked, all at once, from a server that has
+  imported numpy, torch and the runtime
+  (:mod:`raytpu_torch.runtime.starter`, as actors are): a worker starts
+  in a fraction of a second, where a spawned interpreter takes seconds
+  to import torch; the server's launch is paid once.
+  :meth:`TaskPool.start_split` gives the split.
+
+What it leaves out: placement, resources other than CPUs, a task that
+blocks in ``get`` on tasks it submitted keeps its slot (with every slot
+so held the pool stalls), and no backpressure on streams.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import queue
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import torch
+import torch.multiprocessing as mp
+
+from raytpu_torch.core.errors import (TaskCancelledError, TaskError,
+                                      WorkerCrashedError)
+from raytpu_torch.runtime import (object_store, refcount, serialization,
+                                  starter, transport)
+
+# How long stop() waits for a worker to be reaped.
+REAP_S = 10.0
+
+
+class Task:
+    """One submission as the pool sees it: what the worker needs and
+    where its messages go."""
+
+    __slots__ = ("tid", "fn", "args", "name", "num_returns", "streaming",
+                 "num_cpus", "retries", "retry_exceptions", "owner_pid",
+                 "route", "cancelled", "sent_items")
+
+    def __init__(self, spec: dict, route: Callable[[tuple], None]):
+        for key in ("tid", "fn", "args", "name", "num_returns", "streaming",
+                    "num_cpus", "retries", "retry_exceptions", "owner_pid"):
+            setattr(self, key, spec[key])
+        self.route = route
+        self.cancelled = False
+        self.sent_items = False
+
+    def message(self) -> tuple:
+        return ("run", self.tid, self.fn, self.args,
+                {"name": self.name, "num_returns": self.num_returns,
+                 "streaming": self.streaming, "num_cpus": self.num_cpus,
+                 "retry_exceptions": self.retry_exceptions,
+                 "owner_pid": self.owner_pid})
+
+
+class _Proc:
+    def __init__(self, process, conn, spawned: float):
+        self.process = process
+        self.conn = conn
+        self.task: Optional[Task] = None
+        self.marks = {"spawned": spawned}
+
+
+class TaskPool:
+    """The driver's pool of ``size`` task worker processes."""
+
+    def __init__(self, size: int, registry: str):
+        if size < 1:
+            raise ValueError(f"num_cpus={size}: the task pool needs at "
+                             f"least one CPU")
+        self.size = int(size)
+        self.free = float(size)
+        self._registry = registry
+        self._lock = threading.Lock()
+        self._procs: List[_Proc] = []
+        self._idle: deque = deque()
+        self._queue: deque = deque()
+        self._running: Dict[str, _Proc] = {}
+        self._names = itertools.count()
+        self._closed = False
+        self._started_at: Optional[float] = None
+        self._server_s: Optional[float] = None
+
+    # -- workers --------------------------------------------------------
+
+    def start(self) -> None:
+        """Start every worker, from a thread: the caller goes on at once
+        (tasks submitted meanwhile wait in the queue)."""
+        self._started_at = time.time()
+        threading.Thread(target=self._start_all, name="raytpu-task-pool",
+                         daemon=True).start()
+
+    def _start_all(self) -> None:
+        t0 = time.perf_counter()
+        self._spawn()  # the first start may launch a server
+        self._server_s = time.perf_counter() - t0
+        for _ in range(self.size - 1):
+            self._spawn()
+
+    def _spawn(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+        parent, child = mp.Pipe()
+        process = starter.Process(
+            target=_worker_main, args=(child, self._registry, time.time()),
+            name=f"raytpu-task-{next(self._names)}", daemon=True)
+        spawned = time.time()
+        process.start()
+        child.close()
+        proc = _Proc(process, parent, spawned)
+        with self._lock:
+            self._procs.append(proc)
+            closed = self._closed
+        if closed:
+            process.kill()
+        threading.Thread(target=self._read, args=(proc,),
+                         name=f"{process.name}-reader", daemon=True).start()
+
+    def start_split(self) -> dict:
+        """When the pool's workers started: the first start's seconds
+        (with the server's launch and its imports of numpy, torch and the
+        runtime, where no server of this environment ran yet), and each
+        worker's marks (wall clock): ``spawned`` (its ``Process.start``),
+        ``entered`` (its body runs) and ``ready``."""
+        with self._lock:
+            marks = [dict(p.marks) for p in self._procs]
+        return {"started_at": self._started_at, "server_s": self._server_s,
+                "workers": marks}
+
+    # -- tasks ----------------------------------------------------------
+
+    def submit(self, task: Task) -> None:
+        if task.num_cpus > self.size:
+            raise ValueError(f"num_cpus={task.num_cpus} exceeds the task "
+                             f"pool's {self.size} CPUs")
+        with self._lock:
+            if not self._closed:
+                self._queue.append(task)
+                self._dispatch()
+                return
+        task.route(("done", task.tid, False, WorkerCrashedError(
+            "the task pool was shut down"), False))
+
+    def _dispatch(self) -> None:
+        """Hand queued tasks to idle workers, first in first out among
+        those whose CPUs fit. Under the lock."""
+        while self._idle and self._queue:
+            for i, task in enumerate(self._queue):
+                if task.num_cpus <= self.free + 1e-9:
+                    break
+            else:
+                return
+            del self._queue[i]
+            proc = self._idle.popleft()
+            proc.task = task
+            self.free -= task.num_cpus
+            self._running[task.tid] = proc
+            try:
+                transport.send(proc.conn, task.message())
+            except OSError:
+                pass  # the worker is gone: its reader requeues the task
+
+    def _read(self, proc: _Proc) -> None:
+        while True:
+            try:
+                message = transport.recv(proc.conn)
+            except (EOFError, OSError):
+                break
+            kind = message[0]
+            if kind == "ready":
+                proc.marks.update(message[1], ready=time.time())
+                with self._lock:
+                    self._idle.append(proc)
+                    self._dispatch()
+            elif kind == "item":
+                task = proc.task
+                if task is not None:
+                    task.sent_items = True
+                    task.route(message)
+            elif kind == "done":
+                self._done(proc, message)
+        self._died(proc)
+
+    def _done(self, proc: _Proc, message: tuple) -> None:
+        _, tid, ok, payload, retryable = message
+        with self._lock:
+            task, proc.task = proc.task, None
+            self._running.pop(tid, None)
+            self.free += task.num_cpus
+            again = (not ok and retryable and task.retries > 0
+                     and not task.cancelled and not task.sent_items)
+            if again:
+                task.retries -= 1
+                self._queue.appendleft(task)
+            self._idle.append(proc)
+            self._dispatch()
+        if again:
+            return
+        if task.cancelled and not task.streaming:
+            if ok:
+                for sealed in payload:
+                    refcount.discard(sealed)
+            ok, payload = False, TaskCancelledError(
+                f"task {task.name} was cancelled")
+        task.route(("done", tid, ok, payload))
+
+    def _died(self, proc: _Proc) -> None:
+        proc.process.join(timeout=REAP_S)
+        object_store.sweep_owner(proc.process.pid)
+        with self._lock:
+            if proc in self._procs:
+                self._procs.remove(proc)
+            if proc in self._idle:
+                self._idle.remove(proc)
+            task, proc.task = proc.task, None
+            again = False
+            if task is not None:
+                self._running.pop(task.tid, None)
+                self.free += task.num_cpus
+                again = (task.retries > 0 and not task.cancelled
+                         and not task.sent_items and not self._closed)
+                if again:
+                    task.retries -= 1
+                    self._queue.appendleft(task)
+            replace = not self._closed
+        if task is not None and not again:
+            error = (TaskCancelledError(f"task {task.name} was cancelled")
+                     if task.cancelled else WorkerCrashedError(
+                         f"task {task.name}: its worker process "
+                         f"{proc.process.pid} exited with code "
+                         f"{proc.process.exitcode}"))
+            task.route(("done", task.tid, False, error))
+        if replace:
+            self._spawn()
+
+    def cancel(self, tid: str, force: bool = False) -> None:
+        with self._lock:
+            for task in self._queue:
+                if task.tid == tid:
+                    self._queue.remove(task)
+                    break
+            else:
+                task = None
+                proc = self._running.get(tid)
+                if proc is None or proc.task is None:
+                    return
+                proc.task.cancelled = True
+                if force:
+                    proc.process.kill()
+                else:
+                    try:
+                        transport.send(proc.conn, ("cancel", tid))
+                    except OSError:
+                        pass
+                return
+        task.route(("done", tid, False, TaskCancelledError(
+            f"task {task.name} was cancelled")))
+
+    def drop_route(self, route) -> None:
+        """A submitter is gone: drop its queued tasks; what runs ends."""
+        with self._lock:
+            for task in [t for t in self._queue if t.route is route]:
+                self._queue.remove(task)
+            for proc in self._running.values():
+                if proc.task is not None and proc.task.route is route:
+                    proc.task.cancelled = True
+
+    def resources(self) -> dict:
+        with self._lock:
+            return {"total": {"CPU": float(self.size)},
+                    "available": {"CPU": float(self.free)}}
+
+    def workers(self) -> List[int]:
+        with self._lock:
+            return [p.process.pid for p in self._procs]
+
+    def stop(self) -> None:
+        """Kill every worker and fail what is queued. Safe twice."""
+        with self._lock:
+            self._closed = True
+            procs = list(self._procs)
+            queued = list(self._queue)
+            self._queue.clear()
+        for proc in procs:
+            proc.process.kill()
+        for proc in procs:
+            proc.process.join(timeout=REAP_S)
+        for task in queued:
+            task.route(("done", task.tid, False, WorkerCrashedError(
+                "the task pool was shut down")))
+
+
+def serve_client(conn, pool: TaskPool) -> None:
+    """One other process's submissions, on its registry connection, until
+    it closes; each task's messages go back on it."""
+    lock = threading.Lock()
+
+    def route(message) -> None:
+        with lock:
+            try:
+                transport.send(conn, message)
+            except OSError:
+                pass  # the submitter is gone
+
+    while True:
+        try:
+            message = transport.recv(conn)
+        except (EOFError, OSError):
+            break
+        kind = message[0]
+        if kind == "submit":
+            try:
+                pool.submit(Task(message[1], route))
+            except ValueError as exc:
+                route(("done", message[1]["tid"], False, exc))
+        elif kind == "cancel":
+            pool.cancel(message[1], message[2])
+        elif kind == "resources":
+            route(("resources", message[1], pool.resources()))
+    pool.drop_route(route)
+
+
+# ---- the worker ----------------------------------------------------------
+
+# Unpickled functions by their blob, for the tasks to come.
+_FUNCTIONS: Dict[bytes, Callable] = {}
+_MAX_FUNCTIONS = 64
+
+
+def _function(blob: bytes) -> Callable:
+    fn = _FUNCTIONS.get(blob)
+    if fn is None:
+        fn = serialization.loads(blob)
+        if len(_FUNCTIONS) >= _MAX_FUNCTIONS:
+            _FUNCTIONS.pop(next(iter(_FUNCTIONS)))
+        _FUNCTIONS[blob] = fn
+    return fn
+
+
+def _retryable(exc: BaseException, retry_exceptions) -> bool:
+    if retry_exceptions is True:
+        return True
+    if isinstance(retry_exceptions, (list, tuple)):
+        return isinstance(exc, tuple(retry_exceptions))
+    return False
+
+
+def _worker_main(conn, registry: str, spawned: float) -> None:
+    """A task worker: run the tasks the pool sends, one at a time, in
+    this thread; a reader thread takes cancels meanwhile."""
+    from raytpu_torch.runtime import api
+    from raytpu_torch.util import tracing
+
+    marks = {"spawned": spawned, "entered": time.time()}
+    tracing.set_process_identity("task-worker", str(os.getpid()))
+    api.set_registry(registry)
+    mp.current_process().daemon = False  # a task may start actors
+    torch.set_num_threads(1)
+    runs: "queue.Queue" = queue.Queue()
+    cancelled: set = set()
+
+    def read() -> None:
+        while True:
+            try:
+                message = transport.recv(conn)
+            except (EOFError, OSError):
+                runs.put(None)
+                return
+            if message[0] == "cancel":
+                cancelled.add(message[1])
+            else:
+                runs.put(message)
+
+    threading.Thread(target=read, name="raytpu-task-reader",
+                     daemon=True).start()
+    transport.send(conn, ("ready", marks))
+    while True:
+        message = runs.get()
+        if message is None:
+            return  # the driver is gone
+        _run(conn, message, cancelled)
+
+
+def _run(conn, message: tuple, cancelled: set) -> None:
+    from raytpu_torch.runtime import api
+
+    _, tid, fn_blob, args, opts = message
+    name, owner = opts["name"], opts["owner_pid"]
+    torch.set_num_threads(max(1, int(opts["num_cpus"])))
+    try:
+        fn = _function(fn_blob)
+        call_args, call_kwargs = object_store.unseal(args)
+        call_args, call_kwargs = api.resolve_args(call_args, call_kwargs)
+        if opts["streaming"]:
+            gen = fn(*call_args, **call_kwargs)
+            try:
+                for value in gen:
+                    transport.send(conn, ("item", tid, object_store.seal(
+                        value, owner)))
+                    if tid in cancelled:
+                        break
+            finally:
+                close = getattr(gen, "close", None)
+                if close is not None:
+                    close()
+            transport.send(conn, ("done", tid, True, None, False))
+            return
+        out = fn(*call_args, **call_kwargs)
+        n = opts["num_returns"]
+        values = [out]
+        if n != 1:
+            values = list(out)
+            if len(values) != n:
+                raise ValueError(f"task {name} returned {len(values)} "
+                                 f"values; num_returns={n}")
+        sealed = [object_store.seal(v, owner) for v in values]
+    except Exception as exc:
+        transport.send(conn, ("done", tid, False,
+                              TaskError.from_exception(name, exc),
+                              _retryable(exc, opts["retry_exceptions"])))
+        return
+    finally:
+        cancelled.discard(tid)
+    transport.send(conn, ("done", tid, True, sealed, False))

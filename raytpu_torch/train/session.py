@@ -180,7 +180,10 @@ def get_checkpoint():
 
 def get_dataset_shard(name: str = "train"):
     """This worker's data shard (reference: ``session.get_dataset_shard``
-    backed by ``streaming_split``)."""
+    backed by ``streaming_split``): for a :class:`raytpu_torch.data.Dataset`,
+    the :class:`~raytpu_torch.data.DataIterator` of this rank's split
+    (``iter_batches``, ``iter_rows``, ``iter_torch_batches``), which pulls
+    its blocks from the coordinator process."""
     s = _get_session()
     if s is None or name not in s.dataset_shards:
         raise KeyError(

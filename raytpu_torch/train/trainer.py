@@ -5,9 +5,13 @@ over them, the user's loop in each.
 ``fit`` keeps the JAX loop: the run directory, the
 :class:`CheckpointManager`, gang attempts under
 ``FailureConfig.max_failures``, each restarting the whole gang from the
-latest registered checkpoint, and ``datasets`` split per worker by a
-duck-typed ``streaming_split``. Each gang is torn down in ``finally``: no
-worker process outlives ``fit``.
+latest registered checkpoint, and ``datasets`` split per worker by
+``streaming_split``: a :class:`raytpu_torch.data.Dataset` gives each
+worker process the :class:`~raytpu_torch.data.DataIterator` of its split,
+which streams blocks from the dataset's coordinator process (anything
+else is handed to every worker as it is). Each gang is torn down in
+``finally``: no worker process outlives ``fit``, and the coordinator
+ends with the gang that reads from it.
 
 The gang:
 
@@ -37,8 +41,10 @@ The gang:
 The loop crosses to the workers by pickle, by name: it must be a
 module-level function (a closure or lambda does not pickle; ``fit``
 refuses one at once, naming it), and a script that calls ``fit`` keeps
-its entry point under ``if __name__ == "__main__"``. The same holds for
-``train_loop_config`` and the datasets.
+its entry point under ``if __name__ == "__main__"``. What
+``train_loop_config`` and the datasets hold goes by value where it
+cannot be found by name (a dataset's closures and the user's lambdas,
+:mod:`raytpu_torch.runtime.serialization`).
 """
 
 from __future__ import annotations

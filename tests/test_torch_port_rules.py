@@ -1,7 +1,9 @@
 """Rules of the port (raytpu_torch/, chip_smoke.py): it imports neither
 JAX nor the JAX package (nor ``prometheus_client``: its metrics are in
-memory only; nor ``cloudpickle``: the chip machine has none, so serve
-pickles by name), its entry points never move to the CPU on their own, its
+memory only; nor ``cloudpickle``: the chip machine has none, so the
+runtime pickles by value itself), no module imports ``pyarrow``,
+``pandas`` or ``PIL`` at its top (the Data library imports them where a
+reader needs them), its entry points never move to the CPU on their own, its
 CUDA kernels are built from the repo's sources for Hopper, and its
 observability keeps the JAX package's lint rules: every request event
 is emitted under one flag check and every transition the JAX serving
@@ -30,6 +32,9 @@ UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
 
 # The port's runtime layer and the JAX modules whose calls it copies.
 RUNTIME_MODULES = ("core.errors", "runtime.api", "runtime.generator",
+                   "runtime.serialization", "runtime.object_ref",
+                   "runtime.refcount", "runtime.object_store",
+                   "runtime.remote_function",
                    "util.tenancy", "util.failpoints")
 
 # The serve library, each module with its JAX module of the same path.
@@ -51,6 +56,16 @@ TRAIN_MODULES = ("train/__init__.py", "train/config.py",
 # each with its JAX module of the same path.
 TUNE_MODULES = ("tune/__init__.py", "tune/search.py", "tune/schedulers.py",
                 "tune/external.py", "tune/tuner.py", "util/events.py")
+
+# The Data library and the runtime's microbenchmarks, each with its JAX
+# module of the same path.
+DATA_MODULES = ("data/__init__.py", "data/block.py", "data/executor.py",
+                "data/dataset.py", "data/read_api.py", "data/tfrecord.py",
+                "data/avro.py", "perf.py")
+
+# Packages the Data library imports only where a reader or writer needs
+# them (the card's machine may lack them).
+OPTIONAL_PACKAGES = ("cloudpickle", "pyarrow", "pandas", "PIL")
 
 # Run in a fresh interpreter: this test process has JAX loaded
 # (tests/conftest.py imports it).
@@ -80,7 +95,8 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
     assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES} <= set(loaded)
     assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
-        ".__init__", "") for m in TRAIN_MODULES + SERVE_MODULES} <= set(loaded)
+        ".__init__", "") for m in TRAIN_MODULES + SERVE_MODULES
+        + DATA_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -96,6 +112,59 @@ def test_sources_name_no_jax_or_raytpu_import(path):
         else:
             continue
         assert not [n for n in names if _forbidden(n)], (path, names)
+
+
+def _top_level_imports(tree: ast.Module):
+    """The modules a file imports outside any function or class."""
+    pending = list(tree.body)
+    while pending:
+        node = pending.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            pending.extend(ast.iter_child_nodes(node))
+        elif isinstance(node, ast.ExceptHandler):
+            pending.extend(node.body)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_import_no_optional_package_at_their_top(path):
+    names = list(_top_level_imports(ast.parse(path.read_text())))
+    assert not [n for n in names
+                if n.split(".")[0] in OPTIONAL_PACKAGES], (path, names)
+
+
+def test_data_modules_are_held_to_the_rules():
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for name in DATA_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+    import raytpu.data as jdata
+
+    import raytpu_torch.data as pdata
+
+    assert pdata.__all__ == [n for n in jdata.__all__ if n != "from_jax"]
+    assert all(hasattr(pdata, n) for n in pdata.__all__)
+    assert not hasattr(pdata.Dataset, "iter_jax_batches")
+
+
+def test_importing_data_and_the_runtime_loads_no_optional_package():
+    code = ("import json, sys; import raytpu_torch.data, raytpu_torch.perf, "
+            "raytpu_torch.runtime, raytpu_torch.data.avro, "
+            "raytpu_torch.data.tfrecord; "
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
+        ".__init__", "") for m in DATA_MODULES} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)
+            or m.split(".")[0] in OPTIONAL_PACKAGES] == []
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

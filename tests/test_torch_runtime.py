@@ -148,9 +148,17 @@ def test_num_cpus_sets_the_worker_s_threads_and_other_options_raise(pair):
     with pytest.raises(ValueError, match="num_gpus"):
         runtime.remote(Probe).options(num_gpus=1)
     with pytest.raises(ValueError, match="num_cpus"):
-        runtime.remote(Probe).options(num_cpus=0)
-    with pytest.raises(TypeError):
-        runtime.remote(threads)  # classes only
+        runtime.remote(Probe).options(num_cpus=-1)
+    # num_cpus=0 (the JAX _SplitCoordinator's) starts with one thread.
+    idle = runtime.remote(Probe).options(num_cpus=0).remote("idle")
+    try:
+        assert runtime.get(runtime.call(idle, threads), timeout=T) == 1
+    finally:
+        runtime.kill(idle)
+    # A function gives a remote function, not a worker.
+    from raytpu_torch.runtime.remote_function import RemoteFunction
+
+    assert isinstance(runtime.remote(threads), RemoteFunction)
     with pytest.raises(AttributeError):
         a.no_such_method
 

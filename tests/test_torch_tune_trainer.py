@@ -95,8 +95,9 @@ class Shard:
 
 
 class Rows:
-    """A dataset of ``n`` ids with the ``streaming_split`` Train reads
-    (the port has no data library yet: ROADMAP.md)."""
+    """A duck-typed dataset of ``n`` ids with the ``streaming_split``
+    Train reads (the trainer splits anything that has one, as it does a
+    :class:`raytpu_torch.data.Dataset`)."""
 
     def __init__(self, n: int):
         self.n = n
