@@ -80,11 +80,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     (256, 256) fcnet): env-steps/s and learner samples/s as bench_ppo
     counts them, an iteration's split (env step, sampling forward with
     its copies, update, the rest) and the device's busy share; one
-    rollout update on the card against the same update on the CPU; the
-    same rates with device="cpu" as a CPU reading;
+    rollout update on the card against the same update on the CPU,
+    which takes the card's branch at each kink (RL_STEP_TOL); the same
+    rates with device="cpu" as a CPU reading;
 17. RL pixel PPO: the conv module on Catch-v0 with FrameStack(2), 16
     envs x 40 steps: iteration times, a greedy evaluation, the card
-    against the CPU;
+    against the CPU as in phase 16;
 18. RL algorithms: IMPALA, APPO, DQN (CartPole), SAC (Pendulum), BC,
     MARWIL and CQL (offline rows of a hand controller) take three
     train() calls each; every metric finite, every parameter on the
@@ -317,6 +318,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 # When this script's own imports (numpy, torch) were done.
 SCRIPT_IMPORTED = time.time()
@@ -3693,13 +3695,27 @@ def phase_gpt2_dropout(card_line: str) -> dict:
 # The card against the CPU: one whole update from the same weights,
 # optimizer state, batch and permutations, in IEEE fp32 on both (the RL
 # path turns TF32 off while it runs, rl_module.ieee_fp32). What is held is
-# each parameter's step (after minus before), not the parameter, whose
-# norm is mostly the shared starting weights: the card's step within
-# RL_STEP_TOL of the CPU's in relative norm. The same update with TF32 on
-# (ieee_fp32 bypassed, a planted fault) must land above it. On an H100 the
-# IEEE steps read 1.4e-5 (PPO) and 4.7e-7 (pixel PPO), the TF32 steps
-# 3.5e-3 and 3.0e-2: the limit lies between, over ten times from each.
-RL_STEP_TOL = 2e-4
+# the update's step (every parameter's after minus before, as one vector),
+# not the parameters, whose norm is mostly the shared starting weights:
+# the card's within RL_STEP_TOL of the CPU's in relative norm. The same
+# update with TF32 on (ieee_fp32 bypassed, a planted fault) must land
+# above it. Two things part a correct card from the CPU by more than
+# rounding, and the check is built round both (rl_kinks.py measures them):
+# - The update is smooth only between kinks: a ReLU, PPO's clamp of the
+#   ratio and the minimum of its two surrogates switch branch there and
+#   the gradient jumps. A value within rounding of a kink can go one way
+#   on the card and the other on the CPU, and the steps then part by up
+#   to 1e-2. So the CPU's twin takes the card's branches (_Branches), and
+#   a decision where the two differ must lie within KINK_TOL of its kink,
+#   in units of its tensor's RMS.
+# - One tensor's step is no measure: a bias's can be a few ulps of the
+#   bias, or the small rest of 32-40 steps that cancel, and rounding is
+#   then a large share of it. So the step is the whole update's.
+# The limit lies between the IEEE and TF32 readings of rl_kinks.py on an
+# H100 (PERF.md, PR 18), about four times from each, at the state that
+# four iterations reach, where phases 16 and 17 hold their update.
+RL_STEP_TOL = 3e-5
+KINK_TOL = 1e-4
 PPO_MIN_WALL_S = 2.0  # benchmarks/bench_ppo.py's timed region
 
 
@@ -3736,6 +3752,14 @@ def _rel_steps(after: dict, before: dict, want: dict) -> dict:
                 / want[k].norm()).item() for k in want}
 
 
+def _rel_step(after: dict, before: dict, want: dict) -> float:
+    """The whole update's step (every parameter's ``after`` - ``before``,
+    as one vector) against ``want``'s, in relative norm."""
+    diff = sum(float((after[k] - before[k] - want[k]).norm()) ** 2
+               for k in want)
+    return (diff / sum(float(v.norm()) ** 2 for v in want.values())) ** 0.5
+
+
 @contextlib.contextmanager
 def tf32_in_ppo_updates():
     """PPO's update with TF32 on in cuDNN's convolutions and cuBLAS's fp32
@@ -3763,28 +3787,107 @@ def tf32_in_ppo_updates():
         ppo.ieee_fp32 = ieee
 
 
+class _Branches(TorchFunctionMode):
+    """Each kink's decision in the update that runs under it: recorded
+    (``replay`` None), or taken from ``replay`` in the same order, with a
+    count of the decisions this run would have made otherwise and the
+    worst such one's distance from its kink over its tensor's RMS. The
+    kinks: F.relu, torch.clamp with two number bounds, torch.minimum."""
+
+    def __init__(self, replay=None):
+        super().__init__()
+        self.taken = []
+        self.replay = None if replay is None else iter(replay)
+        self.differing = 0
+        self.worst_margin = 0.0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        import torch.nn.functional as F
+
+        kwargs = kwargs or {}
+        if func in (F.relu, torch.relu):
+            x = args[0]
+            take = self._decide(x > 0, x.abs(), x)
+            if self.replay is None:
+                return func(*args, **kwargs)
+            return torch.where(take, x, torch.zeros_like(x))
+        if func is torch.clamp:
+            x, lo, hi = (list(args) + [kwargs.get("min"),
+                                       kwargs.get("max")])[:3]
+            if not all(isinstance(b, (int, float)) for b in (lo, hi)):
+                raise TypeError("_Branches: torch.clamp takes two number "
+                                "bounds here")
+            take = self._decide(torch.stack([x < lo, x > hi]), torch.stack(
+                [(x - lo).abs(), (x - hi).abs()]), x)
+            if self.replay is None:
+                return func(*args, **kwargs)
+            return torch.where(take[0], torch.full_like(x, lo), torch.where(
+                take[1], torch.full_like(x, hi), x))
+        if func is torch.minimum:
+            a, b = args
+            take = self._decide(a <= b, (a - b).abs(),
+                                torch.maximum(a.abs(), b.abs()))
+            if self.replay is None:
+                return func(*args, **kwargs)
+            return torch.where(take, a, b)
+        return func(*args, **kwargs)
+
+    def _decide(self, mine, margin, scale):
+        if self.replay is None:
+            self.taken.append(mine)
+            return mine
+        take = next(self.replay).to(mine.device)
+        if take.shape != mine.shape:
+            raise AssertionError("_Branches: the replayed update's kinks "
+                                 "are not the recorded update's")
+        differ = take != mine
+        n = int(differ.sum())
+        if n:
+            rms = float(scale.detach().double().pow(2).mean().sqrt())
+            self.differing += n
+            self.worst_margin = max(self.worst_margin, float(
+                margin.detach()[differ].max()) / max(rms, 1e-30))
+        return take
+
+
 def card_against_cpu(algo, batch) -> dict:
     """One rollout update of ``algo``'s learner on its device and of a
-    CPU twin from the same state, with the same permutations: each
-    parameter's step on the card against the CPU's, in relative norm;
-    then the same update on the card from the same state with TF32 on."""
+    CPU twin from the same state, with the same permutations, the twin
+    taking each kink's branch as the card took it (_Branches): the
+    update's step on the card against the CPU's, in relative norm; then
+    the same update on the card from the same state with TF32 on. The
+    learner is left in the state it was given."""
     learner = algo.learner
     state = learner.get_state()
     before = state["params"]
     twin = type(learner)(learner.module, {**learner.config, "device": "cpu"})
     twin.set_state(state)
     perms = learner.permutations(batch["rewards"].size)
-    want = twin.update(batch, perms)
+    with _Branches() as card_branches:
+        got = learner.update(batch, perms)
+    card_after = learner.get_weights()
+    with _Branches(card_branches.taken) as cpu_branches:
+        want = twin.update(batch, perms)
+    if next(cpu_branches.replay, None) is not None:
+        raise AssertionError("card check: the CPU's update passed fewer "
+                             "kinks than the card's")
     cpu_step = {k: v - before[k] for k, v in twin.get_weights().items()}
-    got = learner.update(batch, perms)
-    rel = _rel_steps(learner.get_weights(), before, cpu_step)
+    rel = _rel_steps(card_after, before, cpu_step)
     worst = max(rel, key=rel.get)
     learner.set_state(state)
     with tf32_in_ppo_updates():
         learner.update(batch, perms)
-    tf32 = _rel_steps(learner.get_weights(), before, cpu_step)
-    return {"step_rel_diff_worst": rel[worst], "worst_tensor": worst,
-            "step_rel_diff_worst_tf32": max(tf32.values()),
+    tf32 = learner.get_weights()
+    learner.set_state(state)
+    return {"step_rel_diff": _rel_step(card_after, before, cpu_step),
+            "step_rel_diff_tf32": _rel_step(tf32, before, cpu_step),
+            # Reported, not held: one tensor's step can be a few of its
+            # parameters' ulps, or the small rest of steps that cancel.
+            "worst_tensor": worst, "worst_tensor_step_rel_diff": rel[worst],
+            "kink_decisions": sum(int(t.numel())
+                                  for t in card_branches.taken),
+            "kink_decisions_differing": cpu_branches.differing,
+            "kink_margin_worst": cpu_branches.worst_margin,
             # How far the parameters moved: what a comparison of the
             # parameters themselves would dilute a fault by.
             "step_norm_over_param_norm": (sum(
@@ -3798,11 +3901,13 @@ def card_against_cpu(algo, batch) -> dict:
 
 
 def _check_card_against_cpu(tag: str, r: dict) -> None:
-    if not (r["step_rel_diff_worst"] <= RL_STEP_TOL
-            < r["step_rel_diff_worst_tf32"] and r["all_on_device"]
+    if not (r["step_rel_diff"] <= RL_STEP_TOL < r["step_rel_diff_tf32"]
+            and r["all_on_device"]
+            and r["kink_margin_worst"] <= KINK_TOL
             and _finite_metrics(r["metrics_card"])):
         raise AssertionError(f"{tag}: the card's update differs from the "
-                             f"CPU's, or TF32's does not: {r}")
+                             f"CPU's, or TF32's does not, or a kink was "
+                             f"decided otherwise away from it: {r}")
 
 
 def iteration_split(algo, iterations: int = 3) -> dict:
@@ -3863,14 +3968,20 @@ def ppo_rates(algo) -> dict:
 
 
 def phase_rl_ppo(card_line: str) -> dict:
-    """PPO at the north-star config (bench_ppo's) on the card: the two
-    rates, an iteration's split and the device's busy share; one update
-    on the card against the CPU's; and, labelled as a CPU reading, the
+    """PPO at the north-star config (bench_ppo's) on the card: one update
+    on the card against the CPU's after four iterations; the two rates,
+    an iteration's split and the device's busy share; and, labelled as a CPU reading, the
     same rates with device="cpu" on this machine."""
     algo = ppo_config("cuda").build()
     if not (_on_device(algo.learner.params, "cuda") and _on_device(
             algo.env_runner_group.local_runner.params, "cuda")):
         raise AssertionError("PPO: a parameter is not on the card")
+    # The card check at a state that four iterations reach, on any host
+    # (the rates below run as many iterations as fill their time).
+    for _ in range(4):
+        algo.train()
+    batch = algo._concat_time_major(algo.env_runner_group.sample())
+    against = card_against_cpu(algo, batch)
     result = {"config": "bench_ppo: CartPole-v1-vec 64 envs x 64 steps, "
               "lr 3e-4, 4 epochs, minibatch 512, fcnet (256, 256)",
               **ppo_rates(algo), "split": iteration_split(algo)}
@@ -3883,8 +3994,7 @@ def phase_rl_ppo(card_line: str) -> dict:
         "profiled_step_ms", "device_kernel_launches", "device_busy_ms",
         "device_busy_share", "device_busy_over_unprofiled_step",
         "top_kernels")}
-    batch = algo._concat_time_major(algo.env_runner_group.sample())
-    result["card_against_cpu"] = card_against_cpu(algo, batch)
+    result["card_against_cpu"] = against
     algo.stop()
     cpu = ppo_config("cpu").build()
     result["cpu_reading"] = {"what": "the same loop with device='cpu' "
@@ -3897,20 +4007,27 @@ def phase_rl_ppo(card_line: str) -> dict:
     return result
 
 
-def phase_rl_pixel_ppo(card_line: str) -> dict:
-    """PPO with the conv module on Catch-v0 and FrameStack(2), 16 envs x
-    40 steps (tests/test_rllib.py's pixel config): a warm-up iteration
-    and three timed ones, a greedy evaluation, and one update on the card
-    against the CPU's."""
+def pixel_ppo_config(device):
+    """tests/test_rllib.py's pixel config: PPO with the conv module on
+    Catch-v0 and FrameStack(2), 16 envs x 40 steps, lr 1e-3, 8 epochs,
+    minibatches of 128."""
     from raytpu_torch.rllib import FrameStack, PPOConfig
 
-    algo = (PPOConfig().environment("Catch-v0")
+    return (PPOConfig().environment("Catch-v0")
             .env_runners(num_env_runners=0, num_envs_per_env_runner=16,
                          rollout_fragment_length=40)
             .connectors(env_to_module=[FrameStack(2)])
             .training(lr=1e-3, num_epochs=8, minibatch_size=128,
                       entropy_coeff=0.01)
-            .debugging(seed=0).resources(device="cuda")).build()
+            .debugging(seed=0).resources(device=device))
+
+
+def phase_rl_pixel_ppo(card_line: str) -> dict:
+    """PPO with the conv module on Catch-v0 and FrameStack(2), 16 envs x
+    40 steps (tests/test_rllib.py's pixel config): a warm-up iteration
+    and three timed ones, a greedy evaluation, and one update on the card
+    against the CPU's."""
+    algo = pixel_ppo_config("cuda").build()
     if type(algo.module).__name__ != "ConvPolicyModule":
         raise AssertionError("pixel PPO: not the conv module")
     algo.train()

@@ -24,7 +24,8 @@ from raytpu_torch.ops import _native
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "ab_wrappers.py", REPO / "rmsnorm_plans.py"]
+    REPO / "chip_smoke.py", REPO / "ab_wrappers.py", REPO / "rmsnorm_plans.py",
+    REPO / "rl_kinks.py"]
 
 # The port's copies of raytpu/util's serving-plane observability.
 UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
