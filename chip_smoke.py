@@ -286,6 +286,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     coordinator's peak blocks and bytes in flight; then
     ``raytpu_torch.perf.run_all`` (task round trip, batched tasks,
     actor calls, ``put``/``get``) in µs an operation.
+29. The driver's records (inside phases 24 and 27, and inside phase
+    28's fit): task events, request events and metrics shipping armed
+    before phase 24's first process starts (with its tracing, so that no
+    server of another environment is launched for it), task events
+    before phase 28's pool starts (one server launch more, in the pool's
+    start split). Read at the driver through ``raytpu_torch.state``.
+    Fails unless every request phases 24 and 27 streamed has one record
+    (the unary gRPC call, routed by ``assign_request``, records none in
+    either package), stitched from the router's (this process's or the
+    proxy's), the replica's and its engine's events, in the JAX order
+    (RECEIVED, ROUTED, QUEUED, ADMITTED, PREFILL_START, FIRST_TOKEN,
+    PREFILL_END, then FINISHED; a stream dropped or closed by its client
+    ends ABORTED, the over-long prompt and the stream on the killed
+    replica end FAILED, the killed replica's actor is DEAD); each
+    replica's ``raytpu_infer_decode_tokens_total`` in the driver's TSDB
+    (``query_metrics``, and ``/metrics`` served by
+    ``start_metrics_server`` and read with urllib) equals its own
+    counter read in it, exactly, as its TTFT histogram's count does, and
+    their sum equals the requests that reached a first token; the killed
+    replica's series are gone and its replacement's arrive; phase 28's
+    data tasks are all FINISHED, as many as the pool's SUBMITTED, one a
+    block. Readings: each leg's client TTFT split by stage from the
+    driver's timelines (cold, HTTP, warm), the ship lag (an event's stamp
+    to its arrival), the events and frames shipped with their bytes, the
+    data tasks' queue-to-run latency and the pool's start.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -2015,6 +2040,12 @@ def deployment_launches(launches: dict, forwards: int, n_layer: int
 def forwards_of(stats: dict) -> int:
     return sum(sum(stats[k].values()) for k in (
         "prefill_calls", "chunk_prefill_calls", "decode_calls"))
+
+
+def prefills_of(stats: dict) -> int:
+    """An engine's full prefills: each launches the flash forward once in
+    every layer."""
+    return sum(stats["prefill_calls"].values())
 
 
 def drive_deployment(dep, died, prompts: dict, extra: dict) -> dict:
@@ -4991,6 +5022,22 @@ def phase_data(result: dict, r: dict, want: np.ndarray, wire: dict,
     return out
 
 
+def phase_data_records(data: dict, card_line: str) -> dict:
+    """Phase 29 inside phase 28: the data tasks at the driver (see the
+    module docstring)."""
+    from raytpu_torch.runtime import api
+
+    out = data_task_records()
+    out["pool_start"] = data["pool_start"]
+    out["pool_worker_ids"] = sorted(p.uid for p in api._POOL._procs)
+    log(f"[records-data] {json.dumps(out)} | {card_line}")
+    if out["states"] != {"FINISHED": DATASET_BLOCKS} or \
+            out["submitted"] != DATASET_BLOCKS or \
+            not set(out["workers"]) <= set(out["pool_worker_ids"]):
+        raise AssertionError(f"phase 29: the data tasks at the driver {out}")
+    return out
+
+
 def phase_perf(card_line: str) -> dict:
     """Phase 28's close: ``raytpu_torch.perf.run_all`` in µs an operation
     (the task pool is stopped after it)."""
@@ -5044,6 +5091,9 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
     segments_before = [n for n, _ in object_store.segments()]
     owned_before = refcount.owned_stats()["owned"]
     ds, want = phase28_dataset()
+    # Phase 29: the pool's tasks recorded, armed before its workers and
+    # the gang start (a server of this environment launches for them).
+    set_records(True, metrics_too=False)
     runtime.init(num_cpus=DATASET_POOL_CPUS)
     wire0 = object_store.stats()
     resnet, resnet_fit_s = fit_in_gang(resnet_trainer_loop, resnet_config,
@@ -5136,7 +5186,12 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
                                 segments_before, owned_before, workers,
                                 forbidden, card_line)
     del want
-    result["perf"] = phase_perf(card_line)  # stops the task pool
+    result["records"] = phase_data_records(result["data"], card_line)
+    try:
+        # With the recorder armed: its cost rides the task round trips.
+        result["perf"] = phase_perf(card_line)  # stops the task pool
+    finally:
+        set_records(False, metrics_too=False)
     left = sorted({p.pid for p in multiprocessing.active_children()}
                   - before)
     shutil.rmtree(storage, ignore_errors=True)
@@ -5507,13 +5562,6 @@ def replica_last_tokens(replica) -> dict:
             "request_ids": dict(dep.request_ids)}
 
 
-def request_events(instance) -> list:
-    """Run inside a worker process: its request lifecycle events."""
-    from raytpu_torch.util import task_events
-
-    return task_events.get_events()
-
-
 # A request's stages, in order, from its request events (RECEIVED and
 # ROUTED in the router's process, QUEUED in the replica, ADMITTED and
 # FIRST_TOKEN in its engine) between the client's call and first token.
@@ -5623,7 +5671,7 @@ def phase_serve_http(port: int, grpc_port, handle, handle_run: dict,
     from raytpu_torch import runtime
     from raytpu_torch.runtime import api
     from raytpu_torch.serve.api import GRPC_PROXY_NAME
-    from raytpu_torch.util import task_events, tracing
+    from raytpu_torch.util import tracing
 
     t_leg = time.perf_counter()
     on_replicas(replica_reset_counters)
@@ -5657,16 +5705,16 @@ def phase_serve_http(port: int, grpc_port, handle, handle_run: dict,
     warm = serve_app_streams(handle, prompts, closed)
     warm.pop("tokens")
     on_replicas(replica_idle)
-    # Where each leg's client TTFT goes, from every process's request
-    # events (the handle legs route in this process, HTTP in the proxy).
-    events = task_events.get_events() + runtime.get(
-        runtime.call(proxy, request_events), timeout=SERVE_APP_DEADLINE_S) \
-        + [e for evs in on_replicas(request_events).values() for e in evs]
-    run["lifecycle_ms"] = lifecycle_split(events, {
+    # Where each leg's client TTFT goes, from the driver's records (phase
+    # 29: the handle legs route in this process, HTTP in the proxy).
+    warm_requests = warm.pop("requests")
+    recs = request_records(f"{SERVE_APP}#LLMDeployment", ids=[
+        *request_ids.values(), *(v[0] for v in warm_requests.values())])
+    run["lifecycle_ms"] = timeline_split(recs, {
         r: (request_ids[r], results[r]["sent_at"], results[r]["event_at"][0])
         for r in prompts})
-    warm["lifecycle_ms"] = lifecycle_split(events, {
-        r: v for r, v in warm.pop("requests").items() if r in prompts})
+    warm["lifecycle_ms"] = timeline_split(recs, {
+        r: v for r, v in warm_requests.items() if r in prompts})
     # -- the traced request across processes ------------------------------
     t0 = time.perf_counter()
     dumps = api.trace_dumps() + [tracing.dump()]
@@ -5735,17 +5783,24 @@ def phase_serve_http(port: int, grpc_port, handle, handle_run: dict,
     if overlong["error"] is None or overlong["tokens"] or overlong["done"]:
         raise AssertionError(f"the over-long prompt did not end in an "
                              f"in-band error: {overlong}")
-    # Each replica: RMSNorm 65 a forward, no backward kernel; the two
-    # together: the flash forward and paged attention (a replica whose
-    # prompts all hit its prefix cache prefills on the paged chunk path).
+    # Each replica: the flash forward in every layer of each full prefill
+    # (a prompt whose prefix its cache holds, or one over the chunk,
+    # prefills on the paged chunk path), RMSNorm 65 a forward, no
+    # backward kernel; the two together: paged attention.
+    prefills = {rid: prefills_of(post[rid]["stats"])
+                - prefills_of(pre[rid]["stats"]) for rid in post}
+    result["full_prefills"] = prefills
     for rid in post:
         check_launches(launches[rid], {
-            "flash_forward": launches[rid]["flash_forward"],
+            "flash_forward": cfg.n_layer * prefills[rid],
             "paged_attention": launches[rid]["paged_attention"],
             "rmsnorm": (2 * cfg.n_layer + 1) * forwards[rid],
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
-    deployment_launches(result["launches"], sum(forwards.values()),
-                        cfg.n_layer)
+    check_launches(result["launches"], {
+        "flash_forward": cfg.n_layer * sum(prefills.values()),
+        "paged_attention": None,
+        "rmsnorm": (2 * cfg.n_layer + 1) * sum(forwards.values()),
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
     for name, rep in (("proxy", proxy_report), ("gRPC proxy", grpc_report)):
         if rep is not None and (rep["forbidden"] or any(
                 rep["launches"].values())):
@@ -5769,6 +5824,218 @@ def phase_serve_http(port: int, grpc_port, handle, handle_run: dict,
                              != grpc["unary"]):
         raise AssertionError(f"gRPC calls: {grpc}")
     return result
+
+
+# ---- phase 29: the driver's records, inside phases 24, 27 and 28 --------
+
+# The replicas ship every METRICS_SHIP_PERIOD_S (2 s): a record reaches
+# the driver well within this.
+RECORDS_DEADLINE_S = 30.0
+# A request's transitions in the JAX package's order: the router's, the
+# replica's, then its engine's (the JAX engine samples the first token
+# inside the call that ends the prefill). tests/test_torch_state.py holds
+# the engine's part to the JAX engine's on the CPU.
+REQUEST_ORDER = ("RECEIVED", "ROUTED", "QUEUED", "ADMITTED", "PREFILL_START",
+                 "FIRST_TOKEN", "PREFILL_END", "FINISHED")
+TERMINAL = ("FINISHED", "ABORTED", "FAILED")
+
+
+def set_records(on: bool, metrics_too: bool = True) -> None:
+    """Phase 29's arming in this process and, through the environment,
+    in every process started after it: task events, request events and
+    (where ``metrics_too``) metrics shipping."""
+    from raytpu_torch.util import metrics, task_events
+
+    if on:
+        task_events.enable_task_events(env=True)
+        task_events.enable_request_events(env=True)
+        if metrics_too:
+            metrics.enable_metrics_ship(env=True)
+    else:
+        task_events.disable_task_events(env=True)
+        task_events.disable_request_events(env=True)
+        if metrics_too:
+            metrics.disable_metrics_ship()
+            os.environ.pop(metrics.ENV_SHIP, None)
+
+
+def replica_records(replica) -> dict:
+    """Run inside a replica process: its id in the driver's records, its
+    origin in the driver's TSDB, and its own decode-token counter and
+    TTFT observations."""
+    from raytpu_torch.inference import engine
+    from raytpu_torch.runtime import records
+    from raytpu_torch.util import metrics
+
+    return {"uid": records.identity(), "proc": metrics.shipper_identity(),
+            "decode_tokens": engine._decode_tokens_total.value,
+            "ttft_count": len(engine._ttft_hist.observations)}
+
+
+def in_jax_order(transitions: list) -> bool:
+    """Whether a request's transitions follow REQUEST_ORDER, each taken
+    at its first occurrence (a preemption's PREEMPTED and RESUMED, and
+    the prefill it repeats, aside): FINISHED after the whole order; an
+    aborted or failed request after any prefix of it."""
+    seen = []
+    for t in transitions:
+        if t not in ("PREEMPTED", "RESUMED") and t not in seen:
+            seen.append(t)
+    if not seen or seen[-1] not in TERMINAL:
+        return False
+    if seen[-1] == "FINISHED":
+        return seen == list(REQUEST_ORDER)
+    body = seen[:-1]
+    return 0 < len(body) and body == list(REQUEST_ORDER[:len(body)])
+
+
+def request_records(app: str, ids=(), count: int = 0,
+                    deadline_s: float = RECORDS_DEADLINE_S) -> dict:
+    """The driver's record of every request of deployment ``app``, by id,
+    once there are at least ``count`` of them, each of ``ids`` among
+    them, and each has its terminal transition and every event before it
+    there, in the JAX order (the processes' events arrive on their own
+    ship timers, in any order)."""
+    from raytpu_torch import state
+
+    end = time.perf_counter() + deadline_s
+    while True:
+        recs = {r["id"]: r for r in state.list_serve_requests(
+            deployment=app, limit=0, detail=True)}
+        unsettled = {i: [e["transition"] for e in recs[i]["events"]]
+                     if i in recs else None for i in set(recs) | set(ids)
+                     if i not in recs or not in_jax_order(
+                         [e["transition"] for e in recs[i]["events"]])}
+        if len(recs) >= count and not unsettled:
+            return recs
+        if time.perf_counter() > end:
+            raise AssertionError(f"phase 29: {len(recs)} request records "
+                                 f"at the driver (at least {count} wanted),"
+                                 f" unsettled or out of the JAX order: "
+                                 f"{unsettled}")
+        time.sleep(0.1)
+
+
+def timeline_split(recs: dict, requests: dict) -> dict:
+    """``lifecycle_split`` of ``requests`` from the driver's records."""
+    return lifecycle_split([e for r in recs.values() for e in r["events"]],
+                           requests)
+
+
+def scrape(port: int) -> dict:
+    """``/metrics`` of ``start_metrics_server`` on ``port``, read with
+    urllib: each sample's value by its name and labels."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def tsdb_decode_tokens(proc: str) -> float:
+    from raytpu_torch import state
+
+    res = state.query_metrics("raytpu_infer_decode_tokens_total",
+                              tags={"proc": proc}, agg="sum",
+                              since_s=3600.0)
+    return sum(v for _, v in res["points"])
+
+
+def records_metrics(own: dict, port: int,
+                    deadline_s: float = RECORDS_DEADLINE_S) -> dict:
+    """Each replica's own decode tokens and TTFT count (``own``, by
+    replica, from ``replica_records``) against the driver's TSDB, once
+    their last frames have arrived: ``query_metrics`` by the replica's
+    origin, then the same series in ``/metrics``."""
+    end = time.perf_counter() + deadline_s
+    while True:
+        tsdb = {rid: tsdb_decode_tokens(o["proc"]) for rid, o in own.items()}
+        if all(tsdb[rid] == o["decode_tokens"] for rid, o in own.items()):
+            break
+        if time.perf_counter() > end:
+            raise AssertionError(f"phase 29: the driver's decode tokens "
+                                 f"{tsdb}, the replicas' own {own}")
+        time.sleep(0.1)
+    samples = scrape(port)
+    # A series with nothing shipped yet is absent: 0.
+    scraped = {rid: {
+        "decode_tokens": samples.get(
+            f'raytpu_infer_decode_tokens_total{{proc="{o["proc"]}"}}', 0.0),
+        "ttft_count": samples.get(
+            f'raytpu_infer_ttft_seconds_count{{proc="{o["proc"]}"}}', 0.0)}
+        for rid, o in own.items()}
+    return {"own": own, "query_metrics": tsdb, "scraped": scraped}
+
+
+def check_records_metrics(m: dict, recs: dict) -> dict:
+    """``/metrics`` against each replica's own counters, and each
+    replica's TTFT count against the requests whose first token its
+    engine recorded (their FIRST_TOKEN events carry its id). Returns
+    those counts."""
+    own, scraped = m["own"], m["scraped"]
+    firsts = {rid: sum(1 for r in recs.values() for e in r["events"]
+                       if e["transition"] == "FIRST_TOKEN"
+                       and e["worker_id"] == o["uid"])
+              for rid, o in own.items()}
+    for rid, o in own.items():
+        if scraped[rid] != {"decode_tokens": o["decode_tokens"],
+                            "ttft_count": o["ttft_count"]} or \
+                o["ttft_count"] != firsts[rid]:
+            raise AssertionError(f"phase 29: /metrics {scraped[rid]}, "
+                                 f"{firsts[rid]} first tokens recorded, "
+                                 f"against replica {rid}'s own {o}")
+    return firsts
+
+
+def check_request_records(recs: dict, want: dict) -> dict:
+    """Every record in the JAX order, and the count of each terminal
+    state equal to ``want``'s."""
+    ends = {t: 0 for t in TERMINAL}
+    wrong = {}
+    for rid, rec in recs.items():
+        seq = [e["transition"] for e in rec["events"]]
+        ends[rec["state"]] = ends.get(rec["state"], 0) + 1
+        if not in_jax_order(seq):
+            wrong[rid] = seq
+    if wrong or ends != want:
+        raise AssertionError(f"phase 29: records out of the JAX order "
+                             f"{wrong}, or ends {ends} against {want}")
+    return ends
+
+
+def data_task_records() -> dict:
+    """Phase 28's data tasks at the driver: how many were submitted to
+    the pool and ended in each state, each one's queue-to-run latency
+    (SUBMITTED to its first RUNNING), and the pool's workers they ran on."""
+    from raytpu_torch import state
+
+    rows = [t for t in state.list_tasks(detail=True, limit=0)
+            if (t["name"] or "").startswith("data::")]
+    states, q2r, workers = {}, [], set()
+    for t in rows:
+        states[t["state"]] = states.get(t["state"], 0) + 1
+        first = {}
+        for e in t["events"]:
+            first.setdefault(e["transition"], e)
+        if "SUBMITTED" in first and "RUNNING" in first:
+            q2r.append(first["RUNNING"]["ts"] - first["SUBMITTED"]["ts"])
+            workers.add(first["RUNNING"]["worker_id"])
+    q2r.sort()
+    return {"tasks": len(rows), "states": states,
+            "submitted": sum(1 for t in rows for e in t["events"]
+                             if e["transition"] == "SUBMITTED"),
+            "names": sorted({t["name"] for t in rows}),
+            "queue_to_run_ms": {
+                "first": q2r[0] * 1e3 if q2r else None,
+                "p50": q2r[len(q2r) // 2] * 1e3 if q2r else None,
+                "max": q2r[-1] * 1e3 if q2r else None},
+            "workers": sorted(workers)}
 
 
 def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
@@ -5798,9 +6065,11 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     from raytpu_torch.models.llama import LlamaConfig
     from raytpu_torch.serve._private import prefix_router
     from raytpu_torch.serve._private import router as router_mod
+    from raytpu_torch import state
+    from raytpu_torch.runtime import records
     from raytpu_torch.serve._private.controller import get_controller
     from raytpu_torch.serve.api import PROXY_NAME
-    from raytpu_torch.util import task_events, tracing
+    from raytpu_torch.util import metrics, tracing
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -5830,10 +6099,14 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
 
     router_mod.Router._choose = timed_choose
     routing = tuning.PREFIX_ROUTING
-    # Phase 27: traced, and request events recorded, from here on in
-    # every process the phase starts.
+    # Phase 27: traced, and phase 29: recorded (task and request events,
+    # metrics shipped to this process), from here on in every process the
+    # phase starts.
     tracing.enable_tracing(sample_rate=1.0, env=True)
-    task_events.enable_request_events(env=True)
+    set_records(True)
+    records.reset()
+    metrics_port = free_port()
+    metrics.start_metrics_server(metrics_port)
     http_port = free_port()
     grpc_port = free_port() if importlib.util.find_spec("grpc") else None
     if grpc_port is None:
@@ -5911,10 +6184,11 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         reports = on_replicas(replica_report)
         probes = list(probe_s)
         idle = on_replicas(replica_idle)
-        run["lifecycle_ms"] = lifecycle_split(
-            task_events.get_events() + [e for evs in on_replicas(
-                request_events).values() for e in evs],
-            {r: v for r, v in run.pop("requests").items() if r in prompts})
+        cold_requests = run.pop("requests")
+        run["lifecycle_ms"] = timeline_split(
+            request_records(full_name, ids=[
+                v[0] for v in cold_requests.values()]),
+            {r: v for r, v in cold_requests.items() if r in prompts})
 
         # -- a pair of prompts sharing a fresh prefix --------------------
         tuning.PREFIX_ROUTING = 1
@@ -5950,9 +6224,47 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
             runtime.call(controller.actor, controller_facts),
             timeout=SERVE_APP_DEADLINE_S)
 
+        # -- phase 29: every request so far, and every replica's series,
+        # at the driver ------------------------------------------------
+        t_records = time.perf_counter()
+        # Three legs of the prompts and a closed stream (cold, HTTP,
+        # warm), the prefix pair, the over-long and the traced request,
+        # and the gRPC stream where it ran. The unary gRPC call goes
+        # through the router's assign_request, which records no request
+        # events in either package (its engine's events carry the
+        # replica's own id and no deployment).
+        sent = (3 * (len(prompts) + 1) + 2 + 2
+                + (1 if grpc_port is not None else 0))
+        recs = request_records(full_name, count=sent)
+        own = on_replicas(replica_records)
+        records_before_kill = {
+            "requests": len(recs), "sent": sent,
+            "ends": check_request_records(recs, {
+                "FINISHED": sent - 4, "ABORTED": 3, "FAILED": 1}),
+            "metrics": records_metrics(own, metrics_port)}
+        if len(recs) != sent:
+            raise AssertionError(f"phase 29: {len(recs)} request records "
+                                 f"for {sent} requests")
+        # Every request an engine served, the unary call's too: the
+        # replicas' frames and events ride the same ships, so the
+        # records_metrics poll above saw them in.
+        served = {r["id"]: r for r in state.list_serve_requests(
+            limit=0, detail=True)}
+        first_tokens = sum(1 for r in served.values() if any(
+            e["transition"] == "FIRST_TOKEN" for e in r["events"]))
+        firsts = check_records_metrics(records_before_kill["metrics"],
+                                       served)
+        if sum(firsts.values()) != first_tokens:
+            raise AssertionError(f"phase 29: TTFT counts {firsts} against "
+                                 f"{first_tokens} requests with a first "
+                                 f"token")
+        records_before_kill["first_tokens"] = first_tokens
+        records_before_kill["s"] = time.perf_counter() - t_records
+
         # -- a replica killed under an open stream, and replaced --------
         gen = handle.generate.remote_streaming(killed_prompt,
                                                max_new_tokens=OPEN_ENDED)
+        killed_id = gen.request_id
         got = [next(gen), next(gen)]
         running = on_replicas(replica_report)
         [victim] = [rid for rid in replicas
@@ -5980,15 +6292,64 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         replaced_after_s = time.perf_counter() - t_kill
         restarts = controller.call("replica_starts", full_name)
         pids.add(now[new].pid)
-        after_kill = list(handle.generate.remote_streaming(
-            prompts["p2"], max_new_tokens=SERVE_NEW_TOKENS))
+        after_gen = handle.generate.remote_streaming(
+            prompts["p2"], max_new_tokens=SERVE_NEW_TOKENS)
+        after_kill = list(after_gen)
+        # Phase 29: until the replacement has served one (the router picks
+        # either replica), short requests, so that its series arrive.
+        after_ids = [after_gen.request_id]
+        while not on_replicas(replica_records,
+                              {new: now[new]})[new]["ttft_count"]:
+            if len(after_ids) > 8:
+                raise AssertionError("phase 29: the router sent nothing "
+                                     "to the replacement")
+            g = handle.generate.remote_streaming(prompts["p3"],
+                                                 max_new_tokens=4)
+            list(g)
+            after_ids.append(g.request_id)
         new_report = on_replicas(replica_report, {new: now[new]})[new]
+
+        # -- phase 29: the killed replica's records, and its successor's --
+        t_records = time.perf_counter()
+        recs = request_records(full_name, count=sent + 1 + len(after_ids),
+                               ids=[killed_id, *after_ids])
+        killed_actor = replicas[victim]._worker.actor_id
+        [dead] = [a for a in state.list_actors()["actors"]
+                  if a["actor_id"] == killed_actor]
+        gone = own[victim]["proc"]
+        end = time.perf_counter() + RECORDS_DEADLINE_S
+        while any(s["tags"]["proc"] == gone
+                  for s in state.list_metric_series("raytpu_infer")):
+            if time.perf_counter() > end:
+                raise AssertionError(f"phase 29: the killed replica's "
+                                     f"series ({gone}) are still there")
+            time.sleep(0.1)
+        records_after_kill = {
+            "requests": len(recs), "killed": recs[killed_id]["state"],
+            "killed_events": [e["transition"]
+                              for e in recs[killed_id]["events"]],
+            "killed_actor": dead["state"],
+            "ends": check_request_records(recs, {
+                "FINISHED": sent - 4 + len(after_ids), "ABORTED": 3,
+                "FAILED": 2}),
+            "after_kill_requests": len(after_ids),
+            "live_metrics": records_metrics(
+                on_replicas(replica_records, now), metrics_port),
+            "ship": records.ship_stats(),
+            "tsdb": records.metric_store().stats(),
+            "store": records.event_store().stats()}
+        records_after_kill["first_tokens"] = check_records_metrics(
+            records_after_kill["live_metrics"],
+            {r["id"]: r for r in state.list_serve_requests(
+                limit=0, detail=True)})
+        records_after_kill["s"] = time.perf_counter() - t_records
     finally:
         router_mod.Router._choose = choose
         tuning.PREFIX_ROUTING = routing
         port_serve.shutdown()
         tracing.disable_tracing(env=True)
-        task_events.disable_request_events(env=True)
+        set_records(False)
+        metrics.stop_metrics_server(metrics_port)
     left = sorted({p.pid for p in multiprocessing.active_children()}
                   - before)
     left += sorted(pid for pid in pids if running_process(pid))
@@ -6040,6 +6401,14 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     result["launches"] = {name: sum(l[name] for l in launches.values())
                           for name in parent}
     result["serve_http"] = http
+    result["records"] = {
+        "before_kill": records_before_kill, "after_kill": records_after_kill,
+        "ttft_split_ms": {"cold": run["lifecycle_ms"],
+                          "http": http["lifecycle_ms"],
+                          "warm": http["handle_leg_warm"]["lifecycle_ms"]},
+        "decode_tokens_per_s": result["decode_tokens_per_s"],
+        "replica_launches": launches, "parent_launches": parent}
+    log(f"[records] {json.dumps(result['records'])} | {card_line}")
     log(f"[serve-app] {json.dumps(result)} | {card_line}")
     short = {r: len(tokens[r]) for r in prompts
              if len(tokens[r]) != SERVE_NEW_TOKENS}
@@ -6049,13 +6418,14 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     if len(tokens["closed"]) != CLOSED_AFTER:
         raise AssertionError(f"the closed stream took "
                              f"{len(tokens['closed'])} tokens")
-    # Each replica: paged attention (every replica decodes), RMSNorm 65 a
-    # forward, no backward kernel; the two together: the flash forward (a
-    # replica whose prompts all hit its prefix cache prefills on the paged
-    # chunk path).
+    # Each replica: the flash forward in every layer of each full prefill
+    # (a prompt whose prefix its cache holds, or one over the chunk,
+    # prefills on the paged chunk path), paged attention (every replica
+    # decodes), RMSNorm 65 a forward, no backward kernel; the two
+    # together: the flash forward at least once (their first traffic).
     for rid in replicas:
         check_launches(launches[rid], {
-            "flash_forward": launches[rid]["flash_forward"],
+            "flash_forward": cfg.n_layer * prefills_of(stats[rid]),
             "paged_attention": None,
             "rmsnorm": (2 * cfg.n_layer + 1) * forwards_of(stats[rid]),
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
@@ -6077,6 +6447,10 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     if len(after_kill) != SERVE_NEW_TOKENS:
         raise AssertionError(f"after the replacement a stream took "
                              f"{len(after_kill)} tokens")
+    if records_after_kill["killed"] != "FAILED" or \
+            records_after_kill["killed_actor"] != "DEAD" or \
+            records_after_kill["requests"] != sent + 1 + len(after_ids):
+        raise AssertionError(f"phase 29: after the kill {records_after_kill}")
     if controller_report["forbidden"]:
         raise AssertionError(f"the controller loaded "
                              f"{controller_report['forbidden']}")

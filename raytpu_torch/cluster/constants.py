@@ -48,3 +48,7 @@ PREFIX_SUMMARY_TTL_S = _f("PREFIX_SUMMARY_TTL_S", 1.0)
 # How old a controller-pushed prefix summary may be before a router
 # probes the replica instead (raytpu/cluster/constants.py:272).
 PREFIX_PUSH_MAX_AGE_S = _f("PREFIX_PUSH_MAX_AGE_S", 30.0)
+# How often a process ships its metric delta frames (and, in the port, an
+# actor process its task events) to the store that aggregates them: the
+# JAX package's head, the port's driver (raytpu/cluster/constants.py:179).
+METRICS_SHIP_PERIOD_S = _f("METRICS_SHIP_PERIOD_S", 2.0)

@@ -107,6 +107,14 @@ forwarded unchanged; with none, a call pays one flag check.
 :func:`trace_dumps` is the counterpart of the JAX head's ``trace_dump``
 fan-out: a process asks every live worker it started for its span
 buffer, and each asks its own.
+
+Records (:mod:`raytpu_torch.runtime.records`): with task events on, an
+actor's owner records its CREATED and DEAD, and a caller each call's
+SUBMITTED and, at its reply or its stream's end, FINISHED (the JAX
+package's local mode records actor calls so); a worker ships its events
+and metric deltas to the driver's store through the registry socket
+(``ship``; a reaped worker's series are tombstoned by ``proc_dead``),
+and ``at_driver`` runs a state query in the driver.
 """
 
 from __future__ import annotations
@@ -132,12 +140,13 @@ import torch.multiprocessing as mp
 
 from raytpu_torch.core.errors import (ActorDiedError, GetTimeoutError,
                                       TaskError)
-from raytpu_torch.runtime import (object_store, refcount, remote_function,
-                                  starter, task_pool, transport)
+from raytpu_torch.runtime import (object_store, records, refcount,
+                                  remote_function, starter, task_pool,
+                                  transport)
 from raytpu_torch.runtime.object_ref import (ObjectRef, TopArg, is_ready,
                                              pending_caller, top_arg,
                                              value_of)
-from raytpu_torch.util import tracing
+from raytpu_torch.util import metrics, task_events, tracing
 
 # How long a worker whose process has exited may keep its connection open
 # before it counts as dead all the same (its last replies drain first).
@@ -473,9 +482,11 @@ class _Host:
 
 def _worker_main(conn, listener: socket.socket, name: str, blob,
                  num_threads: int, max_concurrency: int,
-                 registry: str, owner_pid: int, spawned: float) -> None:
+                 registry: str, owner_pid: int, spawned: float,
+                 uid: str) -> None:
     """The body of a worker process: build the instance, then serve calls
-    until the owner closes its pipe."""
+    until the owner closes its pipe; its records ship to the driver on a
+    timer (:mod:`raytpu_torch.runtime.records`)."""
     START_MARKS.update(spawned=spawned, entered=time.time())
     tracing.set_process_identity("worker", name)
     # A daemonic process may not start children; this flag is the
@@ -485,6 +496,7 @@ def _worker_main(conn, listener: socket.socket, name: str, blob,
     # own and end with it: nothing outlives the driver.
     mp.current_process().daemon = False
     set_registry(registry)
+    records.set_identity(False, uid)
     torch.set_num_threads(num_threads)
     host = _Host(name, max_concurrency)
     owner = _Line(conn, owner_pid)
@@ -499,7 +511,9 @@ def _worker_main(conn, listener: socket.socket, name: str, blob,
                   TaskError.from_exception(f"{name}.__init__", exc))
         return
     if host.send(owner, 0, _OK, None):
+        records.start_shipping()
         host.serve(owner, listener)
+        records.stop_shipping()
 
 
 # ---- the caller --------------------------------------------------------
@@ -522,6 +536,14 @@ class _Caller:
         self.streams: Dict[int, deque] = {}  # call id: (status, value)s
         self.dead: Optional[str] = None
         self._exit_seen: Optional[float] = None
+        # With task events on: call id -> (task id, name) of each call
+        # whose FINISHED is still to be recorded.
+        self._tids: Dict[int, Tuple[str, str]] = {}
+
+    @property
+    def actor_id(self) -> str:
+        """The actor's id in the records: its socket's hex."""
+        return self.address.rsplit("-", 1)[-1]
 
     @property
     def pid(self) -> Optional[int]:
@@ -537,11 +559,16 @@ class _Caller:
                 if call_id == 0:
                     self._started(status == _OK, payload)
                     continue
-                if call_id in self.streams:
+                streamed = call_id in self.streams
+                if streamed:
                     self.streams[call_id].append((status, payload))
                     READY.notify_all()
-                    continue
-                sub = self._pending.pop(call_id, None)
+                else:
+                    sub = self._pending.pop(call_id, None)
+            if not streamed or status in (_END, _ERR):
+                self._call_finished(call_id)
+            if streamed:
+                continue
             if sub is None:  # a dump nobody waits for, or a closed stream
                 if status in (_OK, _ITEM):
                     refcount.discard(payload)
@@ -555,18 +582,35 @@ class _Caller:
     def _started(self, ok: bool, value) -> None:
         """The owner's: the constructor's outcome (call id 0)."""
 
+    def _call_finished(self, call_id: int) -> None:
+        """A call's reply, or a stream's end or close: its FINISHED."""
+        if task_events.enabled():
+            done = self._tids.pop(call_id, None)
+            if done is not None:
+                task_events.emit("task", done[0],
+                                 task_events.TaskTransition.FINISHED,
+                                 name=done[1])
+
     def _mark_dead(self, reason: Optional[str]) -> None:
         with READY:
-            if self.dead is None:
+            first = self.dead is None
+            if first:
                 self.dead = reason or self._death()
             pending, self._pending = self._pending, {}
+            self._tids.clear()  # a call its actor's death fails ends no task
             READY.notify_all()
+        if first:
+            self._died()
         for sub in pending.values():
             sub.finish()
             refcount.fail(sub.oid, ActorDiedError(self.name, self.dead))
 
     def _death(self) -> str:
         return f"process {self.pid} exited"
+
+    def _died(self) -> None:
+        """Once, when the worker is first seen dead (the owner's records
+        its actor's death)."""
 
     def _gone(self) -> bool:
         """Whether the worker's process has ended."""
@@ -598,6 +642,19 @@ class _Caller:
         sealed = object_store.seal((method, args, kwargs), os.getpid())
         call_id, ref = self._new_call(
             kind, refcount.Submission(None, keep, sealed))
+        if task_events.enabled():
+            # An actor call is a task of the records, as in the JAX
+            # package's local mode: SUBMITTED here, FINISHED at its reply
+            # (a stream's end or close).
+            tid = uuid.uuid4().hex if ref is None else ref.hex()
+            label = method if isinstance(method, str) else getattr(
+                method, "__name__", repr(method))
+            task_name = f"{self.name.rsplit('-', 1)[0]}.{label}"
+            with READY:
+                self._tids[call_id] = (tid, task_name)
+            task_events.emit("task", tid,
+                             task_events.TaskTransition.SUBMITTED,
+                             name=task_name)
         tc = tracing.current_trace()
         if not tracing.enabled():
             # An untraced hop in a traced request forwards the context
@@ -651,6 +708,7 @@ class _Caller:
             buf = self.streams.pop(call_id, None)
         if buf is None:
             return
+        self._call_finished(call_id)
         for status, payload in buf:
             if status == _ITEM:
                 refcount.discard(payload)
@@ -671,9 +729,13 @@ class _Worker(_Caller):
     talks to it over a pipe, whose EOF in the child ends the worker."""
 
     def __init__(self, cls, args, kwargs, num_threads: int,
-                 max_concurrency: int = 1):
+                 max_concurrency: int = 1, label: Optional[str] = None):
         super().__init__(f"{cls.__name__}-{uuid.uuid4().hex[:8]}",
                          transport.new_address())
+        # The actor's name in the records (its registered name, else its
+        # class's) and its process's id there.
+        self.label = label or cls.__name__
+        self.uid = records.new_uid()
         args, kwargs, keep = pack_args(args, kwargs)
         # A bad argument raises here.
         self._ctor = refcount.Submission(None, keep, object_store.seal(
@@ -686,7 +748,7 @@ class _Worker(_Caller):
             target=_worker_main,
             args=(child, listener, self.name, self._ctor.sealed, num_threads,
                   max_concurrency, _registry_address(), os.getpid(),
-                  time.time()),
+                  time.time(), self.uid),
             name=self.name, daemon=True)
         try:
             self.proc.start()
@@ -708,6 +770,8 @@ class _Worker(_Caller):
         self._read_loop(self._conn)
         self.proc.join(timeout=_REAP_S)
         self._mark_dead(None)
+        if metrics.enabled():
+            records.proc_dead(self.uid)
         self._ctor.finish()
         # What the worker owned (its puts, its calls' results) is gone
         # with it.
@@ -716,6 +780,17 @@ class _Worker(_Caller):
     def _started(self, ok: bool, value) -> None:
         self.started = (ok, value)
         self._ctor.finish()
+        if ok and task_events.enabled():
+            task_events.emit("actor", self.actor_id,
+                             task_events.TaskTransition.CREATED,
+                             name=self.label, worker_id=self.uid)
+
+    def _died(self) -> None:
+        if task_events.enabled():
+            task_events.emit("actor", self.actor_id,
+                             task_events.TaskTransition.DEAD,
+                             name=self.label, error=self.dead,
+                             worker_id=self.uid)
 
     def _death(self) -> str:
         if self._stop_reason is not None:
@@ -973,7 +1048,7 @@ class RemoteClass:
             _names("reserve", namespace, name)
         try:
             worker = _Worker(self._cls, args, kwargs, self._threads,
-                             self._max_concurrency)
+                             self._max_concurrency, name)
         except BaseException:
             if name is not None:
                 _names("release", namespace, name)
@@ -1091,7 +1166,15 @@ def _answer(conn) -> None:
         if op == "pool":
             task_pool.serve_client(conn, _pool())
             return
-        if op == "create":
+        if op == "ship":
+            records.ingest(*args)
+            value = None
+        elif op == "proc_dead":
+            records.tombstone(*args)
+            value = None
+        elif op == "at_driver":
+            value = records.run_at_driver(*args)
+        elif op == "create":
             cls, c_args, c_kwargs, options = args
             value = RemoteClass(cls, options).remote(*c_args, **c_kwargs)
         else:
@@ -1118,8 +1201,10 @@ def _registry_address() -> str:
             object_store.tree()  # before the first child: it inherits it
             address = transport.new_address()
             sock = transport.listen(address)
-            # The process the runtime did not start: its timeline track.
+            # The process the runtime did not start: its timeline track,
+            # and its id in the records.
             tracing.set_process_identity("driver")
+            records.set_identity(True)
             atexit.register(_at_driver_exit)
             threading.Thread(target=transport.serve_socket,
                              args=(sock, _answer, "registry"),

@@ -39,6 +39,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional
 
 from raytpu_torch.runtime import object_store
+from raytpu_torch.util import task_events
 
 # Every completion lands under this condition; get and wait sleep on it.
 READY = threading.Condition(threading.RLock())
@@ -158,6 +159,9 @@ def complete(oid: str, sealed=None, value=_NOVALUE) -> None:
         waiters, entry.waiters = entry.waiters, []
         _finish(entry)
         READY.notify_all()
+    if task_events.enabled():
+        # The object is in its owner's table: the JAX node store's PUT.
+        task_events.emit("object", oid, task_events.TaskTransition.PUT)
     for waiter in waiters:
         waiter(entry)
 

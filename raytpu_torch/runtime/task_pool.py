@@ -32,6 +32,12 @@ torch threads.
   to import torch; the server's launch is paid once.
   :meth:`TaskPool.start_split` gives the split.
 
+- **Records.** With task events on, the pool records a task's
+  SUBMITTED, RETRIED and a dead worker's FAILED; the worker its RUNNING
+  and FINISHED or FAILED, which ride its done message with its metric
+  deltas (:mod:`raytpu_torch.runtime.records`), so a worker killed
+  mid-task loses only that attempt's RUNNING.
+
 What it leaves out: placement, resources other than CPUs, a task that
 blocks in ``get`` on tasks it submitted keeps its slot (with every slot
 so held the pool stalls), and no backpressure on streams.
@@ -52,11 +58,15 @@ import torch.multiprocessing as mp
 
 from raytpu_torch.core.errors import (TaskCancelledError, TaskError,
                                       WorkerCrashedError)
-from raytpu_torch.runtime import (object_store, refcount, serialization,
-                                  starter, transport)
+from raytpu_torch.runtime import (object_store, records, refcount,
+                                  serialization, starter, transport)
+from raytpu_torch.util import metrics, task_events
 
 # How long stop() waits for a worker to be reaped.
 REAP_S = 10.0
+# How long stop() waits for a start in flight (a server's launch: one
+# interpreter importing numpy, torch and the runtime).
+START_JOIN_S = 120.0
 
 
 class Task:
@@ -65,7 +75,7 @@ class Task:
 
     __slots__ = ("tid", "fn", "args", "name", "num_returns", "streaming",
                  "num_cpus", "retries", "retry_exceptions", "owner_pid",
-                 "route", "cancelled", "sent_items")
+                 "route", "cancelled", "sent_items", "attempt")
 
     def __init__(self, spec: dict, route: Callable[[tuple], None]):
         for key in ("tid", "fn", "args", "name", "num_returns", "streaming",
@@ -74,19 +84,21 @@ class Task:
         self.route = route
         self.cancelled = False
         self.sent_items = False
+        self.attempt = 0
 
     def message(self) -> tuple:
         return ("run", self.tid, self.fn, self.args,
                 {"name": self.name, "num_returns": self.num_returns,
                  "streaming": self.streaming, "num_cpus": self.num_cpus,
                  "retry_exceptions": self.retry_exceptions,
-                 "owner_pid": self.owner_pid})
+                 "owner_pid": self.owner_pid, "attempt": self.attempt})
 
 
 class _Proc:
-    def __init__(self, process, conn, spawned: float):
+    def __init__(self, process, conn, spawned: float, uid: str):
         self.process = process
         self.conn = conn
+        self.uid = uid  # its id in the records
         self.task: Optional[Task] = None
         self.marks = {"spawned": spawned}
 
@@ -109,6 +121,7 @@ class TaskPool:
         self._names = itertools.count()
         self._closed = False
         self._started_at: Optional[float] = None
+        self._starter: Optional[threading.Thread] = None
         self._server_s: Optional[float] = None
 
     # -- workers --------------------------------------------------------
@@ -117,8 +130,9 @@ class TaskPool:
         """Start every worker, from a thread: the caller goes on at once
         (tasks submitted meanwhile wait in the queue)."""
         self._started_at = time.time()
-        threading.Thread(target=self._start_all, name="raytpu-task-pool",
-                         daemon=True).start()
+        self._starter = threading.Thread(target=self._start_all,
+                                         name="raytpu-task-pool", daemon=True)
+        self._starter.start()
 
     def _start_all(self) -> None:
         t0 = time.perf_counter()
@@ -132,13 +146,15 @@ class TaskPool:
             if self._closed:
                 return
         parent, child = mp.Pipe()
+        uid = records.new_uid()
         process = starter.Process(
-            target=_worker_main, args=(child, self._registry, time.time()),
+            target=_worker_main,
+            args=(child, self._registry, time.time(), uid),
             name=f"raytpu-task-{next(self._names)}", daemon=True)
         spawned = time.time()
         process.start()
         child.close()
-        proc = _Proc(process, parent, spawned)
+        proc = _Proc(process, parent, spawned, uid)
         with self._lock:
             self._procs.append(proc)
             closed = self._closed
@@ -166,6 +182,10 @@ class TaskPool:
                              f"pool's {self.size} CPUs")
         with self._lock:
             if not self._closed:
+                if task_events.enabled():
+                    task_events.emit("task", task.tid,
+                                     task_events.TaskTransition.SUBMITTED,
+                                     name=task.name, attempt=task.attempt)
                 self._queue.append(task)
                 self._dispatch()
                 return
@@ -213,7 +233,9 @@ class TaskPool:
         self._died(proc)
 
     def _done(self, proc: _Proc, message: tuple) -> None:
-        _, tid, ok, payload, retryable = message
+        _, tid, ok, payload, retryable, ship = message
+        if ship is not None:  # the worker's records, with its done
+            records.ingest(ship)
         with self._lock:
             task, proc.task = proc.task, None
             self._running.pop(tid, None)
@@ -222,6 +244,11 @@ class TaskPool:
                      and not task.cancelled and not task.sent_items)
             if again:
                 task.retries -= 1
+                task.attempt += 1
+                if task_events.enabled():
+                    task_events.emit("task", task.tid,
+                                     task_events.TaskTransition.RETRIED,
+                                     name=task.name, attempt=task.attempt)
                 self._queue.appendleft(task)
             self._idle.append(proc)
             self._dispatch()
@@ -238,6 +265,8 @@ class TaskPool:
     def _died(self, proc: _Proc) -> None:
         proc.process.join(timeout=REAP_S)
         object_store.sweep_owner(proc.process.pid)
+        if metrics.enabled():
+            records.proc_dead(proc.uid)
         with self._lock:
             if proc in self._procs:
                 self._procs.remove(proc)
@@ -250,8 +279,23 @@ class TaskPool:
                 self.free += task.num_cpus
                 again = (task.retries > 0 and not task.cancelled
                          and not task.sent_items and not self._closed)
+                if task_events.enabled():
+                    # The attempt the dead worker never reported, and the
+                    # next, as the JAX node records a crashed worker's.
+                    task_events.emit(
+                        "task", task.tid, task_events.TaskTransition.FAILED,
+                        name=task.name, attempt=task.attempt,
+                        error=f"WorkerCrashedError: worker process "
+                              f"{proc.process.pid} exited with code "
+                              f"{proc.process.exitcode}")
                 if again:
                     task.retries -= 1
+                    task.attempt += 1
+                    if task_events.enabled():
+                        task_events.emit(
+                            "task", task.tid,
+                            task_events.TaskTransition.RETRIED,
+                            name=task.name, attempt=task.attempt)
                     self._queue.appendleft(task)
             replace = not self._closed
         if task is not None and not again:
@@ -301,14 +345,31 @@ class TaskPool:
             return {"total": {"CPU": float(self.size)},
                     "available": {"CPU": float(self.free)}}
 
+    def live(self) -> List[dict]:
+        """The tasks the pool holds now: queued, and running."""
+        with self._lock:
+            rows = [{"task_id": t.tid, "name": t.name,
+                     "state": "PENDING_SCHEDULING", "attempt": t.attempt}
+                    for t in self._queue]
+            rows += [{"task_id": tid, "name": p.task.name, "state": "RUNNING",
+                      "attempt": p.task.attempt}
+                     for tid, p in self._running.items()
+                     if p.task is not None]
+        return rows
+
     def workers(self) -> List[int]:
         with self._lock:
             return [p.process.pid for p in self._procs]
 
     def stop(self) -> None:
-        """Kill every worker and fail what is queued. Safe twice."""
+        """Kill every worker and fail what is queued. Safe twice. A stop
+        while the workers start waits for the start in flight (the
+        server's launch included), so that no worker outlives it."""
         with self._lock:
             self._closed = True
+        if self._starter is not None:
+            self._starter.join(timeout=START_JOIN_S)
+        with self._lock:
             procs = list(self._procs)
             queued = list(self._queue)
             self._queue.clear()
@@ -376,15 +437,17 @@ def _retryable(exc: BaseException, retry_exceptions) -> bool:
     return False
 
 
-def _worker_main(conn, registry: str, spawned: float) -> None:
+def _worker_main(conn, registry: str, spawned: float, uid: str) -> None:
     """A task worker: run the tasks the pool sends, one at a time, in
-    this thread; a reader thread takes cancels meanwhile."""
+    this thread; a reader thread takes cancels meanwhile. Its records
+    ride each done message."""
     from raytpu_torch.runtime import api
     from raytpu_torch.util import tracing
 
     marks = {"spawned": spawned, "entered": time.time()}
     tracing.set_process_identity("task-worker", str(os.getpid()))
     api.set_registry(registry)
+    records.set_identity(False, uid)
     mp.current_process().daemon = False  # a task may start actors
     torch.set_num_threads(1)
     runs: "queue.Queue" = queue.Queue()
@@ -416,8 +479,11 @@ def _run(conn, message: tuple, cancelled: set) -> None:
     from raytpu_torch.runtime import api
 
     _, tid, fn_blob, args, opts = message
-    name, owner = opts["name"], opts["owner_pid"]
+    name, owner, attempt = opts["name"], opts["owner_pid"], opts["attempt"]
     torch.set_num_threads(max(1, int(opts["num_cpus"])))
+    if task_events.enabled():
+        task_events.emit("task", tid, task_events.TaskTransition.RUNNING,
+                         name=name, attempt=attempt)
     try:
         fn = _function(fn_blob)
         call_args, call_kwargs = object_store.unseal(args)
@@ -434,7 +500,12 @@ def _run(conn, message: tuple, cancelled: set) -> None:
                 close = getattr(gen, "close", None)
                 if close is not None:
                     close()
-            transport.send(conn, ("done", tid, True, None, False))
+            if task_events.enabled():
+                task_events.emit("task", tid,
+                                 task_events.TaskTransition.FINISHED,
+                                 name=name, attempt=attempt)
+            transport.send(conn, ("done", tid, True, None, False,
+                                  records.collect_ship()))
             return
         out = fn(*call_args, **call_kwargs)
         n = opts["num_returns"]
@@ -446,10 +517,19 @@ def _run(conn, message: tuple, cancelled: set) -> None:
                                  f"values; num_returns={n}")
         sealed = [object_store.seal(v, owner) for v in values]
     except Exception as exc:
+        if task_events.enabled():
+            task_events.emit("task", tid, task_events.TaskTransition.FAILED,
+                             name=name, attempt=attempt,
+                             error=f"{type(exc).__name__}: {exc}")
         transport.send(conn, ("done", tid, False,
                               TaskError.from_exception(name, exc),
-                              _retryable(exc, opts["retry_exceptions"])))
+                              _retryable(exc, opts["retry_exceptions"]),
+                              records.collect_ship()))
         return
     finally:
         cancelled.discard(tid)
-    transport.send(conn, ("done", tid, True, sealed, False))
+    if task_events.enabled():
+        task_events.emit("task", tid, task_events.TaskTransition.FINISHED,
+                         name=name, attempt=attempt)
+    transport.send(conn, ("done", tid, True, sealed, False,
+                          records.collect_ship()))

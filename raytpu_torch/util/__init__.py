@@ -2,14 +2,19 @@
 observability, in-process only, and the ambient tenant.
 
 - :mod:`~raytpu_torch.util.metrics` — ``Counter`` / ``Gauge`` /
-  ``Histogram`` with tags and the cardinality cap, and the
-  ``DECLARED_METRICS`` table of every name the port mints;
+  ``Histogram`` with tags and the cardinality cap, the
+  ``DECLARED_METRICS`` table of every name the port mints, delta frames
+  shipped to the driver and ``start_metrics_server``;
 - :mod:`~raytpu_torch.util.tracing` — spans, trace contexts (carried by
   every call of :mod:`raytpu_torch.runtime`), the local and the
   every-process chrome-trace timelines, and ``profile`` over
   ``torch.profiler``;
-- :mod:`~raytpu_torch.util.task_events` — the request lifecycle
-  recorder (``RequestTransition``, ``emit_request``);
+- :mod:`~raytpu_torch.util.task_events` — the flight recorder: task,
+  actor, object and request transitions in a per-process ring, drained
+  to the driver's ``TaskEventStore``;
+- :mod:`~raytpu_torch.util.tsdb` — the driver's ``MetricStore`` and
+  alert rules; :mod:`~raytpu_torch.util.metrics_export` — Prometheus
+  and Grafana configs;
 - :mod:`~raytpu_torch.util.serve_slo` — the serve SLO histograms and
   the goodput ledger;
 - :mod:`~raytpu_torch.util.profiler` — the flag the step profiler reads;
@@ -23,7 +28,8 @@ observability, in-process only, and the ambient tenant.
   label, fields) in a per-process ring, and a JSONL file where a log
   directory is set.
 
-Nothing here ships to a head or serves a scrape endpoint: the port has
-no cluster head (ROADMAP.md); spans are gathered on demand through the
-runtime's process tree (``tracing.cluster_timeline``).
+Each process's events and metric deltas ship to the driver
+(:mod:`raytpu_torch.runtime.records`), which :mod:`raytpu_torch.state`
+reads; spans are gathered on demand through the runtime's process tree
+(``tracing.cluster_timeline``).
 """

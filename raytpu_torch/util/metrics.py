@@ -1,12 +1,26 @@
-"""User-defined metrics: Counter / Gauge / Histogram; the port of
-``raytpu/util/metrics.py``, in memory only.
+"""User-defined metrics: Counter / Gauge / Histogram, and the shipping
+pipeline to the driver's store; the port of ``raytpu/util/metrics.py``.
 
-The JAX package registers every metric with ``prometheus_client`` as
-well and ships registry deltas to the head's store; the port does
-neither (no head to ship to, ROADMAP.md, and registering the same
-``raytpu_infer_*`` names would collide with the JAX package's in a
-process that imports both). Values are read through ``value`` /
-``values`` / ``observations`` / ``observations_by_tag``.
+Values are kept in memory and read through ``value`` / ``values`` /
+``observations`` / ``observations_by_tag``. The JAX package also
+registers every metric with ``prometheus_client``; the port does not
+(registering the same ``raytpu_infer_*`` names would collide with the
+JAX package's in a process that imports both, and the card's machine
+may not have the package).
+
+Shipping (the JAX package's cluster pipeline, ``:430-556``): a process
+snapshots its metrics' *deltas* (counter increments, gauge last-values,
+histogram bucket increments) into primitive-only frames
+(:func:`collect`), which ride to the driver's
+:class:`~raytpu_torch.util.tsdb.MetricStore`
+(:mod:`raytpu_torch.runtime.records`): on an actor's ship timer, and
+with a task worker's done message. Same bounded-buffer /
+requeue-on-failure contract as task-event shipping. The port ships only
+when armed (``RAYTPU_METRICS_SHIP=1``, :func:`enable_metrics_ship`;
+the JAX package ships by default, to its head); disarmed, each ship
+site costs a single flag check (:func:`enabled`).
+:func:`start_metrics_server` serves the driver's store as Prometheus
+text at ``/metrics``, as the JAX head's dashboard does.
 
 Tag-cardinality bound: each metric holds at most ``_MAX_SERIES``
 (``RAYTPU_METRIC_MAX_SERIES``) distinct tag-sets; overflow folds into a
@@ -21,12 +35,18 @@ call sites, as the JAX package's lint rule RTP015 does).
 
 from __future__ import annotations
 
+import bisect
 import os
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+import weakref
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 _DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                     5.0, 10.0, 30.0, 60.0)
+_registry_lock = threading.Lock()
+_instances: "weakref.WeakSet[_Metric]" = weakref.WeakSet()
 
 # Every metric name the port itself constructs: the JAX package's names
 # for the same series. Keep alphabetized within each section.
@@ -105,6 +125,9 @@ class _Metric:
         self._default_tags: Dict[str, str] = {}
         self._values: Dict[Tuple, float] = {}
         self._lock = threading.Lock()
+        self._ship_state: Dict[Tuple, object] = {}
+        with _registry_lock:
+            _instances.add(self)
 
     def set_default_tags(self, tags: Dict[str, str]) -> "_Metric":
         unknown = set(tags) - set(self._tag_keys)
@@ -136,6 +159,9 @@ class _Metric:
                 return key, False
         return (OTHER_TAG_VALUE,) * len(self._tag_keys), True
 
+    def _delta_rows(self) -> List[list]:
+        raise NotImplementedError
+
 
 class Counter(_Metric):
     """Monotonic counter (reference: ``ray.util.metrics.Counter``)."""
@@ -156,6 +182,17 @@ class Counter(_Metric):
         """The sum over every tag-set."""
         with self._lock:
             return sum(self._values.values())
+
+    def _delta_rows(self) -> List[list]:
+        rows: List[list] = []
+        with self._lock:
+            for key, val in self._values.items():
+                inc = val - self._ship_state.get(key, 0.0)
+                if inc > 0:
+                    rows.append(["c", self._name, list(self._tag_keys),
+                                 list(key), inc])
+                    self._ship_state[key] = val
+        return rows
 
 
 class Gauge(_Metric):
@@ -186,6 +223,13 @@ class Gauge(_Metric):
         """Per-tag-tuple snapshot (keys ordered by ``tag_keys``)."""
         with self._lock:
             return dict(self._values)
+
+    def _delta_rows(self) -> List[list]:
+        # Gauges ship every live tag-set each interval (not just on
+        # change) so steady values still produce points.
+        with self._lock:
+            return [["g", self._name, list(self._tag_keys), list(key), val]
+                    for key, val in self._values.items()]
 
 
 class Histogram(_Metric):
@@ -224,6 +268,23 @@ class Histogram(_Metric):
         with self._lock:
             return {k: list(v) for k, v in self._by_key.items()}
 
+    def _delta_rows(self) -> List[list]:
+        rows: List[list] = []
+        with self._lock:
+            for key, obs in self._by_key.items():
+                idx = self._ship_state.get(key, 0)
+                new = obs[idx:]
+                if not new:
+                    continue
+                counts = [0] * (len(self._boundaries) + 1)
+                for v in new:
+                    counts[bisect.bisect_left(self._boundaries, v)] += 1
+                rows.append(["h", self._name, list(self._tag_keys),
+                             list(key), list(self._boundaries), counts,
+                             float(sum(new)), len(new)])
+                self._ship_state[key] = len(obs)
+        return rows
+
 
 # The fold counter is created lazily (the class must exist first) and
 # never reports on itself: its own key space is bounded by the set of
@@ -243,3 +304,227 @@ def _note_series_drop(metric_name: str) -> None:
                 "tag-sets folded into <other> by the cardinality cap",
                 tag_keys=("metric",))
     _series_dropped.inc(tags={"metric": metric_name})
+
+
+# ---------------------------------------------------------------------------
+# Shipping: metric deltas -> primitive frames -> the driver's TSDB.
+#
+# Frame shape (primitives only):
+#   [proc_id, seq, ts, rows]
+# with rows one of
+#   ["c", name, [tag_keys], [tag_vals], increment]
+#   ["g", name, [tag_keys], [tag_vals], last_value]
+#   ["h", name, [tag_keys], [tag_vals], [boundaries], [bucket_incs],
+#    sum_inc, count_inc]
+# ``seq`` is per-origin monotonic; the store drops seq <= last-applied so
+# a requeued-and-reshipped frame merges idempotently.
+# ---------------------------------------------------------------------------
+
+ENV_SHIP = "RAYTPU_METRICS_SHIP"
+ENV_BUFFER_MAX = "RAYTPU_METRICS_BUFFER_MAX"
+
+_BUFFER_MAX = int(os.environ.get(ENV_BUFFER_MAX, "") or 256)
+_ship_enabled = os.environ.get(ENV_SHIP, "") not in ("", "0", "false",
+                                                     "False")
+_ship_lock = threading.Lock()
+_frames: Deque[list] = deque()
+_frames_dropped_total = 0
+_frames_dropped_shipped = 0  # watermark: drops already reported downstream
+_ship_seq = 0
+_last_collect = [0.0]
+_proc_id = [""]
+
+
+def enabled() -> bool:
+    """THE flag check: every ship site guards with exactly this call, so
+    shipping disarmed costs one boolean read per tick."""
+    return _ship_enabled
+
+
+def enable_metrics_ship(env: bool = False) -> None:
+    """Arm shipping. ``env=True`` exports ``RAYTPU_METRICS_SHIP=1`` so
+    child processes inherit it (arm before the first child starts)."""
+    global _ship_enabled
+    _ship_enabled = True
+    if env:
+        os.environ[ENV_SHIP] = "1"
+
+
+def disable_metrics_ship(env: bool = False) -> None:
+    """Disarm shipping; ``env=True`` sets ``RAYTPU_METRICS_SHIP=0`` for
+    children (the JAX package's default is on, so its disable writes
+    ``0`` rather than unsetting the variable; the port keeps that)."""
+    global _ship_enabled
+    _ship_enabled = False
+    if env:
+        os.environ[ENV_SHIP] = "0"
+
+
+def set_shipper_identity(proc_id: str) -> None:
+    """Stamp outgoing frames with this process's identity
+    (``driver:<hex12>`` / ``worker:<hex12>.<hex12>``, the first hex12
+    drawn afresh in each process after its fork). The driver tombstones
+    a reaped worker's series by it."""
+    _proc_id[0] = str(proc_id)
+
+
+def shipper_identity() -> str:
+    return _proc_id[0] or f"pid:{os.getpid()}"
+
+
+def collect(min_interval_s: float = 0.0, force: bool = False,
+            now: Optional[float] = None) -> bool:
+    """Snapshot metric deltas into one pending frame. Rate-limited by
+    ``min_interval_s`` so a fast loop can call it every beat. Returns
+    True iff a frame was produced."""
+    if not _ship_enabled:
+        return False
+    if now is None:
+        now = time.time()
+    with _ship_lock:
+        if not force and min_interval_s > 0 and \
+                now - _last_collect[0] < min_interval_s:
+            return False
+        _last_collect[0] = now
+    with _registry_lock:
+        insts = list(_instances)
+    rows: List[list] = []
+    for m in insts:
+        rows.extend(m._delta_rows())
+    if not rows:
+        return False
+    global _ship_seq, _frames_dropped_total
+    with _ship_lock:
+        _ship_seq += 1
+        frame = [shipper_identity(), _ship_seq, now, rows]
+        if len(_frames) >= _BUFFER_MAX:
+            _frames.popleft()
+            _frames_dropped_total += 1
+        _frames.append(frame)
+    return True
+
+
+def drain() -> Tuple[List[list], int]:
+    """Take everything pending plus the not-yet-reported drop delta.
+    On ship failure hand both back via :func:`requeue`: the watermark
+    arithmetic keeps drop counts exact across retries."""
+    global _frames_dropped_shipped
+    with _ship_lock:
+        frames = list(_frames)
+        _frames.clear()
+        dropped_delta = _frames_dropped_total - _frames_dropped_shipped
+        _frames_dropped_shipped = _frames_dropped_total
+    return frames, dropped_delta
+
+
+def requeue(frames: List[list], dropped: int = 0) -> None:
+    """Put a failed ship back at the FRONT of the buffer (oldest-first
+    order preserved); overflow drops the oldest of the requeued batch."""
+    if not frames and not dropped:
+        return
+    global _frames_dropped_total, _frames_dropped_shipped
+    with _ship_lock:
+        _frames_dropped_shipped -= dropped
+        space = _BUFFER_MAX - len(_frames)
+        if len(frames) > space:
+            lost = len(frames) - max(space, 0)
+            frames = frames[lost:]
+            _frames_dropped_total += lost
+        _frames.extendleft(reversed(frames))
+
+
+def ingest(frames: List[list], dropped: int = 0) -> None:
+    """Relay path: absorb another process's drained frames into this
+    process's buffer; they ride its next ship."""
+    global _frames_dropped_total
+    with _ship_lock:
+        _frames_dropped_total += int(dropped or 0)
+        for f in frames or ():
+            if len(_frames) >= _BUFFER_MAX:
+                _frames.popleft()
+                _frames_dropped_total += 1
+            _frames.append(f)
+
+
+def pending_frames() -> int:
+    with _ship_lock:
+        return len(_frames)
+
+
+def reset_shipping() -> None:
+    """Test isolation: clear the buffer, counters, and every metric's
+    per-instance ship watermarks (so totals re-ship as fresh deltas)."""
+    global _frames_dropped_total, _frames_dropped_shipped, _ship_seq
+    with _ship_lock:
+        _frames.clear()
+        _frames_dropped_total = 0
+        _frames_dropped_shipped = 0
+        _ship_seq = 0
+        _last_collect[0] = 0.0
+    with _registry_lock:
+        insts = list(_instances)
+    for m in insts:
+        with m._lock:
+            m._ship_state.clear()
+
+
+# ---------------------------------------------------------------------------
+# The scrape endpoint: the driver's TSDB as Prometheus text.
+# ---------------------------------------------------------------------------
+
+_servers: Dict[int, tuple] = {}  # port -> (http server, thread)
+_server_lock = threading.Lock()
+
+
+def start_metrics_server(port: int = 8090) -> bool:
+    """Serve ``GET /metrics``: the exposition of the driver's store
+    (every process's shipped series, labeled by ``proc``;
+    :func:`raytpu_torch.runtime.records.prometheus_text`), on
+    ``http.server`` at ``127.0.0.1:port``. Idempotent per port; a second
+    caller asking for a DIFFERENT port gets its own endpoint."""
+    import http.server
+
+    from raytpu_torch.runtime import records
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (the http.server name)
+            if self.path.split("?", 1)[0] != "/metrics":
+                self.send_error(404)
+                return
+            body = records.prometheus_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # a scrape is not news
+            pass
+
+    with _server_lock:
+        if port in _servers:
+            return True
+        server = http.server.ThreadingHTTPServer(("127.0.0.1", port),
+                                                 _Handler)
+        server.daemon_threads = True
+        thread = threading.Thread(target=server.serve_forever,
+                                  name=f"raytpu-metrics-{port}",
+                                  daemon=True)
+        thread.start()
+        _servers[port] = (server, thread)
+        return True
+
+
+def stop_metrics_server(port: int) -> None:
+    """Shut down the scrape endpoint on ``port`` (no-op if not running)."""
+    with _server_lock:
+        entry = _servers.pop(port, None)
+    if entry is None:
+        return
+    server, thread = entry
+    server.shutdown()
+    # shutdown() only stops the serve loop; the listening socket stays
+    # bound until closed.
+    server.server_close()
+    thread.join(timeout=5)

@@ -7,8 +7,11 @@ reader needs them), its entry points never move to the CPU on their own, its
 CUDA kernels are built from the repo's sources for Hopper, and its
 observability keeps the JAX package's lint rules: every request event
 is emitted under one flag check and every transition the JAX serving
-plane emits is emitted (RTP021), and every metric it constructs is
-declared (RTP015)."""
+plane emits is emitted (RTP021), every metric it constructs is declared
+(RTP015), and its flight recorder keeps the rules of
+tests/test_task_events.py: every task event, ship and tombstone site
+under one flag check, and every ``TaskTransition`` emitted or listed
+with the reason the port never emits it (RTP003)."""
 
 import ast
 import json
@@ -27,9 +30,9 @@ PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "ab_wrappers.py", REPO / "rmsnorm_plans.py",
     REPO / "rl_kinks.py"]
 
-# The port's copies of raytpu/util's serving-plane observability.
+# The port's copies of raytpu/util's observability.
 UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
-                "profiler", "stepprof")
+                "profiler", "stepprof", "tsdb", "metrics_export")
 
 # The port's runtime layer and the JAX modules whose calls it copies.
 RUNTIME_MODULES = ("core.errors", "runtime.api", "runtime.generator",
@@ -655,34 +658,48 @@ def test_util_modules_are_held_to_the_rules():
         assert (REPO / "raytpu" / "util" / f"{m}.py").is_file()
 
 
-def _guarded_emissions(node, guarded=False):
-    """(line, guarded) of every ``emit_request`` call under ``node``:
-    guarded when it sits in the body of an ``if`` whose test calls
-    ``request_events_enabled()`` exactly once (a test calling it twice
-    is reported as line -1)."""
+def _guarded_emissions(node, guarded=0, site="emit_request",
+                       flag="request_events_enabled"):
+    """(line, guarded) of every ``site`` call under ``node``: guarded
+    when it sits in the body of exactly one ``if`` whose test calls
+    ``flag()`` exactly once (a test calling it twice is reported as line
+    -1; a site under two such guards as unguarded: its path checks the
+    flag twice)."""
     def flag_calls(expr):
         return sum(1 for sub in ast.walk(expr) if isinstance(sub, ast.Call)
-                   and _callee(sub) == "request_events_enabled")
+                   and _named(sub, flag))
 
     if isinstance(node, ast.If):
         n = flag_calls(node.test)
         if n > 1:
             yield (-1, False)
-        yield from _guarded_emissions(node.test, guarded)
+        yield from _guarded_emissions(node.test, guarded, site, flag)
         for child in node.body:
-            yield from _guarded_emissions(child, guarded or n == 1)
+            yield from _guarded_emissions(child, guarded + (n == 1), site,
+                                          flag)
         for child in node.orelse:
-            yield from _guarded_emissions(child, guarded)
+            yield from _guarded_emissions(child, guarded, site, flag)
         return
-    if isinstance(node, ast.Call) and _callee(node) == "emit_request":
-        yield (node.lineno, guarded)
+    if isinstance(node, ast.Call) and _named(node, site):
+        yield (node.lineno, guarded == 1)
     for child in ast.iter_child_nodes(node):
-        yield from _guarded_emissions(child, guarded)
+        yield from _guarded_emissions(child, guarded, site, flag)
 
 
 def _callee(call: ast.Call):
     f = call.func
     return f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
+
+
+def _named(call: ast.Call, name: str) -> bool:
+    """Whether ``call`` calls ``name``: a bare name matches any callee of
+    that name, ``module.attr`` only that attribute of that name."""
+    if "." not in name:
+        return _callee(call) == name
+    module, attr = name.split(".")
+    f = call.func
+    return (isinstance(f, ast.Attribute) and f.attr == attr
+            and isinstance(f.value, ast.Name) and f.value.id == module)
 
 
 def _transitions(tree) -> set:
@@ -773,3 +790,109 @@ def test_every_metric_the_port_constructs_is_declared():
             minted.add(name)
     # ... and the table holds exactly the names the port mints.
     assert minted == set(DECLARED_METRICS)
+
+
+# ---- the flight recorder and the metrics pipeline ----------------------
+
+# The members of TaskTransition the port never emits, each with why.
+NOT_EMITTED = {
+    "PENDING_SCHED": "no nodes: a task waits only for a free slot of the "
+                     "one pool, which its SUBMITTED already says",
+    "SCHEDULED": "no head picks a node: the pool runs every task",
+    "LEASED": "no leases: the pool's workers are its own, never leased",
+    "RESTARTING": "no actor restarts (an actor that dies stays DEAD)",
+    "RESTARTED": "no actor restarts",
+    "TRANSFERRED": "no nodes to cross: a value's segment is mapped where "
+                   "it is read",
+    "NODE_ADDED": "one host, no node lifecycle",
+    "NODE_DIED": "one host, no node lifecycle",
+}
+RECORDER = REPO / "raytpu_torch" / "util" / "task_events.py"
+METRICS = REPO / "raytpu_torch" / "util" / "metrics.py"
+
+
+def _task_transitions(tree) -> set:
+    """``TaskTransition.X`` names a module references."""
+    return {node.attr for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute)
+            and getattr(node.value, "attr", getattr(node.value, "id", None))
+            == "TaskTransition"}
+
+
+def test_every_task_event_emission_is_under_one_flag_check():
+    sites = 0
+    for path in PORT_FILES:
+        if path == RECORDER:
+            continue
+        for line, guarded in _guarded_emissions(
+                _parse(path), site="task_events.emit",
+                flag="task_events.enabled"):
+            assert guarded, f"{path.relative_to(REPO)}:{line}"
+            sites += 1
+    # The pool's four (SUBMITTED, RETRIED twice, a dead worker's FAILED),
+    # its worker's four (RUNNING, FINISHED twice, FAILED), an actor's two
+    # (CREATED, DEAD), its calls' two (SUBMITTED; FINISHED at a reply or
+    # a stream's end or close), the object table's PUT.
+    assert sites == 13
+
+
+@pytest.mark.parametrize("site,flag,n", [
+    ("metrics.collect", "metrics.enabled", 2),
+    ("metrics.drain", "metrics.enabled", 2),
+    ("records.proc_dead", "metrics.enabled", 2),
+    ("task_events.drain", "task_events.ship_enabled", 2)])
+def test_every_ship_site_is_under_one_flag_check(site, flag, n):
+    """Metric collection and tombstones under ``metrics.enabled()``, an
+    event ring's drain under ``task_events.ship_enabled()``, outside the
+    modules that define them."""
+    found = 0
+    for path in PORT_FILES:
+        if path in (RECORDER, METRICS):
+            continue
+        for line, guarded in _guarded_emissions(_parse(path), site=site,
+                                                flag=flag):
+            assert guarded, f"{path.relative_to(REPO)}:{line}"
+            found += 1
+    assert found == n
+
+def test_the_submit_path_checks_the_recorder_once():
+    """TaskPool.submit: exactly one ``task_events.enabled()`` check, and
+    its emission inside it (tests/test_task_events.py:402)."""
+    tree = _parse(REPO / "raytpu_torch" / "runtime" / "task_pool.py")
+    [submit] = [f for node in ast.walk(tree) if isinstance(node, ast.ClassDef)
+                and node.name == "TaskPool" for f in node.body
+                if isinstance(f, ast.FunctionDef) and f.name == "submit"]
+    checks = [n for n in ast.walk(submit) if isinstance(n, ast.Call)
+              and _named(n, "task_events.enabled")]
+    assert len(checks) == 1
+    assert [g for _, g in _guarded_emissions(
+        submit, site="task_events.emit",
+        flag="task_events.enabled")] == [True]
+
+
+def test_every_task_transition_is_emitted_or_listed_with_its_reason():
+    from raytpu_torch.util.task_events import TaskTransition
+
+    emitted = set().union(*(
+        _task_transitions(_parse(p)) for p in PORT_FILES if p != RECORDER))
+    assert set(NOT_EMITTED) <= set(TaskTransition.ALL)
+    assert not emitted & set(NOT_EMITTED)
+    assert set(TaskTransition.ALL) - emitted == set(NOT_EMITTED)
+
+
+def test_the_state_api_has_the_jax_package_s_names():
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for path in ("state/__init__.py", "state/api.py"):
+        assert path in names
+        assert (REPO / "raytpu" / path).is_file()
+
+    def exported(path):
+        for node in ast.walk(_parse(path)):
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t, "id", None) == "__all__" for t in node.targets):
+                return ast.literal_eval(node.value)
+        return None
+
+    assert exported(REPO / "raytpu_torch" / "state" / "__init__.py") == \
+        exported(REPO / "raytpu" / "state" / "__init__.py")
