@@ -311,6 +311,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     driver's timelines (cold, HTTP, warm), the ship lag (an event's stamp
     to its arrival), the events and frames shipped with their bytes, the
     data tasks' queue-to-run latency and the pool's start.
+30. The dashboard, the CLI and jobs. 30a inside phase 24, with the
+    continuous profiler armed before its first process (a 0.5 s window
+    every 2 s) and the dashboard in this process: a quiet burst, then a
+    burst read from ``/``, ``/api/summary``, ``/stacks``, ``/profile``
+    (2 s) and ``/memprofile`` (1 s, tracing stopped after) while it
+    decodes, ``/metrics``, ``/api/state/timeline`` and ``/api/profile``
+    after it, and two CLI interpreters (``state list actors``, ``serve
+    --detail``); after the kill, ``/``, ``/api/summary`` and the profile
+    store again (checks in ``phase_dashboard`` and
+    ``dashboard_after_kill``). 30b after phase 7: a GPT-2 124M job
+    through ``JobServer`` and ``JobSubmissionClient`` that joins this
+    driver (``runtime.init(address=...)``) and serves phase 7's prompts
+    on the card, read back through ``/api/state`` and the CLI, and a
+    sleeping job stopped (checks in ``phase_jobs``). Readings: each
+    read's seconds, the replicas' decode with and without the windows,
+    the profile store's frames and bytes, the job's submission to its
+    join, model and first token. Phase 3 warms the profiler first; a
+    library's device reading the profiler misses is null, a kernel's
+    still fails the run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the one before that lists every
@@ -507,6 +526,10 @@ LLAMA_E2E_LOSS_TOL = 1e-3
 LLAMA_E2E_GRAD_TOL = 5e-2
 # GPT-2 serving: a 256-token chunk, eight sequences of up to 1024 tokens.
 GPT2_SERVE_CHUNK = 256
+# Phase 7's arrivals (step -> request ids): g4 arrives after g1's first
+# chunk has registered the shared prefix.
+GPT2_SERVE_ARRIVALS = {0: ["g0", "g1", "g2", "g3"], 2: ["g4", "g5"],
+                       4: ["g6", "g7"]}
 # Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1, config.json), cut
 # to 2 of its 32 layers: fp32 parameters, gradients and AdamW's two
 # moments take 16 bytes a parameter, 50.6 GB for 2 layers (3.165 B
@@ -575,7 +598,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
+# Every device_ms reading of this run: profiler sessions, and those whose
+# trace held none of the kernels asked for or fewer than one a call.
+PROFILER_READS = {"sessions": 0, "empty": 0, "short": 0, "warm_up": None}
+
+
+def warm_profiler(tries: int = 5) -> dict:
+    """Profiler sessions over one small matmul, until one trace holds its
+    kernel (at most ``tries``): the process's first sessions set CUPTI
+    up, and a reading taken in them may come back without kernels.
+    Returns how many sessions that took and what each saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.ones(256, 256, device="cuda")
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a @ a
+            torch.cuda.synchronize()
+        seen.append(sum(e.count for e in prof.key_averages()
+                        if e.self_device_time_total > 0))
+        if seen[-1]:
+            break
+    PROFILER_READS["warm_up"] = {"sessions": len(seen), "kernels": seen}
+    if not seen[-1]:
+        raise AssertionError(f"the profiler saw no kernel in {tries} "
+                             f"warm-up sessions")
+    return PROFILER_READS["warm_up"]
+
+
+def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3,
+              required: bool = True):
     """Mean device time of ``fn`` in ms from the profiler: the kernels
     whose names hold ``kernel`` (every kernel for ``""``), summed, per
     call. Unlike time_ms, the host's time between launches is left out,
@@ -583,7 +636,9 @@ def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
     them. The trace now and then comes back without some of the kernels
     (all of them once, one in 20 three times in a row, in runs of this
     script): a reading with fewer kernels than calls is taken again, up
-    to ``tries`` times, and the fullest one is kept."""
+    to ``tries`` times, and the fullest one is kept. A reading that saw
+    no kernel at all raises where ``required`` (the port's own kernels),
+    else is None with a line that says so (a library's reading)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -596,14 +651,23 @@ def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
             torch.cuda.synchronize()
         found = [e for e in prof.key_averages()
                  if kernel in e.key and e.self_device_time_total > 0]
-        best = max(best, (sum(e.count for e in found),
-                          sum(e.self_device_time_total for e in found)))
+        count = sum(e.count for e in found)
+        PROFILER_READS["sessions"] += 1
+        PROFILER_READS["empty"] += not count
+        PROFILER_READS["short"] += 0 < count < iters
+        best = max(best, (count, sum(e.self_device_time_total
+                                     for e in found)))
         if best[0] >= iters:
             break
     seen, us = best
     if not seen:
-        raise AssertionError(f"the profiler saw no kernel named {kernel!r} "
-                             f"in {iters} calls, {tries} times")
+        if required:
+            raise AssertionError(f"the profiler saw no kernel named "
+                                 f"{kernel!r} in {iters} calls, {tries} "
+                                 f"times")
+        log(f"[kernels] the profiler saw no kernel named {kernel!r} in "
+            f"{iters} calls, {tries} times: that library reading is null")
+        return None
     # A kernel missing from the trace: the mean over the kernels seen,
     # times the kernels a call launches.
     return us / seen * max(1, round(seen / iters)) / 1e3
@@ -1443,13 +1507,15 @@ def rmsnorm_case(rows: int, d: int, dtype, gen, plant: bool = False,
         host_us_grad=host_us(lambda: rmsnorm(x, leaf, eps=eps)),
         plain_ms=time_ms(lambda: rmsnorm(x, scale, eps=eps,
                                          force="reference")),
-        library_ms=time_ms(library), library_device_ms=device_ms(library, ""),
+        library_ms=time_ms(library),
+        library_device_ms=device_ms(library, "", required=False),
         bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
         device_share_of_bound=bound / dev)
     return row
 
 
 def phase_kernels(card_line: str) -> dict:
+    log(f"[kernels] profiler warm-up: {json.dumps(warm_profiler())}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
     bwd = [flash_bwd_cases(TRAIN_BATCH, 12, 1024, 1024, 64, True, gen,
@@ -1579,6 +1645,7 @@ def phase_kernels(card_line: str) -> dict:
     if not _within_limits(auto):
         raise AssertionError(f"autograd through the kernels differs from "
                              f"the mirror or the plain path: {auto}")
+    log(f"[kernels] profiler reads: {json.dumps(PROFILER_READS)}")
     return cases
 
 
@@ -1747,12 +1814,183 @@ def phase_gpt2_serve(model, card_line: str) -> dict:
     LayerNorm has no kernel, so RMSNorm must not."""
     prompts = gpt2_serve_prompts(np.random.default_rng(1),
                                  model.config.vocab_size)
-    # g4 arrives after g1's first chunk has registered the shared prefix.
-    arrivals = {0: ["g0", "g1", "g2", "g3"], 2: ["g4", "g5"], 4: ["g6", "g7"]}
-    result = drive_engine(model, prompts, arrivals, 0,
+    result = drive_engine(model, prompts, GPT2_SERVE_ARRIVALS, 0,
                           max_model_len=model.config.block_size,
                           prefill_chunk=GPT2_SERVE_CHUNK)
     log(f"[gpt2-serve] {json.dumps(without_tokens(result))} | {card_line}")
+    return result
+
+
+# ---- phase 30b: a job that joins the driver --------------------------
+
+JOB_PREFIX = "job-"      # the job's request ids: phase 7's, prefixed
+JOB_DEADLINE_S = 300.0   # the GPT-2 job, from its submission to its end
+# The job: GPT-2 124M from phase 7's seed serving phase 7's prompts on
+# the card, in a process that joined this driver's tree.
+JOB_SCRIPT = """import json, os, sys, time
+entered = time.time()
+import numpy as np
+import torch
+import chip_smoke as cs
+from raytpu_torch.inference import engine as engine_mod
+from raytpu_torch.models.gpt2 import GPT2, GPT2Config
+from raytpu_torch.runtime import api, records
+
+api.init(address=os.environ[api.ADDRESS_ENV])
+joined = time.time()
+first = []
+step = engine_mod.InferenceEngine.step
+
+
+def timed_step(self):
+    out = step(self)
+    if out and not first:
+        first.append(time.time())
+    return out
+
+
+engine_mod.InferenceEngine.step = timed_step
+model = GPT2(GPT2Config.small(), device="cuda", seed=0)
+torch.cuda.synchronize()
+built = time.time()
+prompts = cs.gpt2_serve_prompts(np.random.default_rng(1),
+                                model.config.vocab_size)
+result = cs.drive_engine(
+    model, {cs.JOB_PREFIX + r: p for r, p in prompts.items()},
+    {s: [cs.JOB_PREFIX + r for r in ids]
+     for s, ids in cs.GPT2_SERVE_ARRIVALS.items()}, 0,
+    max_model_len=model.config.block_size,
+    prefill_chunk=cs.GPT2_SERVE_CHUNK)
+print(json.dumps({"job": records.identity(), "pid": os.getpid(),
+                  "tokens": result["tokens"], "launches": result["launches"],
+                  "marks": {"entered": entered, "joined": joined,
+                            "built": built, "first_token": first[0]}}),
+      flush=True)
+"""
+
+
+def phase_jobs(card_line: str, gpt2_serve: dict) -> dict:
+    """Phase 30b: a job submitted over HTTP through ``JobSubmissionClient``
+    to a ``JobServer`` in this driver, its script written into a fresh
+    ``working_dir`` and task and request events armed through
+    ``env_vars``; the script joins this driver's tree
+    (``init(address=$RAYTPU_TORCH_ADDRESS)``) and serves phase 7's
+    prompts with GPT-2 124M from phase 7's seed on the card. Fails
+    unless the job SUCCEEDED, its greedy tokens (from ``get_job_logs``)
+    equal phase 7's, it launched the flash forward and paged attention
+    (and no RMSNorm or backward kernel), and the driver's store holds
+    its eight requests FINISHED under its process's id, read through
+    ``/api/state/timeline`` and through the CLI's ``serve``; then a
+    second, sleeping job is stopped and ends STOPPED. Readings: the
+    job's submission to RUNNING, to its interpreter, its join, its
+    model and its first token; the CLI's seconds."""
+    import shlex
+
+    from raytpu_torch import state
+    from raytpu_torch.dashboard import DashboardServer
+    from raytpu_torch.job import JobManager, JobServer, JobSubmissionClient
+    from raytpu_torch.runtime import api
+    from raytpu_torch.util import task_events
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="raytpu-job-")
+    with open(os.path.join(workdir, "gpt2_job.py"), "w") as f:
+        f.write(JOB_SCRIPT)
+    server = JobServer(JobManager(log_dir=os.path.join(workdir, "logs")))
+    dash = DashboardServer(port=0)
+    cli = None
+    try:
+        client = JobSubmissionClient(server.start())
+        dash_url = dash.start()
+        t_submit = time.time()
+        job_id = client.submit_job(
+            entrypoint=f"{shlex.quote(sys.executable)} gpt2_job.py",
+            runtime_env={"working_dir": workdir, "env_vars": {
+                task_events.ENV_VAR: "1", task_events.REQUEST_ENV_VAR: "1",
+                "PYTHONPATH": REPO}})
+        status = client.wait_until_finished(job_id, timeout=JOB_DEADLINE_S)
+        info = client.get_job_info(job_id)
+        logs = client.get_job_logs(job_id)
+        if status != "SUCCEEDED":
+            raise AssertionError(f"phase 30: the GPT-2 job {status}: "
+                                 f"{logs[-3000:]}")
+        [out] = [json.loads(line) for line in logs.splitlines()
+                 if line.startswith('{"job"')]
+        uid = out["job"]
+        tokens = {r[len(JOB_PREFIX):]: t for r, t in out["tokens"].items()}
+        ids = sorted(out["tokens"])
+        # The store: every request FINISHED under the job's id (its last
+        # ship left with its exit).
+        via_api = {r: dash_json(f"{dash_url}/api/state/timeline/{r}"
+                                f"?kind=request") for r in ids}
+        cli = start_cli(api.driver_address(), "serve", "--json", "--limit",
+                        "0")
+        # A second job, sleeping, stopped while the CLI starts; its
+        # process ended (the stop's SIGTERM, or SIGKILL 3 s later).
+        sleeper = client.submit_job(
+            entrypoint=f"{shlex.quote(sys.executable)} -c "
+                       f"'import time; time.sleep(600)'")
+        end = time.perf_counter() + DASH_DEADLINE_S
+        while client.get_job_status(sleeper) == "PENDING":
+            if time.perf_counter() > end:
+                raise AssertionError("phase 30: the sleeping job never ran")
+            time.sleep(0.05)
+        stopped = client.stop_job(sleeper)
+        sleeper_status = client.wait_until_finished(sleeper,
+                                                    timeout=DASH_DEADLINE_S)
+        while client.get_job_info(sleeper)["end_time"] is None:
+            if time.perf_counter() > end:
+                raise AssertionError("phase 30: the stopped job's process "
+                                     "did not end")
+            time.sleep(0.05)
+        listing = {j["job_id"]: j["status"] for j in client.list_jobs()}
+        ran = cli_output(cli)
+        cli_s = ran["s"]
+        via_cli = {r["id"]: r for r in json.loads(ran["stdout"])
+                   if r["id"] in ids}
+    finally:
+        if cli is not None and cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].communicate()
+        dash.stop()
+        server.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    marks = out["marks"]
+    result = {
+        "job": job_id, "uid": uid, "status": status,
+        "return_code": info["return_code"],
+        "launches": out["launches"],
+        "token_agreement": token_agreement(tokens, gpt2_serve["tokens"]),
+        "seconds_from_submit": {
+            "running": info["start_time"] - t_submit,
+            "interpreter": marks["entered"] - t_submit,
+            "joined": marks["joined"] - t_submit,
+            "model": marks["built"] - t_submit,
+            "first_token": marks["first_token"] - t_submit,
+            "end": info["end_time"] - t_submit},
+        "records": {
+            "api": {r: [v["state"], v.get("worker_id")]
+                    for r, v in via_api.items()},
+            "cli": {r: [v["state"], v.get("worker_id")]
+                    for r, v in via_cli.items()},
+            "stored": len(state.list_serve_requests(limit=0))},
+        "cli_s": cli_s, "sleeper": [stopped, sleeper_status],
+        "jobs": listing, "phase_s": time.perf_counter() - t_phase}
+    log(f"[jobs] {json.dumps(result)} | {card_line}")
+    if tokens != gpt2_serve["tokens"]:
+        raise AssertionError(f"phase 30: the job's tokens differ from "
+                             f"phase 7's: {result['token_agreement']}")
+    check_launches(out["launches"], {
+        "flash_forward": None, "paged_attention": None, "rmsnorm": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    want = {r: ["FINISHED", uid] for r in ids}
+    if result["records"]["api"] != want or result["records"]["cli"] != want:
+        raise AssertionError(f"phase 30: the job's requests at the driver "
+                             f"{result['records']}, expected {want}")
+    if [stopped, sleeper_status] != [True, "STOPPED"] or listing != {
+            job_id: "SUCCEEDED", sleeper: "STOPPED"}:
+        raise AssertionError(f"phase 30: stop_job gave {stopped}, "
+                             f"{sleeper_status}; jobs {listing}")
     return result
 
 
@@ -6038,6 +6276,383 @@ def data_task_records() -> dict:
             "workers": sorted(workers)}
 
 
+# ---- phase 30: the dashboard, the CLI and jobs ---------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Phase 24's processes run the continuous profiler with a 0.5 s window
+# every 2 s (the JAX defaults are 1 s every 10 s), so that each replica's
+# frames reach the driver's store within the phase.
+PROFILE_PERIOD_S = 2.0
+PROFILE_WINDOW_S = 0.5
+DASH_BURST_PROMPT = 64   # tokens a burst prompt: no prefix shared
+DASH_BURST = 4           # streams a burst: two a replica
+DASH_BURST_TOKENS = 128  # a stream's: its decode outlasts the reads
+DASH_DEADLINE_S = 120.0  # any one read, CLI run or poll of this phase
+STACK_TRIES = 20         # /stacks reads until each stepping thread steps
+STEP_IN_STACK = re.compile(r'engine\.py", line \d+, in step\n')
+
+
+def set_profiling(on: bool) -> None:
+    """Phase 30a's arming, here and, through the environment, in every
+    process started after it: the continuous profiler (which also turns
+    on the engine's step profiler) at this phase's period and window."""
+    from raytpu_torch.util import profiler
+
+    env = {profiler.ENV_PROFILE_PERIOD: str(PROFILE_PERIOD_S),
+           profiler.ENV_PROFILE_WINDOW: str(PROFILE_WINDOW_S)}
+    if on:
+        os.environ.update(env)
+        profiler.enable_profiling(env=True)
+        profiler.start_continuous(PROFILE_PERIOD_S, PROFILE_WINDOW_S)
+    else:
+        profiler.stop_continuous()
+        profiler.disable_profiling()
+        for key in (*env, profiler.ENV_PROFILE):
+            os.environ.pop(key, None)
+        profiler.reset_prof_shipping()
+
+
+def http_read(url: str) -> tuple:
+    """(status, Content-Type, body) of a GET, an error status included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=DASH_DEADLINE_S) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def dash_json(url: str) -> object:
+    status, ctype, body = http_read(url)
+    if status != 200 or not ctype.startswith("application/json"):
+        raise AssertionError(f"phase 30: GET {url}: {status} {ctype} "
+                             f"{body[:300]!r}")
+    return json.loads(body)
+
+
+def start_cli(address: str, *args) -> tuple:
+    """``python -m raytpu_torch <args> --address <address>`` started in
+    a fresh interpreter from the repo (the port's CLI), with its start."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raytpu_torch", *args, "--address", address],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+    return proc, time.perf_counter()
+
+
+def cli_output(started: tuple) -> dict:
+    """A CLI run's exit code, output and seconds; fails unless 0."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=DASH_DEADLINE_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 30: CLI {proc.args[3:]} exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    return {"stdout": out, "s": time.perf_counter() - t0}
+
+
+def page_actor_states(page: str) -> dict:
+    """The summary page's actor table: each row's id (12 digits) and
+    state pill."""
+    rows = re.findall(r'<tr><td>([0-9a-f]{12})</td><td>[^<]*</td><td>'
+                      r'<span class="pill (?:ok|bad)">([A-Z_]+)</span>',
+                      page)
+    return dict(rows)
+
+
+def summary_states(url: str) -> tuple:
+    """``/api/summary``'s sections (failing on one with an error) and
+    its actors' states by id, with ``/``'s states by 12-digit id."""
+    summary = dash_json(url + "/api/summary")
+    errors = {k: v for k, v in summary.items()
+              if isinstance(v, dict) and "error" in v}
+    if errors:
+        raise AssertionError(f"phase 30: /api/summary sections with an "
+                             f"error: {errors}")
+    status, ctype, page = http_read(url + "/")
+    if status != 200 or not ctype.startswith("text/html"):
+        raise AssertionError(f"phase 30: GET /: {status} {ctype}")
+    return ({a["actor_id"]: a["state"] for a in summary["actors"]},
+            page_actor_states(page.decode()))
+
+
+def check_alive(url: str, actors: dict, dead=()) -> dict:
+    """Every actor of ``actors`` (name -> id) ALIVE in ``/api/summary``
+    and in ``/``, but those ``dead`` names, DEAD in both."""
+    by_id, on_page = summary_states(url)
+    got = {name: (by_id.get(aid), on_page.get(aid[:12]))
+           for name, aid in actors.items()}
+    want = {name: ("DEAD",) * 2 if name in dead else ("ALIVE",) * 2
+            for name in actors}
+    if got != want:
+        raise AssertionError(f"phase 30: actor states (api, page) {got}, "
+                             f"expected {want}")
+    return got
+
+
+def step_thread(stack: str) -> str:
+    """The replica's stepping thread's part of a stack dump."""
+    for part in stack.split("\n\n"):
+        if part.startswith('Thread "llm-step-loop"'):
+            return part
+    return ""
+
+
+def burst(handle, rng, vocab: int) -> tuple:
+    """DASH_BURST streams of DASH_BURST_TOKENS from client threads, each
+    prompt fresh: (the threads, each stream's request id and tokens, a
+    barrier that the caller and every stream pass once each stream has
+    its first token: the caller waits on it)."""
+    streams = {}
+    first = threading.Barrier(DASH_BURST + 1)
+
+    def one(i: int, prompt: list) -> None:
+        gen = handle.generate.remote_streaming(
+            prompt, max_new_tokens=DASH_BURST_TOKENS)
+        got = streams[i] = {"id": gen.request_id, "tokens": []}
+        for n, tok in enumerate(gen):
+            got["tokens"].append(tok)
+            if n == 0:
+                first.wait(DASH_DEADLINE_S)
+
+    threads = [threading.Thread(target=one, daemon=True, args=(
+        i, rng.integers(0, vocab, DASH_BURST_PROMPT).tolist()))
+        for i in range(DASH_BURST)]
+    for t in threads:
+        t.start()
+    return threads, streams, first
+
+
+def end_burst(threads, streams) -> list:
+    for t in threads:
+        t.join(DASH_DEADLINE_S)
+    short = {i: len(streams[i]["tokens"]) if i in streams else None
+             for i in range(DASH_BURST) if i not in streams
+             or len(streams[i]["tokens"]) != DASH_BURST_TOKENS}
+    if any(t.is_alive() for t in threads) or short:
+        raise AssertionError(f"phase 30: burst streams short {short}")
+    return [s["id"] for s in streams.values()]
+
+
+def decode_split(before: dict, after: dict) -> dict:
+    """Each replica's decode between two replica_report reads: tokens/s,
+    the mean decode step in ms and its mean batch (the router may give a
+    replica more of a burst than the other)."""
+    out = {}
+    for rid in before:
+        b, a = before[rid]["stats"], after[rid]["stats"]
+        secs = a["decode_seconds"] - b["decode_seconds"]
+        steps = a["decode_batch_hist"][len(b["decode_batch_hist"]):]
+        out[rid] = {
+            "tokens_per_s": (a["decode_tokens"] - b["decode_tokens"]) / secs
+            if secs else 0.0,
+            "step_ms": secs / len(steps) * 1e3 if steps else None,
+            "batch": sum(steps) / len(steps) if steps else None}
+    return out
+
+
+def svg_rects(svg: bytes):
+    """The rectangles of a flamegraph SVG, or the error that parsing it
+    as XML gave."""
+    import xml.etree.ElementTree as ET
+
+    try:
+        root = ET.fromstring(svg)
+    except ET.ParseError as exc:
+        return f"ParseError: {exc}"
+    return sum(1 for e in root.iter() if e.tag.endswith("rect"))
+
+
+def phase_dashboard(url: str, handle, replicas: dict, on_replicas,
+                    actors: dict, own: dict, full_name: str, vocab: int,
+                    card_line: str) -> dict:
+    """Phase 30a, inside phase 24 before its kill: a quiet burst, then a
+    burst read from the dashboard and the CLI while it decodes. Fails
+    unless ``/`` and ``/api/summary`` show the controller, the proxy and
+    both replicas ALIVE with no section in error, ``/stacks`` has one
+    entry for each live process of the tree and each replica's stepping
+    thread inside the engine's step, ``/profile`` (2 s, JSON and SVG,
+    sampled together) holds the engine's step in each replica and its
+    SVG parses, ``/memprofile`` (1 s, tracing stopped after) gives each
+    replica a non-empty top table, ``/metrics`` equals each replica's
+    own decode-token counter and TTFT count, a burst request's
+    ``/api/state/timeline`` equals ``state.get_request_timeline``, the
+    profile store holds frames of each replica, and the CLI's ``state
+    list actors`` and ``serve --detail`` name the same replicas and
+    request. Readings: each read's seconds, the replicas' decode
+    tokens/s with and without the profile windows, the store's frames
+    and bytes, each CLI run's seconds."""
+    from raytpu_torch import state
+    from raytpu_torch.runtime import api, records
+    from raytpu_torch.util.memprofile import top_table
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(30)
+    uids = {rid: o["uid"] for rid, o in own.items()}
+    timings = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            timings[name] = time.perf_counter() - t0
+
+    # A quiet burst: the replicas' decode rate with no read.
+    before = on_replicas(replica_report)
+    threads, streams, first = burst(handle, rng, vocab)
+    first.wait(DASH_DEADLINE_S)
+    quiet_ids = end_burst(threads, streams)
+    quiet = on_replicas(replica_report)
+    # The read burst: every read once each stream decodes.
+    threads, streams, first = burst(handle, rng, vocab)
+    first.wait(DASH_DEADLINE_S)
+    tree = {p["uid"]: p for p in api.tree_processes()}
+    stacks, tries = {}, 0
+    while tries < STACK_TRIES:
+        tries += 1
+        [stacks] = timed("stacks_s", dash_json, url + "/stacks").values()
+        if all(STEP_IN_STACK.search(step_thread(
+                stacks.get(u, {}).get("stack", ""))) for u in uids.values()):
+            break
+        time.sleep(0.05)
+    profiled = {}
+
+    def get_profile(fmt: str) -> None:
+        profiled[fmt] = http_read(f"{url}/profile?duration=2&format={fmt}")
+
+    readers = [threading.Thread(target=get_profile, args=(fmt,))
+               for fmt in ("json", "svg")]
+    t0 = time.perf_counter()
+    for t in readers:
+        t.start()
+    for t in readers:
+        t.join(DASH_DEADLINE_S)
+    timings["profile_s"] = time.perf_counter() - t0
+    memory = timed("memprofile_s", dash_json,
+                   url + "/memprofile?duration=1&stop=1&format=json")
+    alive = timed("summary_s", check_alive, url, actors)
+    ids = end_burst(threads, streams)
+    after = on_replicas(replica_report)
+    rates = {"quiet": decode_split(before, quiet),
+             "read": decode_split(quiet, after)}
+
+    # Stacks: one entry a live process, each replica stepping.
+    missing = set(tree) ^ set(stacks)
+    errors = {u: e["error"] for u, e in stacks.items() if "error" in e}
+    stepping = {rid: bool(STEP_IN_STACK.search(step_thread(
+        stacks.get(u, {}).get("stack", "")))) for rid, u in uids.items()}
+    # Profiles: the engine's step in each replica, the SVG parses.
+    status, ctype, body = profiled["json"]
+    [profile] = json.loads(body).values() if status == 200 else [{}]
+    steps_sampled = {rid: sum(n for k, n in profile.get(u, {}).get(
+        "profile", {}).get("collapsed", {}).items()
+        if "step (engine.py:" in k) for rid, u in uids.items()}
+    status_svg, ctype_svg, svg = profiled["svg"]
+    rects = svg_rects(svg) if status_svg == 200 else 0
+    # Memory: a top table for each replica.
+    [memory] = memory.values()
+    tops = {rid: top_table(memory[u]["memory"]).count("\n")
+            if "memory" in memory.get(u, {}) else 0
+            for rid, u in uids.items()}
+
+    # The records: settled, then /metrics against each replica's own.
+    request_records(full_name, ids=quiet_ids + ids)
+    metrics_read = timed("metrics_s", records_metrics,
+                         on_replicas(replica_records),
+                         int(url.rsplit(":", 1)[1]))
+    check_records_metrics(metrics_read, {r["id"]: r for r in
+                                         state.list_serve_requests(
+                                             limit=0, detail=True)})
+    traced = ids[0]
+    timeline = dash_json(f"{url}/api/state/timeline/{traced}?kind=request")
+    want_timeline = json.loads(json.dumps(state.get_request_timeline(traced)))
+    # The profile store: frames of each replica.
+    store = dash_json(url + "/api/profile?since=600&format=json")
+    procs = {rid: own[rid]["proc"] in store["procs"] for rid in replicas}
+    stats = records.profile_stats()
+    # The CLI, from two fresh interpreters at once.
+    address = api.driver_address()
+    runs = {"state list actors": start_cli(address, "state", "list",
+                                           "actors"),
+            "serve --detail": start_cli(address, "serve", "--detail",
+                                        traced, "--json")}
+    cli = {name: cli_output(run) for name, run in runs.items()}
+    listed = {line.split()[0]: line.split()[1] for line in
+              cli["state list actors"]["stdout"].splitlines() if line}
+    cli_states = {name: listed.get(aid[:16]) for name, aid in actors.items()}
+    cli_timeline = json.loads(cli["serve --detail"]["stdout"])
+
+    result = {
+        "processes": len(tree), "stacks": len(stacks),
+        "stack_tries": tries, "stepping": stepping,
+        "profile_status": [status, ctype, status_svg, ctype_svg],
+        "step_samples": steps_sampled, "svg_rects": rects,
+        "top_table_lines": tops, "alive": alive,
+        "decode": rates,
+        "metrics": {rid: metrics_read["scraped"][rid] for rid in replicas},
+        "store": {"procs": len(store["procs"]), "frames": store["frames"],
+                  "samples": store["samples"],
+                  "bytes": stats["store"]["bytes"],
+                  "replica_frames": {
+                      rid: next((r["frames"] for r in stats["procs"]
+                                 if r["proc"] == own[rid]["proc"]), 0)
+                      for rid in replicas}},
+        "cli": {"s": {n: c["s"] for n, c in cli.items()},
+                "states": cli_states},
+        "read_s": timings, "phase_s": time.perf_counter() - t_phase}
+    log(f"[dashboard] {json.dumps(result)} | {card_line}")
+    if missing or errors:
+        raise AssertionError(f"phase 30: /stacks against the tree: "
+                             f"missing or extra {sorted(missing)}, errors "
+                             f"{errors}")
+    if not all(stepping.values()):
+        raise AssertionError(f"phase 30: a replica's stepping thread was "
+                             f"not in the engine's step in {tries} dumps: "
+                             f"{stepping}")
+    if status != 200 or not all(steps_sampled.values()) or \
+            not isinstance(rects, int) or not rects or \
+            not ctype_svg.startswith("image/svg+xml"):
+        raise AssertionError(f"phase 30: /profile {result['profile_status']}"
+                             f", the step sampled {steps_sampled}, "
+                             f"{rects} rectangles")
+    if not all(n > 0 for n in tops.values()):
+        raise AssertionError(f"phase 30: /memprofile top tables {tops}")
+    if timeline != want_timeline or cli_timeline != want_timeline:
+        raise AssertionError(f"phase 30: request {traced}'s timeline: "
+                             f"/api/state {timeline}, CLI {cli_timeline}, "
+                             f"state {want_timeline}")
+    if not all(procs.values()):
+        raise AssertionError(f"phase 30: the profile store holds no frame "
+                             f"of {procs}: {store['procs']}")
+    if cli_states != {name: "ALIVE" for name in actors}:
+        raise AssertionError(f"phase 30: the CLI's actors {cli_states}")
+    return result
+
+
+def dashboard_after_kill(url: str, actors: dict, victim: str,
+                         proc: str) -> dict:
+    """Phase 30a after phase 24's kill: the killed replica DEAD in ``/``
+    and ``/api/summary`` (the others ALIVE) and its frames gone from the
+    profile store."""
+    t0 = time.perf_counter()
+    alive = check_alive(url, actors, dead=(victim,))
+    end = time.perf_counter() + RECORDS_DEADLINE_S
+    while proc in dash_json(url + "/api/profile?since=600")["procs"]:
+        if time.perf_counter() > end:
+            raise AssertionError(f"phase 30: the killed replica's profile "
+                                 f"frames ({proc}) are still there")
+        time.sleep(0.1)
+    return {"states": alive, "s": time.perf_counter() - t0}
+
+
 def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     """Llama-2-7B (full width and depth, bf16, kernels on, phase 5's
     engine, seed 0) as two replica processes behind ``serve.run``, and
@@ -6066,6 +6681,7 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     from raytpu_torch.serve._private import prefix_router
     from raytpu_torch.serve._private import router as router_mod
     from raytpu_torch import state
+    from raytpu_torch.dashboard import DashboardServer
     from raytpu_torch.runtime import records
     from raytpu_torch.serve._private.controller import get_controller
     from raytpu_torch.serve.api import PROXY_NAME
@@ -6104,9 +6720,13 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     # phase starts.
     tracing.enable_tracing(sample_rate=1.0, env=True)
     set_records(True)
+    # Phase 30a: profiled, and read from the dashboard.
+    set_profiling(True)
     records.reset()
     metrics_port = free_port()
     metrics.start_metrics_server(metrics_port)
+    dash = DashboardServer(port=0)
+    dash_url = dash.start()
     http_port = free_port()
     grpc_port = free_port() if importlib.util.find_spec("grpc") else None
     if grpc_port is None:
@@ -6261,6 +6881,17 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
         records_before_kill["first_tokens"] = first_tokens
         records_before_kill["s"] = time.perf_counter() - t_records
 
+        # -- phase 30a: the app read and profiled from the dashboard and
+        # the CLI, during a burst (its requests all finish) -------------
+        app_actors = {"controller": controller.actor._worker.actor_id,
+                      "proxy": proxy._worker.actor_id,
+                      **{f"replica {rid}": r._worker.actor_id
+                         for rid, r in replicas.items()}}
+        dashboard = phase_dashboard(dash_url, handle, replicas, on_replicas,
+                                    app_actors, own, full_name,
+                                    cfg.vocab_size, card_line)
+        sent += 2 * DASH_BURST
+
         # -- a replica killed under an open stream, and replaced --------
         gen = handle.generate.remote_streaming(killed_prompt,
                                                max_new_tokens=OPEN_ENDED)
@@ -6343,12 +6974,17 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
             {r["id"]: r for r in state.list_serve_requests(
                 limit=0, detail=True)})
         records_after_kill["s"] = time.perf_counter() - t_records
+        dashboard["after_kill"] = dashboard_after_kill(
+            dash_url, app_actors, f"replica {victim}", own[victim]["proc"])
+        log(f"[dashboard-after-kill] {json.dumps(dashboard['after_kill'])}")
     finally:
         router_mod.Router._choose = choose
         tuning.PREFIX_ROUTING = routing
+        dash.stop()
         port_serve.shutdown()
         tracing.disable_tracing(env=True)
         set_records(False)
+        set_profiling(False)
         metrics.stop_metrics_server(metrics_port)
     left = sorted({p.pid for p in multiprocessing.active_children()}
                   - before)
@@ -6401,6 +7037,7 @@ def phase_serve_app(card_line: str, serve: dict, deployment: dict) -> dict:
     result["launches"] = {name: sum(l[name] for l in launches.values())
                           for name in parent}
     result["serve_http"] = http
+    result["dashboard"] = dashboard
     result["records"] = {
         "before_kill": records_before_kill, "after_kill": records_after_kill,
         "ttft_split_ms": {"cold": run["lifecycle_ms"],
@@ -7193,6 +7830,7 @@ def main() -> int:
         f"{sum(p.numel() for p in gpt2.parameters())} parameters in "
         f"{time.perf_counter() - t0:.2f} s")
     gpt2_serve = phase_gpt2_serve(gpt2, card_line)
+    jobs = phase_jobs(card_line, gpt2_serve)
     phase_e2e(gpt2, card_line, gpt2_prefill, "gpt2-e2e")
     del gpt2
     torch.cuda.empty_cache()
@@ -7245,6 +7883,7 @@ def main() -> int:
             "serve_http": serve_app["serve_http"]["launches"],
             "disagg_serve": disagg_serve["launches"],
             "gpt2_serve": gpt2_serve["launches"],
+            "gpt2_job": jobs["launches"],
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],
             "mixtral_train": mixtral["launches"], "rllib": rllib,

@@ -54,7 +54,13 @@ runtime's tasks and object store, and the Data library:
 - :mod:`raytpu_torch.tune` — the Tune library: searchers (grid, random,
   TPE, BOHB, ask/tell), schedulers (FIFO, ASHA, HyperBand, PBT), trials
   as Train worker processes (on the card, sharing it, or on the CPU),
-  crash retries from checkpoints, and ``Tuner.restore``.
+  crash retries from checkpoints, and ``Tuner.restore``;
+- :mod:`raytpu_torch.state`, :mod:`raytpu_torch.dashboard`,
+  :mod:`raytpu_torch.job` and ``python -m raytpu_torch`` — the
+  operator's surface: every process's records at the driver, the web
+  dashboard (stacks and CPU and memory profiles of every process), job
+  submission, and the command line, reaching a driver from another
+  process by its address (``runtime.init(address=...)``).
 
 The port imports nothing from ``raytpu`` or JAX; the host-side modules it
 needs are its own copies. Every entry point runs on ``cuda`` unless the

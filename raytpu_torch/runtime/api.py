@@ -105,8 +105,8 @@ pool thread or the event loop in ``worker.actor_task.run``, the JAX
 worker's span names. With tracing off a context that came in is
 forwarded unchanged; with none, a call pays one flag check.
 :func:`trace_dumps` is the counterpart of the JAX head's ``trace_dump``
-fan-out: a process asks every live worker it started for its span
-buffer, and each asks its own.
+fan-out: the driver asks every live process of the tree for its span
+buffer at once (:func:`ask_processes`).
 
 Records (:mod:`raytpu_torch.runtime.records`): with task events on, an
 actor's owner records its CREATED and DEAD, and a caller each call's
@@ -115,6 +115,17 @@ package's local mode records actor calls so); a worker ships its events
 and metric deltas to the driver's store through the registry socket
 (``ship``; a reaped worker's series are tombstoned by ``proc_dead``),
 and ``at_driver`` runs a state query in the driver.
+
+The tree's processes: every process the runtime starts (and every one
+that joins) opens a connection to the driver's registry at its start
+(``hello``, :func:`join_tree`), which the driver keeps in its table
+(:func:`tree_processes`) until its EOF; on it the driver asks every live
+process at once for a stack dump or a profile (:func:`ask_processes`,
+read by :mod:`raytpu_torch.util.stack_dump`). A process outside the
+tree joins it with ``init(address=...)``, the driver's
+:func:`driver_address` (its registry's socket and the tree's authkey):
+it takes an id from the driver, works as a worker of the tree, and is
+tombstoned when its connection closes.
 """
 
 from __future__ import annotations
@@ -128,6 +139,7 @@ import itertools
 import os
 import signal
 import socket
+import sys
 import threading
 import time
 import uuid
@@ -141,12 +153,13 @@ import torch.multiprocessing as mp
 from raytpu_torch.core.errors import (ActorDiedError, GetTimeoutError,
                                       TaskError)
 from raytpu_torch.runtime import (object_store, records, refcount,
-                                  remote_function, starter, task_pool,
-                                  transport)
+                                  remote_function, serialization, starter,
+                                  task_pool, transport)
 from raytpu_torch.runtime.object_ref import (ObjectRef, TopArg, is_ready,
                                              pending_caller, top_arg,
                                              value_of)
-from raytpu_torch.util import metrics, task_events, tracing
+from raytpu_torch.util import metrics, profiler, task_events, tracing
+from raytpu_torch.util.profiler import profiling_enabled
 
 # How long a worker whose process has exited may keep its connection open
 # before it counts as dead all the same (its last replies drain first).
@@ -160,9 +173,8 @@ LIFETIMES = (None, "detached")
 
 # Messages to a worker: (kind, call id, the sealed (method, args,
 # kwargs), the caller's trace context in its wire form or None, the
-# caller's pid, who owns what the worker seals for it). A dump carries
-# the seconds its worker may wait on its own workers in the blob's place.
-_CALL, _STREAM, _CANCEL, _DUMP = "call", "stream", "cancel", "dump"
+# caller's pid, who owns what the worker seals for it).
+_CALL, _STREAM, _CANCEL = "call", "stream", "cancel"
 # Messages from a worker: (call id, status, payload): a sealed value for
 # _OK and _ITEM, the error for _ERR. A call gets one _OK or _ERR; a
 # stream any number of _ITEM, then _END or _ERR.
@@ -170,7 +182,7 @@ _OK, _ERR, _ITEM, _END = 0, 1, 2, 3
 
 # Every reply lands under this condition; get and wait sleep on it.
 READY = refcount.READY
-# How long trace_dumps waits for the workers below it to answer.
+# How long trace_dumps waits for the tree's processes to answer.
 TRACE_DUMP_TIMEOUT_S = 10.0
 # In a worker: the wall-clock times (time.time()) of its start's stages:
 # "spawned" (its owner's Process.start), "entered" (the worker's body
@@ -303,13 +315,6 @@ class _Host:
                 break  # the caller is gone
             if kind == _CANCEL:
                 self._cancel(line, call_id)
-            elif kind == _DUMP:
-                # Off the pool: a busy worker still answers, and asking
-                # its own workers must not hold this reader.
-                threading.Thread(target=self._dump, args=(line, call_id,
-                                                          blob),
-                                 name=f"{self._name}-dump",
-                                 daemon=True).start()
             else:
                 self._dispatch(line, kind, call_id, blob, tc)
         self._cancel_all(line)
@@ -324,9 +329,6 @@ class _Host:
             cancel = line.cancels.pop(call_id, None)
         if cancel is not None:
             cancel()
-
-    def _dump(self, line: _Line, call_id: int, timeout: float) -> None:
-        self.send(line, call_id, _OK, [tracing.dump(), *trace_dumps(timeout)])
 
     def _dispatch(self, line: _Line, kind: str, call_id: int,
                   blob: bytes, tc) -> None:
@@ -497,6 +499,9 @@ def _worker_main(conn, listener: socket.socket, name: str, blob,
     mp.current_process().daemon = False
     set_registry(registry)
     records.set_identity(False, uid)
+    join_tree(uid, "actor", name)
+    if profiling_enabled():
+        profiler.start_continuous()
     torch.set_num_threads(num_threads)
     host = _Host(name, max_concurrency)
     owner = _Line(conn, owner_pid)
@@ -569,7 +574,7 @@ class _Caller:
                 self._call_finished(call_id)
             if streamed:
                 continue
-            if sub is None:  # a dump nobody waits for, or a closed stream
+            if sub is None:  # a call nobody waits for any more
                 if status in (_OK, _ITEM):
                     refcount.discard(payload)
                 continue
@@ -690,14 +695,6 @@ class _Caller:
             refcount.fail(sub.oid, ActorDiedError(self.name, dead))
         return call_id, ref
 
-    def submit_dump(self, timeout: float) -> ObjectRef:
-        """Ask the worker for its span buffers and those of its workers,
-        which it waits on for at most ``timeout`` seconds."""
-        call_id, ref = self._new_call(
-            _DUMP, refcount.Submission(None, None, None))
-        self._send((_DUMP, call_id, timeout, None, os.getpid()))
-        return ref
-
     def _send(self, message) -> None:
         raise NotImplementedError
 
@@ -770,7 +767,7 @@ class _Worker(_Caller):
         self._read_loop(self._conn)
         self.proc.join(timeout=_REAP_S)
         self._mark_dead(None)
-        if metrics.enabled():
+        if metrics.enabled() or profiling_enabled():
             records.proc_dead(self.uid)
         self._ctor.finish()
         # What the worker owned (its puts, its calls' results) is gone
@@ -1166,6 +1163,9 @@ def _answer(conn) -> None:
         if op == "pool":
             task_pool.serve_client(conn, _pool())
             return
+        if op == "hello":
+            _serve_member(conn, *args)
+            return
         if op == "ship":
             records.ingest(*args)
             value = None
@@ -1205,6 +1205,8 @@ def _registry_address() -> str:
             # and its id in the records.
             tracing.set_process_identity("driver")
             records.set_identity(True)
+            if profiling_enabled():
+                profiler.start_continuous()
             atexit.register(_at_driver_exit)
             threading.Thread(target=transport.serve_socket,
                              args=(sock, _answer, "registry"),
@@ -1215,23 +1217,276 @@ def _registry_address() -> str:
 
 
 def trace_dumps(timeout: float = TRACE_DUMP_TIMEOUT_S) -> List[dict]:
-    """The span buffers (``tracing.dump()`` payloads) of every live worker
-    this process started and of the workers below them, each asked by
-    its owner. A dead worker is skipped, as is one that does not answer
-    within ``timeout`` seconds; its workers wait half as long on theirs."""
-    with _HANDLES_LOCK:
-        workers = [h._worker for h in list(_OWNED.values())]
-    refs = [w.submit_dump(timeout / 2) for w in workers if w.dead is None]
-    if not refs:
-        return []
-    ready, _ = wait(refs, num_returns=len(refs), timeout=timeout)
-    dumps: List[dict] = []
-    for ref in ready:
+    """The span buffers (``tracing.dump()`` payloads) of every live
+    process of the tree but this one, asked at once by the driver
+    (:func:`ask_processes`); a process that dies or does not answer
+    within ``timeout`` seconds is skipped."""
+    if _REGISTRY is None:
+        _registry_address()  # the driver's own id, to leave out
+    got = records.at_driver(ask_processes, "trace", (), "trace", timeout,
+                            None, (records.identity(),))
+    return [entry["trace"] for entry in got.values() if "trace" in entry]
+
+
+# ---- the tree's processes ----------------------------------------------
+
+# A driver's address, as a user hands it to a process outside the tree
+# (``init(address=...)``, the CLI's ``--address``): the registry's
+# abstract socket name and the tree's authkey, which the socket asks
+# for. It is a credential: whoever holds it can act as the tree's
+# processes.
+ADDRESS_SCHEME = "raytpu-torch://"
+# The variable the job manager sets to the driver's address for a job
+# (the JAX package's RAYTPU_ADDRESS names a tcp:// head, which a JAX
+# process would try to reach).
+ADDRESS_ENV = "RAYTPU_TORCH_ADDRESS"
+# How long a joining process waits for the driver's answer.
+JOIN_TIMEOUT_S = 30.0
+
+
+class _Member:
+    """The driver's side of one live process of the tree: the connection
+    it opened at its start (``hello``), on which the driver asks it for a
+    stack dump or a profile and it answers; its EOF is the process's
+    end."""
+
+    def __init__(self, conn, uid: str, pid: int, kind: str, name: str):
+        self.conn = conn
+        self.uid = uid
+        self.pid = pid
+        self.kind = kind
+        self.name = name
+        self.closed = False
+        self.replies: Dict[int, Tuple[bool, Any]] = {}
+        self.cond = threading.Condition()
+        self._ids = itertools.count(1)
+        self._send_lock = threading.Lock()
+
+    def ask(self, method: str, args: tuple) -> Optional[int]:
+        """Send one request; its id, or None when the process is gone."""
+        rid = next(self._ids)
         try:
-            dumps.extend(get(ref))
-        except (ActorDiedError, TaskError):
-            pass  # it died meanwhile: nothing of it to merge
-    return dumps
+            with self._send_lock:
+                transport.send(self.conn, (rid, method, args))
+        except OSError:
+            return None
+        return rid
+
+    def reply(self, rid: int, deadline: float) -> Tuple[bool, Any]:
+        """(True, payload), or (False, why not) by ``deadline``."""
+        with self.cond:
+            while rid not in self.replies:
+                left = deadline - time.monotonic()
+                if self.closed:
+                    return False, f"process {self.pid} exited"
+                if left <= 0:
+                    return False, (f"process {self.pid} did not answer in "
+                                   f"time")
+                self.cond.wait(left)
+            return self.replies.pop(rid)
+
+
+# In the driver: every live process of the tree but itself, by its id.
+_MEMBERS: Dict[str, _Member] = {}
+_MEMBERS_LOCK = threading.Lock()
+
+
+def _serve_member(conn, uid: Optional[str], pid: int, kind: str,
+                  name: str) -> None:
+    """The registry's side of a process's ``hello`` (in the driver): give
+    a joining process (``uid`` None) its id and the tree's, keep the
+    connection in the table and read the process's answers on it until
+    it closes. A joined process's series and profile frames are
+    tombstoned then, and what it owned is swept (the runtime's own
+    children are reaped by their starters, which do the same)."""
+    joined = uid is None
+    if joined:
+        uid = records.new_uid()
+    transport.send(conn, (True, (uid, object_store.tree())))
+    member = _Member(conn, uid, pid, kind, name)
+    with _MEMBERS_LOCK:
+        _MEMBERS[uid] = member
+    try:
+        while True:
+            rid, ok, value = transport.recv(conn)
+            with member.cond:
+                member.replies[rid] = (ok, value)
+                member.cond.notify_all()
+    except (EOFError, OSError):
+        pass  # the process has ended
+    finally:
+        with _MEMBERS_LOCK:
+            if _MEMBERS.get(uid) is member:
+                del _MEMBERS[uid]
+        with member.cond:
+            member.closed = True
+            member.cond.notify_all()
+        if joined:
+            records.tombstone(uid)
+            object_store.sweep_owner(pid)
+
+
+def tree_processes() -> List[dict]:
+    """Every live process of the tree (in the driver: its table, itself
+    first): its id in the records, pid, kind (``driver``, ``actor``,
+    ``task-worker``, ``joined``) and name."""
+    if _REGISTRY is not None:
+        return records.at_driver(tree_processes)
+    _registry_address()  # the driver's own id
+    with _MEMBERS_LOCK:
+        members = list(_MEMBERS.values())
+    return [{"uid": records.identity(), "pid": os.getpid(),
+             "kind": "driver", "name": "driver"}] + [
+        {"uid": m.uid, "pid": m.pid, "kind": m.kind, "name": m.name}
+        for m in members]
+
+
+def ask_processes(method: str, args: tuple, key: str, timeout: float,
+                  worker: Optional[str] = None, exclude=()) -> Dict[str, dict]:
+    """In the driver: ``method`` (:func:`raytpu_torch.util.stack_dump.
+    answer`) run in every live process of the tree at once, this one
+    included, each answer by the process's id as ``{"pid", key: payload}``
+    or ``{"pid", "error"}`` for a process that died or said nothing in
+    ``timeout`` seconds. ``worker`` narrows to ids with that prefix
+    (``"daemon"``: the driver alone, the JAX node daemon's counterpart);
+    ids in ``exclude`` are left out (the asking process)."""
+    from raytpu_torch.util import stack_dump
+
+    me = tree_processes()[0]["uid"]
+    with _MEMBERS_LOCK:
+        members = [m for uid, m in _MEMBERS.items() if uid not in exclude
+                   and worker != "daemon"
+                   and (worker is None or uid.startswith(worker))]
+    deadline = time.monotonic() + timeout
+    asked = [(m, m.ask(method, args)) for m in members]
+    out: Dict[str, dict] = {}
+    if me not in exclude and (worker in (None, "daemon")
+                              or me.startswith(worker)):
+        try:
+            out[me] = {"pid": os.getpid(),
+                       key: stack_dump.answer(method, args)}
+        except Exception as exc:  # reported in its entry, as the JAX node's
+            out[me] = {"pid": os.getpid(),
+                       "error": f"{type(exc).__name__}: {exc}"}
+    for m, rid in asked:
+        ok, value = ((False, f"process {m.pid} exited") if rid is None
+                     else m.reply(rid, deadline))
+        out[m.uid] = ({"pid": m.pid, key: value} if ok
+                      else {"pid": m.pid, "error": value})
+    return out
+
+
+def _answer_driver(conn) -> None:
+    """A process's side of its ``hello`` connection: each of the
+    driver's requests answered on a thread of its own (a profile window
+    holds no other), until the driver closes it."""
+    from raytpu_torch.util import stack_dump
+
+    lock = threading.Lock()
+
+    def one(rid: int, method: str, args: tuple) -> None:
+        try:
+            reply = (rid, True, stack_dump.answer(method, args))
+        except Exception as exc:  # the driver reports it for this process
+            reply = (rid, False, f"{type(exc).__name__}: {exc}")
+        try:
+            with lock:
+                transport.send(conn, reply)
+        except OSError:
+            pass  # the driver is gone
+
+    while True:
+        try:
+            rid, method, args = transport.recv(conn)
+        except (EOFError, OSError):
+            return
+        threading.Thread(target=one, args=(rid, method, args),
+                         name="raytpu-torch-debug", daemon=True).start()
+
+
+def join_tree(uid: Optional[str], kind: str, name: str) -> Tuple[str, str]:
+    """Open this process's ``hello`` connection to the driver's registry
+    (set first): the driver keeps it in its table of the tree's
+    processes, asks on it, and sees the process end at its EOF. Returns
+    this process's id (``uid``, or one the driver gives a joining
+    process) and the tree's."""
+    conn = transport.connect(_REGISTRY)
+    transport.send(conn, ("hello", (uid, os.getpid(), kind, name)))
+    if not conn.poll(JOIN_TIMEOUT_S):
+        conn.close()
+        raise ConnectionError(f"the driver at its registry did not answer "
+                              f"in {JOIN_TIMEOUT_S} s")
+    ok, value = transport.recv(conn)
+    if not ok:
+        conn.close()
+        raise value
+    threading.Thread(target=_answer_driver, args=(conn,),
+                     name="raytpu-torch-hello", daemon=True).start()
+    return value
+
+
+def driver_address() -> str:
+    """The driver's address, for a process outside the tree
+    (``init(address=...)``, ``python -m raytpu_torch ... --address``, a
+    job's :data:`ADDRESS_ENV`): from any process of the tree; in the
+    driver it starts the registry."""
+    key = bytes(mp.current_process().authkey).hex()
+    return f"{ADDRESS_SCHEME}{_registry_address()[1:]}#{key}"
+
+
+def parse_address(address: str) -> Tuple[str, bytes]:
+    """(registry socket address, authkey) of a driver's address."""
+    rest = address[len(ADDRESS_SCHEME):] \
+        if address.startswith(ADDRESS_SCHEME) else None
+    name, sep, key = (rest or "").partition("#")
+    try:
+        authkey = bytes.fromhex(key)
+    except ValueError:
+        authkey = b""
+    if not name or not sep or not authkey:
+        raise ValueError(f"{address!r} is not a driver's address (it "
+                         f"looks like {ADDRESS_SCHEME}<socket>#<key>; "
+                         f"raytpu_torch.runtime.api.driver_address() "
+                         f"gives it)")
+    return "\0" + name, authkey
+
+
+def _own_tree(address: str) -> bool:
+    """Whether ``address`` is the driver's of this process's own tree."""
+    registry = parse_address(address)[0]
+    own = _REGISTRY or (_registry_socket[0] if _registry_socket else None)
+    return registry == own
+
+
+def _join(address: str) -> None:
+    """``init(address=...)``: join the tree of the driver at ``address``
+    as a process of its own (actors, tasks, ``put``, named actors and
+    the state API then work as in a worker of the tree); ship this
+    process's records when armed, and the last of them at its exit."""
+    registry, authkey = parse_address(address)
+    mp.current_process().authkey = authkey
+    serialization.main_by_value()
+    set_registry(registry)
+    try:
+        uid, tree = join_tree(None, "joined",
+                              os.path.basename(sys.argv[0]) or "python")
+    except (OSError, EOFError, ConnectionError) as exc:
+        set_registry(None)
+        raise ConnectionError(f"no driver reachable at {address}: "
+                              f"{exc}") from exc
+    object_store.set_tree(tree)
+    tracing.set_process_identity("worker", f"joined-{os.getpid()}")
+    records.set_identity(False, uid)
+    if profiling_enabled():
+        profiler.start_continuous()
+    records.start_shipping()
+    atexit.register(_at_joined_exit)
+
+
+def _at_joined_exit() -> None:
+    """A joined process's exit: its last records, then its own actors."""
+    records.stop_shipping()
+    shutdown()
 
 
 def get_actor(name: str, namespace: str = "default") -> ActorHandle:
@@ -1351,20 +1606,30 @@ _POOL_LOCK = threading.Lock()
 _LINK: Optional["_PoolLink"] = None
 
 
-def init(num_cpus: Optional[int] = None, *,
+def init(num_cpus: Optional[int] = None, *, address: Optional[str] = None,
          ignore_reinit_error: bool = False) -> None:
     """Start the runtime in the driver: the task pool's ``num_cpus``
     workers (``os.cpu_count()`` by default) start at once, from a thread,
-    while the caller goes on. A second ``init`` raises unless
+    while the caller goes on. With ``address`` (a driver's
+    :func:`driver_address`), join that driver's tree instead, as a
+    process of its own: its tasks run on that driver's pool, and it is
+    tombstoned there when it ends; an address that no driver answers
+    raises ``ConnectionError`` naming it. A second ``init`` raises unless
     ``ignore_reinit_error``; in a process the runtime started (which is
-    already connected to the driver's pool) it raises the same way."""
+    already connected to the driver's pool) it raises the same way. The
+    address of this process's own tree is nothing to join: a no-op."""
     global _POOL
+    if address is not None and _own_tree(address):
+        return  # this process's own tree: nothing to join
     with _POOL_LOCK:
         if _POOL is not None or _REGISTRY is not None:
             if ignore_reinit_error:
                 return
             raise RuntimeError("runtime.init() called twice (pass "
                                "ignore_reinit_error=True to ignore)")
+        if address is not None:
+            _join(address)
+            return
         size = (os.cpu_count() or 1) if num_cpus is None else int(num_cpus)
         pool = task_pool.TaskPool(size, _registry_address())
         pool.start()
@@ -1487,6 +1752,36 @@ def _link() -> _PoolLink:
         if _LINK is None:
             _LINK = _PoolLink()
         return _LINK
+
+
+def timeline(filename: Optional[str] = None) -> List[dict]:
+    """Chrome-trace task timeline (``raytpu.timeline``,
+    ``raytpu/runtime/api.py:298``): one complete event for each task
+    attempt the driver's records saw run (RUNNING to its FINISHED or
+    FAILED), from any process of the tree; empty unless task events are
+    armed."""
+    from raytpu_torch import state
+
+    trace = []
+    for task in state.list_tasks(detail=True, limit=0):
+        start = None
+        for ev in task.get("events", []):
+            if ev["transition"] == "RUNNING":
+                start = ev
+            elif ev["transition"] in ("FINISHED", "FAILED") and start:
+                trace.append({
+                    "name": task["name"], "cat": "task", "ph": "X",
+                    "ts": start["ts"] * 1e6,
+                    "dur": (ev["ts"] - start["ts"]) * 1e6,
+                    "pid": 0, "tid": 0,
+                    "args": {"task_id": task["task_id"]}})
+                start = None
+    if filename:
+        import json
+
+        with open(filename, "w") as f:
+            json.dump(trace, f)
+    return trace
 
 
 def pool_start_split() -> Optional[dict]:

@@ -79,6 +79,13 @@ def tree() -> str:
     return _TREE
 
 
+def set_tree(tree_id: str) -> None:
+    """Adopt the tree of the driver this process joined (before its
+    first segment; its children inherit it)."""
+    global _TREE
+    _TREE = os.environ[_TREE_ENV] = str(tree_id)
+
+
 def _path(name: str) -> str:
     return os.path.join(SEGMENT_DIR, name)
 

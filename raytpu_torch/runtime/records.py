@@ -18,20 +18,24 @@ reaches it as it reaches the driver's registry socket.
   key by. A pid that the host reuses gets a new id, so a reaped
   worker's tombstone never drops a live series.
 - **Carriers.** A ship is one blob (:func:`collect_ship`): this
-  process's drained event ring and delta frames, with their drop counts
-  and its identity. A task worker's ship rides the done message it
-  already sends (:mod:`raytpu_torch.runtime.task_pool`); an actor
-  process ships on a timer of ``METRICS_SHIP_PERIOD_S`` and once at a
-  clean exit (:func:`start_shipping`, :func:`stop_shipping`), through
-  the registry socket. A failed ship is requeued. A process that is
+  process's drained event ring, delta frames and (with profiling armed)
+  continuous-profile frames, with their drop counts. A task worker's
+  ship rides the done message it already sends
+  (:mod:`raytpu_torch.runtime.task_pool`); an actor process (or one
+  that joined the tree) ships on a timer of ``METRICS_SHIP_PERIOD_S``
+  and once at a clean exit (:func:`start_shipping`,
+  :func:`stop_shipping`), through the registry socket. A failed ship is requeued. A process that is
   killed loses only what it had not shipped.
 - **The driver.** :func:`ingest` folds a ship into the driver's
-  :class:`~raytpu_torch.util.task_events.TaskEventStore` and
-  :class:`~raytpu_torch.util.tsdb.MetricStore`, and measures it (bytes,
-  the lag from each event's stamp to its arrival: :func:`ship_stats`).
-  The driver's own ring and metrics are folded lazily, before each
-  query and at each ship (:func:`fold_local`). :func:`proc_dead`
-  tombstones a reaped worker's series.
+  :class:`~raytpu_torch.util.task_events.TaskEventStore`,
+  :class:`~raytpu_torch.util.tsdb.MetricStore` and
+  :class:`~raytpu_torch.util.profstore.ProfileStore`, and measures it
+  (bytes, the lag from each event's stamp to its arrival:
+  :func:`ship_stats`). The driver's own ring, metrics and profile frames
+  are folded lazily, before each query and at each ship
+  (:func:`fold_local`). :func:`proc_dead` tombstones a reaped worker's
+  series and profile frames, as the JAX head does a dead node's
+  (``raytpu/cluster/head.py:1623``).
 
 :mod:`raytpu_torch.state` reads the store; a process other than the
 driver runs its queries in the driver (:func:`at_driver`).
@@ -51,7 +55,8 @@ from typing import Optional, Tuple
 
 from raytpu_torch.cluster import constants
 from raytpu_torch.runtime import serialization
-from raytpu_torch.util import metrics, task_events, tsdb
+from raytpu_torch.util import metrics, profiler, profstore, task_events, tsdb
+from raytpu_torch.util.profiler import profiling_enabled
 
 # The JAX package's store sizes (raytpu/core/config.py:330-362).
 TASK_EVENT_STORE_PER_KIND = 4096
@@ -61,13 +66,17 @@ METRICS_FINE_STEP_S = 5.0
 METRICS_FINE_SLOTS = 120
 METRICS_COARSE_STEP_S = 30.0
 METRICS_COARSE_SLOTS = 120
+PROFILE_STORE_MAX_BYTES = 4 * 1024 * 1024
+PROFILE_RING_SLOTS = 120
 # Lags kept for ship_stats (the newest).
 LAGS_KEPT = 65536
 
 _LOCK = threading.Lock()
-_STORES: Optional[Tuple[task_events.TaskEventStore, tsdb.MetricStore]] = None
+_STORES: Optional[Tuple[task_events.TaskEventStore, tsdb.MetricStore,
+                        profstore.ProfileStore]] = None
 _UID = [""]
-_STATS = {"ships": 0, "bytes": 0, "events": 0, "frames": 0}
+_STATS = {"ships": 0, "bytes": 0, "events": 0, "frames": 0,
+          "profile_frames": 0}
 _LAGS: deque = deque(maxlen=LAGS_KEPT)
 _STOP = threading.Event()
 
@@ -114,27 +123,34 @@ def identity() -> str:
 
 def collect_ship(force: bool = False) -> Optional[bytes]:
     """This process's pending records as one ship: its drained event
-    ring and its metric deltas (collected at most once a
-    ``METRICS_SHIP_PERIOD_S`` unless ``force``), with their drop counts;
-    None when there is nothing."""
+    ring, its metric deltas (collected at most once a
+    ``METRICS_SHIP_PERIOD_S`` unless ``force``) and its profile frames,
+    with their drop counts; None when there is nothing."""
     events, dropped, frames, frames_dropped = [], 0, [], 0
+    prof, prof_dropped = [], 0
     if task_events.ship_enabled():
         events, dropped = task_events.drain()
     if metrics.enabled():
         metrics.collect(min_interval_s=constants.METRICS_SHIP_PERIOD_S,
                         force=force)
         frames, frames_dropped = metrics.drain()
-    if not (events or dropped or frames or frames_dropped):
+    if profiling_enabled():
+        prof, prof_dropped = profiler.prof_drain()
+    if not (events or dropped or frames or frames_dropped or prof
+            or prof_dropped):
         return None
-    return serialization.dumps((events, dropped, frames, frames_dropped))
+    return serialization.dumps((events, dropped, frames, frames_dropped,
+                                prof, prof_dropped))
 
 
 def requeue_ship(blob: bytes) -> None:
     """Put a ship that did not reach the driver back in this process's
     buffers (oldest first, drop counts exact)."""
-    events, dropped, frames, frames_dropped = serialization.loads(blob)
+    events, dropped, frames, frames_dropped, prof, prof_dropped = \
+        serialization.loads(blob)
     task_events.requeue(events, dropped)
     metrics.requeue(frames, frames_dropped)
+    profiler.prof_requeue(prof, prof_dropped)
 
 
 def ship() -> None:
@@ -161,10 +177,11 @@ def _ship_loop() -> None:
 
 
 def start_shipping() -> None:
-    """In an actor process, at its start: ship every
-    ``METRICS_SHIP_PERIOD_S`` from a thread of its own, when any record
-    is armed (its environment's flags)."""
-    if task_events.ship_enabled() or metrics.enabled():
+    """In an actor process (or one that joined the tree), at its start:
+    ship every ``METRICS_SHIP_PERIOD_S`` from a thread of its own, when
+    any record is armed (its environment's flags)."""
+    if task_events.ship_enabled() or metrics.enabled() or \
+            profiling_enabled():
         threading.Thread(target=_ship_loop, name="raytpu-torch-ship",
                          daemon=True).start()
 
@@ -177,7 +194,8 @@ def stop_shipping() -> None:
 
 def proc_dead(uid: str) -> None:
     """A worker of id ``uid`` was reaped: the driver drops its series
-    and rejects its late frames. Sites guard with ``metrics.enabled()``."""
+    and profile frames and rejects its late frames. Sites guard with
+    ``metrics.enabled()`` (or ``profiling_enabled()``)."""
     if _driver():
         tombstone(uid)
         return
@@ -192,7 +210,8 @@ def proc_dead(uid: str) -> None:
 # ---- the driver ---------------------------------------------------------
 
 
-def _stores() -> Tuple[task_events.TaskEventStore, tsdb.MetricStore]:
+def _stores() -> Tuple[task_events.TaskEventStore, tsdb.MetricStore,
+                       profstore.ProfileStore]:
     global _STORES
     with _LOCK:
         if _STORES is None:
@@ -205,33 +224,46 @@ def _stores() -> Tuple[task_events.TaskEventStore, tsdb.MetricStore]:
                     fine_step_s=METRICS_FINE_STEP_S,
                     fine_slots=METRICS_FINE_SLOTS,
                     coarse_step_s=METRICS_COARSE_STEP_S,
-                    coarse_slots=METRICS_COARSE_SLOTS))
+                    coarse_slots=METRICS_COARSE_SLOTS),
+                profstore.ProfileStore(max_bytes=PROFILE_STORE_MAX_BYTES,
+                                       ring_slots=PROFILE_RING_SLOTS))
         return _STORES
 
 
 def tombstone(uid: str) -> None:
-    """In the driver: drop the series of the worker of id ``uid`` and
-    reject its late frames."""
-    _stores()[1].mark_proc_dead(uid)
+    """In the driver: drop the series and profile frames of the process
+    of id ``uid`` and reject its late frames."""
+    _, metric_store, profile_store = _stores()
+    metric_store.mark_proc_dead(uid)
+    profile_store.mark_proc_dead(uid)
 
 
 def ingest(blob: bytes) -> None:
     """Fold one ship into the driver's stores, with the driver's own
     ring (so that its events are never staler than the last ship)."""
-    events, dropped, frames, frames_dropped = serialization.loads(blob)
+    events, dropped, frames, frames_dropped, prof, prof_dropped = \
+        serialization.loads(blob)
     now = time.time()
-    event_store, metric_store = _stores()
+    event_store, metric_store, profile_store = _stores()
     if events or dropped:
         event_store.add_batch(events, dropped)
     if frames_dropped:
         metric_store.note_upstream_drops(frames_dropped)
     if frames:
         metric_store.push(frames)
+    if prof_dropped:
+        # Attributed to the shipping process, as the JAX head attributes
+        # them to their carrier.
+        profile_store.note_upstream_drops(prof_dropped,
+                                          proc=prof[0][0] if prof else "")
+    if prof:
+        profile_store.push(prof)
     with _LOCK:
         _STATS["ships"] += 1
         _STATS["bytes"] += len(blob)
         _STATS["events"] += len(events)
         _STATS["frames"] += len(frames)
+        _STATS["profile_frames"] += len(prof)
         _LAGS.extend(now - ev["ts"] for ev in events)
     _fold_events()
 
@@ -244,8 +276,9 @@ def _fold_events() -> None:
 
 
 def fold_local() -> None:
-    """Fold the driver's own ring and metric deltas into its stores:
-    lazily, before every query (``head.py:1705-1712``, ``:1745-1757``)."""
+    """Fold the driver's own ring, metric deltas and profile frames into
+    its stores: lazily, before every query (``head.py:1705-1712``,
+    ``:1745-1769``)."""
     _fold_events()
     if metrics.enabled():
         metrics.collect(force=True)
@@ -255,6 +288,14 @@ def fold_local() -> None:
             metric_store.note_upstream_drops(dropped)
         if frames:
             metric_store.push(frames)
+    if profiling_enabled():
+        frames, dropped = profiler.prof_drain()
+        profile_store = _stores()[2]
+        if dropped:
+            profile_store.note_upstream_drops(
+                dropped, proc=metrics.shipper_identity())
+        if frames:
+            profile_store.push(frames)
 
 
 def event_store() -> task_events.TaskEventStore:
@@ -269,12 +310,19 @@ def metric_store() -> tsdb.MetricStore:
     return _stores()[1]
 
 
+def profile_store() -> profstore.ProfileStore:
+    """The driver's profile store, with its own frames folded in."""
+    fold_local()
+    return _stores()[2]
+
+
 def reset() -> None:
     """Drop the driver's stores and ship counts (tests)."""
     global _STORES
     with _LOCK:
         _STORES = None
-        _STATS.update(ships=0, bytes=0, events=0, frames=0)
+        _STATS.update(ships=0, bytes=0, events=0, frames=0,
+                      profile_frames=0)
         _LAGS.clear()
 
 
@@ -306,6 +354,35 @@ def prometheus_text() -> str:
     return at_driver(_prometheus_text)
 
 
+def _profile_query(mode: str, since_s: float, until_s: float,
+                   recent_s: float) -> dict:
+    store = profile_store()
+    if mode == "diff":
+        return store.diff(float(recent_s))
+    return store.merged(float(since_s), float(until_s))
+
+
+def profile_query(mode: str = "merged", since_s: float = 600.0,
+                  until_s: float = 0.0, recent_s: float = 120.0) -> dict:
+    """The driver's profile store: one merged flamegraph of the frames
+    in ``[now - since_s, now - until_s]`` (``mode="merged"``), or the
+    last ``recent_s`` seconds minus the ``recent_s`` before them
+    (``"diff"``); the JAX head's ``profile_query``
+    (``raytpu/cluster/head.py:1772``)."""
+    return at_driver(_profile_query, mode, since_s, until_s, recent_s)
+
+
+def _profile_stats() -> dict:
+    store = profile_store()
+    return {"store": store.stats(), "procs": store.proc_rows()}
+
+
+def profile_stats() -> dict:
+    """The driver's profile store's counters and its per-process rows
+    (the JAX head's ``profile_stats``)."""
+    return at_driver(_profile_stats)
+
+
 def _ship_stats() -> dict:
     with _LOCK:
         stats, lags = dict(_STATS), sorted(_LAGS)
@@ -318,7 +395,8 @@ def _ship_stats() -> dict:
 
 
 def ship_stats() -> dict:
-    """What reached the driver: ships, their bytes, events and frames,
-    and the lag from each event's stamp to its arrival (seconds,
-    ``lag_s``: count, p50, p95, max, of the newest ``LAGS_KEPT``)."""
+    """What reached the driver: ships, their bytes, events, metric
+    frames and profile frames, and the lag from each event's stamp to
+    its arrival (seconds, ``lag_s``: count, p50, p95, max, of the newest
+    ``LAGS_KEPT``)."""
     return at_driver(_ship_stats)

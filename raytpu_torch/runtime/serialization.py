@@ -8,7 +8,8 @@ as before) and two additions:
 
 - **by value, what cannot be found by name**: lambdas, closures,
   functions and classes defined inside functions, and those of a
-  ``__main__`` that the children cannot import (``python -c``, stdin).
+  ``__main__`` that the children cannot import (``python -c``, stdin, or
+  any ``__main__`` of a process that joined another driver's tree).
   A function goes as its code object through :mod:`marshal`, its
   closure cells, defaults, keyword defaults, ``__dict__`` and the
   globals its code names (modules by name, everything else by value,
@@ -71,9 +72,23 @@ def _lookup(module: str, qualname: str):
     return found
 
 
+# Set in a process that joined another driver's tree: what it sends may
+# run in processes that driver started, which import the driver's
+# ``__main__``, not this one's.
+_MAIN_BY_VALUE = [False]
+
+
+def main_by_value() -> None:
+    """Send this process's ``__main__`` functions and classes by value."""
+    _MAIN_BY_VALUE[0] = True
+
+
 def _main_importable() -> bool:
     """Whether the children re-import ``__main__`` (spawn and forkserver
-    do, as ``__mp_main__``, when it is a file)."""
+    do, as ``__mp_main__``, when it is a file, unless this process joined
+    another driver's tree)."""
+    if _MAIN_BY_VALUE[0]:
+        return False
     main = sys.modules.get("__main__")
     path = getattr(main, "__file__", None)
     return bool(path) and not path.startswith("<")

@@ -60,7 +60,8 @@ from raytpu_torch.core.errors import (TaskCancelledError, TaskError,
                                       WorkerCrashedError)
 from raytpu_torch.runtime import (object_store, records, refcount,
                                   serialization, starter, transport)
-from raytpu_torch.util import metrics, task_events
+from raytpu_torch.util import metrics, profiler, task_events
+from raytpu_torch.util.profiler import profiling_enabled
 
 # How long stop() waits for a worker to be reaped.
 REAP_S = 10.0
@@ -265,7 +266,7 @@ class TaskPool:
     def _died(self, proc: _Proc) -> None:
         proc.process.join(timeout=REAP_S)
         object_store.sweep_owner(proc.process.pid)
-        if metrics.enabled():
+        if metrics.enabled() or profiling_enabled():
             records.proc_dead(proc.uid)
         with self._lock:
             if proc in self._procs:
@@ -448,6 +449,9 @@ def _worker_main(conn, registry: str, spawned: float, uid: str) -> None:
     tracing.set_process_identity("task-worker", str(os.getpid()))
     api.set_registry(registry)
     records.set_identity(False, uid)
+    api.join_tree(uid, "task-worker", mp.current_process().name)
+    if profiling_enabled():
+        profiler.start_continuous()
     mp.current_process().daemon = False  # a task may start actors
     torch.set_num_threads(1)
     runs: "queue.Queue" = queue.Queue()

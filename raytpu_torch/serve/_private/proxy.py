@@ -33,28 +33,23 @@ pages); the JAX proxy leaves such a stream running (ROADMAP.md, Queue
 from __future__ import annotations
 
 import asyncio
-import codecs
 import concurrent.futures
 import functools
-import http
 import json as _json
-import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
-from urllib.parse import parse_qsl, unquote
+from typing import Any, Dict, Optional, Tuple
+from urllib.parse import parse_qsl
 
 from raytpu_torch import runtime
 from raytpu_torch.serve._private.controller import get_controller
 from raytpu_torch.serve.handle import DeploymentHandle
+from raytpu_torch.util.http_server import (JSON, HttpRequest, Reply, chunk,
+                                           first_values, head, match_route,
+                                           query_string, serve_connection)
 
 # Threads for the proxy's blocking hops (routing, a stream's next chunk,
 # the route table's long poll): one a stream in flight at most.
 PROXY_THREADS = 1024
-# What a request head may hold: its lines, each at most the stream
-# reader's limit (64 KiB).
-MAX_HEADERS = 128
-_TEXT = "text/plain; charset=utf-8"
-_JSON = "application/json; charset=utf-8"
 _SSE_HEADERS = [("Content-Type", "text/event-stream"),
                 ("Cache-Control", "no-cache"),
                 ("Connection", "keep-alive"),
@@ -91,218 +86,6 @@ def _encode_response(result: Any) -> Tuple[int, bytes, str]:
     return status, _json.dumps(result).encode(), "application/json"
 
 
-def match_route(route_table: Dict[str, tuple], path: str
-                ) -> Optional[Tuple[str, str, str]]:
-    """Longest-prefix route match shared by every ingress transport (HTTP
-    + gRPC must agree on trailing-slash normalization)."""
-    best = None
-    for prefix, (app_name, ingress) in route_table.items():
-        norm = prefix.rstrip("/") or "/"
-        if path == norm or path.startswith(norm + "/") or norm == "/":
-            if best is None or len(norm) > len(best[0]):
-                best = (norm, app_name, ingress)
-    return best
-
-
-# ---- HTTP/1.1 on asyncio streams ---------------------------------------
-
-
-class _BadRequest(Exception):
-    """A request this server cannot parse: answered 400, then closed."""
-
-
-_HEX = re.compile(r"[0-9A-Fa-f]{2}")
-
-
-def _query_string(raw: str) -> str:
-    """The query string as aiohttp gives it (yarl's ``query_string``):
-    percent-decoded as UTF-8 and ``+`` read as a space, except that an
-    escape of ``+ = & ;`` stays escaped (so the string still parses) and
-    an escape that is not valid UTF-8 stays as it was sent."""
-    out: List[str] = []
-    decoder = codecs.getincrementaldecoder("utf-8")()
-    pending = ""  # escapes of a UTF-8 sequence not yet complete
-    i = 0
-    while i < len(raw):
-        ch = raw[i]
-        if ch == "%" and _HEX.fullmatch(raw[i + 1:i + 3]):
-            esc = raw[i:i + 3]
-            i += 3
-            try:
-                text = decoder.decode(bytes([int(esc[1:], 16)]))
-            except UnicodeDecodeError:
-                out.append(pending + esc)
-                pending = ""
-                decoder.reset()
-                continue
-            if not text:
-                pending += esc
-                continue
-            pending = ""
-            out.append(f"%{ord(text):02X}" if text in "+=&;" else text)
-            continue
-        if pending:
-            out.append(pending)
-            pending = ""
-            decoder.reset()
-        out.append(" " if ch == "+" else ch)
-        i += 1
-    return "".join(out) + pending
-
-
-def _first_values(pairs: List[Tuple[str, str]],
-                  case_insensitive: bool) -> Dict[str, str]:
-    """``dict()`` of an aiohttp multidict: every key as it was sent, each
-    mapped to the first value of its key (case-insensitively for
-    headers)."""
-    first: Dict[str, str] = {}
-    for k, v in pairs:
-        first.setdefault(k.lower() if case_insensitive else k, v)
-    return {k: first[k.lower() if case_insensitive else k] for k, _ in pairs}
-
-
-class _HttpRequest:
-    """One parsed request: method, target, version, headers (as sent,
-    in order) and body."""
-
-    __slots__ = ("method", "target", "version", "headers", "body")
-
-    def __init__(self, method: str, target: str, version: str,
-                 headers: List[Tuple[str, str]]):
-        self.method = method
-        self.target = target
-        self.version = version
-        self.headers = headers
-        self.body = b""
-
-    def header(self, name: str, default: str = "") -> str:
-        name = name.lower()
-        for k, v in self.headers:
-            if k.lower() == name:
-                return v
-        return default
-
-    @property
-    def raw_path(self) -> str:
-        return self.target.split("?", 1)[0]
-
-    @property
-    def raw_query(self) -> str:
-        return self.target.split("?", 1)[1] if "?" in self.target else ""
-
-    @property
-    def path(self) -> str:
-        return unquote(self.raw_path)
-
-    @property
-    def keep_alive(self) -> bool:
-        conn = self.header("Connection").lower()
-        if self.version == "HTTP/1.0":
-            return conn == "keep-alive"
-        return conn != "close"
-
-
-async def _read_request(reader: asyncio.StreamReader
-                        ) -> Optional[_HttpRequest]:
-    """The next request on a connection; None at its end."""
-    line = await reader.readline()
-    if not line:
-        return None
-    try:
-        method, target, version = line.decode("latin-1").rstrip(
-            "\r\n").split(" ")
-    except ValueError:
-        raise _BadRequest(f"bad request line {line[:80]!r}") from None
-    if not method.isalpha() or version not in ("HTTP/1.0", "HTTP/1.1"):
-        raise _BadRequest(f"bad request line {line[:80]!r}")
-    headers: List[Tuple[str, str]] = []
-    while True:
-        line = await reader.readline()
-        if line in (b"\r\n", b"\n"):
-            break
-        if not line or len(headers) >= MAX_HEADERS:
-            raise _BadRequest("request head incomplete or too long")
-        name, sep, value = line.decode("latin-1").partition(":")
-        if not sep or not name or name != name.strip():
-            raise _BadRequest(f"bad header line {line[:80]!r}")
-        headers.append((name, value.strip()))
-    req = _HttpRequest(method, target, version, headers)
-    req.body = await _read_body(reader, req)
-    return req
-
-
-async def _read_body(reader: asyncio.StreamReader,
-                     req: _HttpRequest) -> bytes:
-    chunked = req.header("Transfer-Encoding")
-    length = req.header("Content-Length")
-    if chunked and length:
-        raise _BadRequest("Transfer-Encoding can't be present with "
-                          "Content-Length")
-    if chunked:
-        if chunked.lower() != "chunked":
-            raise _BadRequest(f"unsupported Transfer-Encoding {chunked!r}")
-        parts = []
-        while True:
-            size = (await reader.readline()).split(b";", 1)[0].strip()
-            try:
-                n = int(size, 16)
-            except ValueError:
-                raise _BadRequest(f"bad chunk size {size[:20]!r}") from None
-            if n == 0:
-                break
-            parts.append(await reader.readexactly(n))
-            await reader.readexactly(2)  # the chunk's CRLF
-        while (await reader.readline()) not in (b"\r\n", b"\n", b""):
-            pass  # trailers
-        return b"".join(parts)
-    if length:
-        if not length.isdigit():
-            raise _BadRequest(f"bad Content-Length {length!r}")
-        return await reader.readexactly(int(length))
-    return b""
-
-
-def _status_line(status: int) -> bytes:
-    try:
-        reason = http.HTTPStatus(status).phrase
-    except ValueError:
-        reason = ""
-    return f"HTTP/1.1 {status} {reason}\r\n".encode("latin-1")
-
-
-def _head(status: int, headers: List[Tuple[str, str]]) -> bytes:
-    return _status_line(status) + "".join(
-        f"{k}: {v}\r\n" for k, v in headers).encode("latin-1") + b"\r\n"
-
-
-class _Reply:
-    """A whole response: status, headers, body, as aiohttp frames them
-    (no body and no length for 1xx, 204 and 304)."""
-
-    __slots__ = ("status", "headers", "body")
-
-    def __init__(self, status: int, body: bytes = b"",
-                 headers: Optional[List[Tuple[str, str]]] = None):
-        self.status = status
-        self.body = body
-        self.headers = list(headers or [])
-
-    @classmethod
-    def text(cls, status: int, text: str) -> "_Reply":
-        return cls(status, text.encode(), [("Content-Type", _TEXT)])
-
-    def frame(self, keep_alive: bool) -> bytes:
-        headers = list(self.headers)
-        body = self.body
-        if self.status in (204, 304) or 100 <= self.status < 200:
-            body = b""
-        else:
-            headers.append(("Content-Length", str(len(body))))
-        if not keep_alive:
-            headers.append(("Connection", "close"))
-        return _head(self.status, headers) + body
-
-
 def _sse_frame(chunk: Any) -> bytes:
     if isinstance(chunk, bytes):
         data = chunk.decode("utf-8", "replace")
@@ -315,9 +98,6 @@ def _sse_frame(chunk: Any) -> bytes:
     return ("".join(f"data: {ln}\n" for ln in data.split("\n"))
             + "\n").encode()
 
-
-def _chunk(data: bytes) -> bytes:
-    return b"%x\r\n%s\r\n" % (len(data), data)
 
 
 class ProxyActor:
@@ -384,26 +164,11 @@ class ProxyActor:
                                 writer: asyncio.StreamWriter) -> None:
         self._writers.add(writer)
         try:
-            while True:
-                try:
-                    req = await _read_request(reader)
-                except _BadRequest as exc:
-                    writer.write(_Reply.text(400, str(exc)).frame(False))
-                    await writer.drain()
-                    return
-                if req is None:
-                    return
-                keep = req.keep_alive
-                if not await self._respond(req, reader, writer, keep):
-                    return
-        except (ConnectionError, asyncio.IncompleteReadError,
-                asyncio.LimitOverrunError, ValueError):
-            return  # the client went away, or sent a head past the limit
+            await serve_connection(reader, writer, self._respond)
         finally:
             self._writers.discard(writer)
-            writer.close()
 
-    async def _respond(self, req: _HttpRequest, reader, writer,
+    async def _respond(self, req: HttpRequest, reader, writer,
                        keep: bool) -> bool:
         """Answer one request; False when the connection must close."""
         reply = await self._handle_http(req, reader, writer, keep)
@@ -413,18 +178,18 @@ class ProxyActor:
         await writer.drain()
         return keep
 
-    async def _handle_http(self, req: _HttpRequest, reader, writer,
-                           keep: bool) -> Optional[_Reply]:
+    async def _handle_http(self, req: HttpRequest, reader, writer,
+                           keep: bool) -> Optional[Reply]:
         path = req.path
         if path == "/-/healthz":
-            return _Reply.text(200, "ok")
+            return Reply.text(200, "ok")
         if path == "/-/routes":
-            return _Reply(200, _json.dumps(
+            return Reply(200, _json.dumps(
                 {p: list(v) for p, v in self._route_table.items()}).encode(),
-                [("Content-Type", _JSON)])
+                [("Content-Type", JSON)])
         match = self._match_route(path)
         if match is None:
-            return _Reply.text(404, "no deployment at this path")
+            return Reply.text(404, "no deployment at this path")
         prefix, app_name, ingress = match
         key = f"{app_name}#{ingress}"
         handle = self._handles.get(key)
@@ -433,9 +198,9 @@ class ProxyActor:
         request = Request(
             method=req.method,
             path=path,
-            query=_first_values(
+            query=first_values(
                 parse_qsl(req.raw_query, keep_blank_values=True), False),
-            headers=_first_values(req.headers, True),
+            headers=first_values(req.headers, True),
             body=req.body,
             route_prefix=prefix,
         )
@@ -453,7 +218,7 @@ class ProxyActor:
                 self._asgi[key] = await loop.run_in_executor(
                     None, handle.is_asgi)
             except Exception:
-                return _Reply.text(503, "deployment starting; retry")
+                return Reply.text(503, "deployment starting; retry")
         if self._asgi[key]:
             return await self._handle_asgi(req, handle, prefix)
         # SSE contract: a client that accepts text/event-stream gets the
@@ -464,14 +229,14 @@ class ProxyActor:
         try:
             result = await handle.remote_async(request)
         except TimeoutError:
-            return _Reply.text(503, "deployment unavailable")
+            return Reply.text(503, "deployment unavailable")
         except Exception as e:
-            return _Reply.text(500, f"{type(e).__name__}: {e}")
+            return Reply.text(500, f"{type(e).__name__}: {e}")
         status, payload, ctype = _encode_response(result)
-        return _Reply(status, payload, [("Content-Type", ctype.split(";")[0])])
+        return Reply(status, payload, [("Content-Type", ctype.split(";")[0])])
 
-    async def _handle_asgi(self, req: _HttpRequest, handle,
-                           prefix: str) -> _Reply:
+    async def _handle_asgi(self, req: HttpRequest, handle,
+                           prefix: str) -> Reply:
         path = req.path
         root = "" if prefix == "/" else prefix
         scope = {
@@ -483,7 +248,7 @@ class ProxyActor:
             "path": path[len(root):] or "/",
             "root_path": root,
             "raw_path": path,
-            "query_string": _query_string(req.raw_query),
+            "query_string": query_string(req.raw_query),
             "headers": [(k.lower(), v) for k, v in req.headers],
             "client": None,
             "server": None,
@@ -496,7 +261,7 @@ class ProxyActor:
                 None, lambda: handle.remote_asgi(scope, req.body))
             resp = await dresp
         except Exception as e:
-            return _Reply.text(500, f"{type(e).__name__}: {e}")
+            return Reply.text(500, f"{type(e).__name__}: {e}")
         # Duplicate headers (two Set-Cookie) survive; the length is ours.
         headers = [(k, v) for k, v in resp.get("headers", [])
                    if k.lower() not in ("content-length",
@@ -505,7 +270,7 @@ class ProxyActor:
         body = resp.get("body", b"")
         if body and not any(k.lower() == "content-type" for k, _ in headers):
             headers.append(("Content-Type", "application/octet-stream"))
-        return _Reply(status, body, headers)
+        return Reply(status, body, headers)
 
     async def _handle_sse(self, reader, writer, handle, request: Request,
                           keep: bool) -> None:
@@ -516,23 +281,23 @@ class ProxyActor:
         headers = list(_SSE_HEADERS)
         if not keep:
             headers[2] = ("Connection", "close")
-        writer.write(_head(200, headers))
+        writer.write(head(200, headers))
         await writer.drain()
         loop = asyncio.get_running_loop()
         gen = None
         try:
             gen = await loop.run_in_executor(
                 None, lambda: handle.remote_streaming(request))
-            async for chunk in gen:  # the async bridge lives on the generator
+            async for item in gen:  # the async bridge lives on the generator
                 if reader.at_eof():
                     return  # the client is gone: close the stream
-                writer.write(_chunk(_sse_frame(chunk)))
+                writer.write(chunk(_sse_frame(item)))
                 await writer.drain()
-            writer.write(_chunk(b"data: [DONE]\n\n"))
+            writer.write(chunk(b"data: [DONE]\n\n"))
         except (ConnectionError, asyncio.CancelledError):
             raise
         except Exception as e:  # surface mid-stream failures in-band
-            writer.write(_chunk(
+            writer.write(chunk(
                 f"event: error\ndata: {type(e).__name__}: {e}\n\n".encode()))
         finally:
             if gen is not None:

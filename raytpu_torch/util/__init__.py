@@ -17,7 +17,14 @@ observability, in-process only, and the ambient tenant.
   and Grafana configs;
 - :mod:`~raytpu_torch.util.serve_slo` — the serve SLO histograms and
   the goodput ledger;
-- :mod:`~raytpu_torch.util.profiler` — the flag the step profiler reads;
+- :mod:`~raytpu_torch.util.profiler` — the profiling flag, the sampling
+  CPU profiler, flamegraphs and the continuous profiler whose frames
+  ship to the driver's :mod:`~raytpu_torch.util.profstore`;
+  :mod:`~raytpu_torch.util.memprofile` — allocation profiles
+  (tracemalloc); :mod:`~raytpu_torch.util.stack_dump` — every process's
+  stack, profile or spans, asked at once by the driver;
+- :mod:`~raytpu_torch.util.http_server` — the HTTP/1.1 server (asyncio
+  streams) that serve's proxy, the dashboard and the job server share;
 - :mod:`~raytpu_torch.util.stepprof` — ``StepProfiler``: step times,
   MFU from an analytic FLOP count, device-memory gauges;
 - :mod:`~raytpu_torch.util.tenancy` — the ambient tenant the serve

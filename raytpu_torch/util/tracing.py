@@ -8,8 +8,8 @@ rides every call of the port's runtime (:mod:`raytpu_torch.runtime.api`)
 as its wire form, as it rides the JAX package's RPC frames, and is
 re-anchored in the worker, so a caller's ``rpc.client.*`` span is the
 parent of the worker's ``rpc.server.*`` span. :func:`cluster_timeline`
-gathers every process's buffer through the runtime's fan-out (each
-process asks the workers it started, which ask theirs) and
+gathers every process's buffer through the runtime's fan-out (the
+driver asks every live process of the tree at once) and
 :func:`assemble_timeline` merges them into one chrome trace, a track a
 process, with flow arrows on the parent links that cross processes.
 
@@ -390,9 +390,8 @@ def assemble_timeline(dumps: List[dict],
 
 def cluster_timeline(filename: Optional[str] = None) -> List[dict]:
     """Pull every process's span buffer through the runtime's fan-out
-    (this process → the workers it started → theirs; a dead or silent
-    worker is skipped) and assemble one chrome trace. A process that
-    started no worker gets its own spans only."""
+    (the driver asks every live process of the tree at once; a dead or
+    silent one is skipped) and assemble one chrome trace."""
     from raytpu_torch.runtime import api as _api
 
     # Should the fan-out ever return this very process's buffer, the

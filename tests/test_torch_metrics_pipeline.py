@@ -372,7 +372,8 @@ def test_concurrent_ships_lose_no_update():
                        "attempt": 0}]
             frames = [[f"worker:{k:012x}.{0:012x}", i + 1, time.time(),
                        [["c", "tp_stress_total", [], [], 1.0]]]]
-            records.ingest(serialization.dumps((events, 0, frames, 0)))
+            records.ingest(serialization.dumps(
+                (events, 0, frames, 0, [], 0)))
 
     records.reset()
     threads = [threading.Thread(target=ship_all, args=(k,))

@@ -32,7 +32,18 @@ PORT_FILES = sorted((REPO / "raytpu_torch").rglob("*.py")) + [
 
 # The port's copies of raytpu/util's observability.
 UTIL_MODULES = ("metrics", "tracing", "task_events", "serve_slo",
-                "profiler", "stepprof", "tsdb", "metrics_export")
+                "profiler", "stepprof", "tsdb", "metrics_export",
+                "profstore", "memprofile", "stack_dump")
+
+# The operator's surface (the dashboard, the CLI, job submission), each
+# with its JAX module of the same path, and the HTTP server they share
+# (the port's own: the JAX servers are aiohttp apps).
+OPERATOR_MODULES = ("dashboard/__init__.py", "dashboard/app.py",
+                    "job/__init__.py", "job/manager.py", "job/server.py",
+                    "job/sdk.py", "scripts/__init__.py", "scripts/cli.py",
+                    "__main__.py")
+# What the chip machine lacks, so neither they nor serve may import.
+HTTP_PACKAGES = ("aiohttp", "requests")
 
 # The port's runtime layer and the JAX modules whose calls it copies.
 RUNTIME_MODULES = ("core.errors", "runtime.api", "runtime.generator",
@@ -96,6 +107,7 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "raytpu_torch.inference.engine" in loaded
+    assert "raytpu_torch.dashboard.app" in loaded
     assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
     assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES} <= set(loaded)
     assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
@@ -896,3 +908,82 @@ def test_the_state_api_has_the_jax_package_s_names():
 
     assert exported(REPO / "raytpu_torch" / "state" / "__init__.py") == \
         exported(REPO / "raytpu" / "state" / "__init__.py")
+
+
+# ---- the operator's surface: the dashboard, the CLI and jobs ----------
+
+
+def test_operator_modules_are_held_to_the_rules():
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for name in OPERATOR_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+    assert "util/http_server.py" in names
+
+
+@pytest.mark.parametrize("name", OPERATOR_MODULES + (
+    "util/http_server.py", "util/stack_dump.py", "util/profiler.py",
+    "util/profstore.py", "util/memprofile.py", "runtime/api.py",
+    "runtime/records.py", "serve/_private/proxy.py"))
+def test_operator_sources_import_no_aiohttp_or_requests(name):
+    for node in ast.walk(_parse(REPO / "raytpu_torch" / name)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not [n for n in names if _forbidden(n)
+                    or n.split(".")[0] in HTTP_PACKAGES], (name, names)
+
+
+def _loaded(code: str) -> list:
+    """The modules a fresh interpreter has loaded after ``code``, which
+    prints them as its last line."""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_the_cli_s_help_loads_no_jax_raytpu_aiohttp_or_requests():
+    loaded = _loaded(
+        "import contextlib, io, json, runpy, sys\n"
+        "sys.argv = ['raytpu_torch', '--help']\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as help_text:\n"
+        "    try:\n"
+        "        runpy.run_module('raytpu_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "assert 'dashboard' in help_text.getvalue()\n"
+        "print(json.dumps(sorted(sys.modules)))")
+    assert "raytpu_torch.scripts.cli" in loaded
+    assert [m for m in loaded if _forbidden(m)
+            or m.split(".")[0] in HTTP_PACKAGES] == []
+
+
+def test_started_servers_load_no_jax_raytpu_aiohttp_or_requests():
+    loaded = _loaded(
+        "import json, sys, urllib.request\n"
+        "from raytpu_torch.dashboard import DashboardServer\n"
+        "from raytpu_torch.job import JobManager, JobServer, "
+        "JobSubmissionClient\n"
+        "import tempfile\n"
+        "dash = DashboardServer(port=0)\n"
+        "url = dash.start()\n"
+        "for path in ('/', '/api/summary', '/stacks', "
+        "'/profile?duration=0.1', '/api/profile'):\n"
+        "    with urllib.request.urlopen(url + path, timeout=60) as r:\n"
+        "        assert r.status == 200, path\n"
+        "jobs = JobServer(JobManager(log_dir=tempfile.mkdtemp()))\n"
+        "client = JobSubmissionClient(jobs.start())\n"
+        "job = client.submit_job(entrypoint='true')\n"
+        "assert client.wait_until_finished(job, 60) == 'SUCCEEDED'\n"
+        "jobs.stop()\n"
+        "dash.stop()\n"
+        "print(json.dumps(sorted(sys.modules)))")
+    assert {"raytpu_torch.dashboard.app", "raytpu_torch.job.server",
+            "raytpu_torch.util.http_server"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)
+            or m.split(".")[0] in HTTP_PACKAGES] == []
