@@ -81,8 +81,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     counts them, an iteration's split (env step, sampling forward with
     its copies, update, the rest) and the device's busy share; one
     rollout update on the card against the same update on the CPU,
-    which takes the card's branch at each kink (RL_STEP_TOL); the same
-    rates with device="cpu" as a CPU reading;
+    which takes the card's branch at each kink (RL_STEP_TOL);
 17. RL pixel PPO: the conv module on Catch-v0 with FrameStack(2), 16
     envs x 40 steps: iteration times, a greedy evaluation, the card
     against the CPU as in phase 16;
@@ -123,11 +122,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     the device-memory gauges equal to the allocator's; the same traffic
     with everything off giving the same tokens to the bit and the same
     launches of all five kernels; two decode steps inside
-    ``tracing.profile`` whose trace names the paged and RMSNorm kernels.
-    Readings: the per-token cost of all hooks and of each alone, each
-    run beside a run with everything off, over four rounds in turns; the
-    same for single decode steps of eight in one engine; and the hooks'
-    host µs a decode step;
+    ``tracing.profile`` whose trace names the paged and RMSNorm kernels;
+    each hook alone (events, spans, the step profiler) over the same
+    traffic, with the same tokens and launches as the off run. Reading:
+    the hooks' host µs a decode step;
 22. RL with remote runners (run after phase 18): PPO at phase 16's
     config with 0, 2 and 4 runner processes of the port's runtime (64 /
     n envs each, the same 4096 env steps an iteration): env-steps/s, the
@@ -148,8 +146,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     ``DataParallelTrainer`` at world size 1 on the card (NCCL), in a
     worker process; GPT-2 saves its model and AdamW state with
     ``save_pytree`` after step 6 and a second fit resumes from that
-    checkpoint. Readings: tokens/s and step ms through the trainer beside
-    phase 9's bare loop, the checkpoint's seconds, each fit's seconds;
+    checkpoint. Each gang runs in a STRICT_PACK placement group of one
+    bundle, a CPU and the card, which ``fit`` removes; while ResNet-50's
+    gang holds the card a task asks for half of it, and runs only once
+    the group is gone. Readings: tokens/s and step ms through the trainer
+    beside phase 9's bare loop, the checkpoint's seconds, each fit's
+    seconds;
     ResNet-50's images/s, step ms, MFU, peak memory and a profiled step's
     busy share. Fails unless the worker launched the flash kernels 24, 12
     and 12 times a GPT-2 step and no kernel for ResNet-50 (this process
@@ -211,13 +213,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     124M trials (full width and depth, phase 9's batch of 8 x 1024, full
     remat, fp32 parameters, bf16 compute, AdamW) through
     ``raytpu_torch.tune``: a grid of four learning rates under ASHA over
-    the loss (rungs at 2 and 4 steps, max_t 6), two trial processes on
-    the card at a time, a report a step, a DCP checkpoint a trial at step
+    the loss (rungs at 2 and 4 steps, max_t 6), each trial asking the
+    ledger for a CPU and half the card (``resources_per_trial``), so two
+    trial processes run on the card at a time, bound to it, a report a
+    step, a DCP checkpoint a trial at step
     4; the trial at the largest rate takes step 5, raises once, and is
     retried from that checkpoint (``FailureConfig(max_failures=1)``).
     Fails unless every trial process launched the flash kernels 24, 12
     and 12 times a step and paged attention and RMSNorm never, without
-    JAX and under ``__mp_main__``; this process launched nothing and
+    JAX, under ``__mp_main__`` and bound to the card, no more than two
+    ran at once; this process launched nothing and
     loaded no JAX; every trial's first loss is the same to the bit; the
     tuner's ASHA decisions equal a fresh scheduler's fed the same results
     in the same order, and each trial it stopped keeps no result past its
@@ -330,10 +335,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     join, model and first token. Phase 3 warms the profiler first; a
     library's device reading the profiler misses is null, a kernel's
     still fails the run.
+31. The card as a resource (after phase 26; this process launches no
+    kernel): a task worker reads the tree's resources from the driver's
+    ledger (one ``"GPU"``) without setting CUDA up; two GPT-2 124M actors
+    (full width and depth, phase 7's seed) at ``num_gpus=0.5``, one with
+    ``max_restarts=1``, each bound to the card (``CUDA_VISIBLE_DEVICES``)
+    and reading no share left, serve phase 7's prompts at once with
+    tokens and flash and paged launches equal to phase 7's; a third
+    actor at 0.5 gets no answer within 2 s while they hold the card; the
+    restartable actor, SIGKILLed during a generate, fails that call with
+    ActorDiedError, answers again from a new pid with the same binding,
+    ``was_current_actor_reconstructed`` and phase 7's tokens, and reads
+    RESTARTED then CREATED in the driver's state API; killed again it is
+    DEAD and the third actor is admitted. No process of the phase loads
+    JAX and none is left. Readings: each actor's start (fork, CUDA
+    context, GPT-2's build), the restart's seconds (SIGKILL to the first
+    answer), the third actor's wait and the ledger's admission of it.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it
-is the card's name and power limit, and the one before that lists every
-kernel with its launches, error, times and bound.
+Before the kernels line, ``{"phase_seconds": {...}}`` gives each phase's
+seconds in the order run (the builds and the models' constructions
+among them) and the script's total. The last line is ``{"ok": true,
+"device": {...}}``; the line before it is the card's name and power
+limit, and the one before that lists every kernel with its launches,
+error, times and bound.
 """
 
 from __future__ import annotations
@@ -2697,17 +2721,12 @@ def phase_disagg(card_line: str) -> dict:
 
 # ---- phase 21: observability -----------------------------------------
 
-# Rounds of the overhead reading. Each round serves the traffic in one
-# adjacent pair a flag arm: off then on in even rounds, on then off in
-# odd ones (off, on, on, off, ...), so each arm is read against an off run
-# beside it, first as often as second.
-# (10 rounds at first, cut to 8, 6 and 4 as phases were added: with
-# phase 26 the whole script took 752 s at 6 rounds on one host, over half
-# its 1200 s limit; cut to 2 with phase 27, the least that still reads
-# each arm once first and once second. Its result was unresolved,
-# +-20-60 %, at every count tried; its on/off checks of tokens and
-# launches run every round.)
-OBS_ROUNDS = 2
+# (g) was a reading of each hook's cost: each arm against an adjacent
+# off run in rounds, in turns, then decode steps of eight paired 40
+# rounds. It stayed unresolved (+-20-60 %) at every count from 10 rounds
+# down to 2, and took 82 s of a 682 s script; each arm now runs once,
+# its tokens and launches held to the off run, and only the hooks' host
+# µs a decode step is read.
 OBS_ARMS = {"off": (False, False, False), "all": (True, True, True),
             "events": (True, False, False), "spans": (False, True, False),
             "profiler": (False, False, True)}
@@ -2719,8 +2738,6 @@ JAX_CPU_EVENTS_OVERHEAD_PCT = 0.89
 # same float64 operations, so only the last bits may differ.
 MFU_REL = 1e-12
 HOOK_CALLS = 2000
-# Rounds of the step-paired reading: one decode step an arm a round.
-STEP_PAIR_ROUNDS = 40
 HBM_EVERY = 32  # the engine observes device memory every 32nd decode step
 # Every request's events, in the JAX package's order: the first token is
 # sampled inside the call that ends the prefill, so FIRST_TOKEN comes
@@ -3017,67 +3034,6 @@ def hook_costs(device, events_per_decode_step: float) -> dict:
     return out
 
 
-def spread(xs) -> dict:
-    return {"median": float(np.median(xs)), "min": float(min(xs)),
-            "max": float(max(xs))}
-
-
-def in_turns(rounds: int):
-    """(arm, the two arms of its pair in the order they run) for each
-    round and flag arm: (off, arm) in even rounds, (arm, off) in odd."""
-    for r in range(rounds):
-        for arm in list(OBS_ARMS)[1:]:
-            yield arm, (("off", arm) if r % 2 == 0 else (arm, "off"))
-
-
-def decode_step_pairs(model) -> dict:
-    """(g): one engine's decode steps at batch 8 and 1024+ tokens (the
-    profile phase's workload), each arm's flags set before its step, one
-    step an arm a round for STEP_PAIR_ROUNDS rounds in turns. A step's
-    host time ends with the logits' host copy, so it holds the device's
-    work; each arm is read against its round's step with everything
-    off."""
-    from raytpu_torch.inference import InferenceEngine, SamplingParams
-
-    rng = np.random.default_rng(3)
-    eng = InferenceEngine(model, page_size=16, max_num_seqs=8,
-                          max_model_len=2048, prefill_chunk=512)
-    steps = STEP_PAIR_ROUNDS * (len(OBS_ARMS) - 1) * 2
-    for i in range(8):
-        eng.add_request(f"d{i}", rng.integers(
-            0, model.config.vocab_size, 1024).tolist(),
-            SamplingParams(max_new_tokens=steps + 16))
-    while eng.stats()["decode_batch_hist"][-3:] != [8, 8, 8]:
-        eng.step()  # both prefill chunks, then warm decode steps
-    warm = len(eng.stats()["decode_batch_hist"])
-    pairs = {arm: [] for arm in list(OBS_ARMS)[1:]}
-    try:
-        for arm, turn in in_turns(STEP_PAIR_ROUNDS):
-            ms = {}
-            for side in turn:
-                set_observability(*OBS_ARMS[side])
-                t0 = time.perf_counter()
-                eng.step()
-                ms[side] = (time.perf_counter() - t0) * 1e3
-            pairs[arm].append((ms["off"], ms[arm]))
-    finally:
-        set_observability(False, False, False)
-    timed = eng.stats()["decode_batch_hist"][warm:]
-    del eng
-    torch.cuda.empty_cache()
-    if timed != [8] * steps:
-        raise AssertionError(f"the paired steps were not all decode steps "
-                             f"of eight: {timed}")
-    return {"rounds": STEP_PAIR_ROUNDS,
-            "off_step_ms": spread([o for ps in pairs.values()
-                                   for o, _ in ps]),
-            "delta_us": {arm: spread([(a - o) * 1e3 for o, a in ps])
-                         for arm, ps in pairs.items()},
-            "delta_pct": {arm: spread([(a / o - 1.0) * 100.0
-                                       for o, a in ps])
-                          for arm, ps in pairs.items()}}
-
-
 def phase_observability(model, card_line: str) -> dict:
     """Llama-2-7B (full width and depth, phase 5's engine and prompts,
     plus a 64-token request aborted while it decodes) driven through
@@ -3091,10 +3047,9 @@ def phase_observability(model, card_line: str) -> dict:
     gauges equal to the allocator's at each observation; (e) the same
     traffic with everything off: the same tokens to the bit, the same
     launches; (f) two decode steps inside ``tracing.profile``, whose
-    trace names the paged and RMSNorm kernels; (g) a reading: the
-    per-token cost of each arm against an adjacent off run over
-    OBS_ROUNDS rounds in turns, the collector's share of each run, decode
-    steps of eight paired the same way in one engine, and the hooks' host
+    trace names the paged and RMSNorm kernels; (g) each hook alone
+    (events, spans, the profiler) over the same traffic, with the same
+    tokens and launches as the off run; and a reading: the hooks' host
     µs a decode step."""
     from raytpu_torch.util import task_events, tracing
     from raytpu_torch.util.stepprof import step_profiler
@@ -3171,32 +3126,15 @@ def phase_observability(model, card_line: str) -> dict:
             f"on against {off['launches']} off")
     # (f)
     profiled = profile_two_decode_steps(model)
-    # (g)
-    pairs = {arm: [] for arm in list(OBS_ARMS)[1:]}
-    for arm, turn in in_turns(OBS_ROUNDS):
-        rows = {}
-        for side in turn:
-            res = serve(side)[0]
-            if res["tokens"] != off["tokens"] or \
-                    res["launches"] != off["launches"]:
-                raise AssertionError(f"{side} (paired with {arm}): tokens "
-                                     f"or launches differ from the off run")
-            n_tokens = sum(len(t) for t in res["tokens"].values())
-            rows[side] = {
-                "s_per_token": res["wall_s"] / n_tokens,
-                "decode_step_ms": res["decode_tokens"]
-                / res["decode_tokens_per_s"] / res["decode_steps"] * 1e3,
-                "gc_s": res["gc"]["s"], "gc_full": res["gc"]["full"]}
-        pairs[arm].append((rows["off"], rows[arm]))
-    overhead = {arm: spread([(a["s_per_token"] / o["s_per_token"] - 1.0)
-                             * 100.0 for o, a in ps])
-                for arm, ps in pairs.items()}
-    step_us = {arm: spread([(a["decode_step_ms"] - o["decode_step_ms"])
-                            * 1e3 for o, a in ps])
-               for arm, ps in pairs.items()}
-    runs = {"off": [o for ps in pairs.values() for o, _ in ps],
-            **{arm: [a for _, a in ps] for arm, ps in pairs.items()}}
-    step_pairs = decode_step_pairs(model)
+    # (g): each hook alone.
+    alone = {}
+    for arm in list(OBS_ARMS)[2:]:
+        res = serve(arm)[0]
+        if res["tokens"] != off["tokens"] or \
+                res["launches"] != off["launches"]:
+            raise AssertionError(f"{arm} alone: tokens or launches differ "
+                                 f"from the off run")
+        alone[arm] = res["wall_s"]
     hooks = hook_costs(torch.device("cuda", torch.cuda.current_device()),
                        checked["events"] / checked["decode_steps"])
     result = {
@@ -3207,22 +3145,7 @@ def phase_observability(model, card_line: str) -> dict:
         "tokens_equal_on_off": True, "launches": on["launches"],
         "wall_s_on": on["wall_s"], "wall_s_off": off["wall_s"],
         "profile": profiled,
-        "rounds": OBS_ROUNDS,
-        "per_token_overhead_pct": overhead,
-        "s_per_token_pairs": {arm: [[o["s_per_token"], a["s_per_token"]]
-                                    for o, a in ps]
-                              for arm, ps in pairs.items()},
-        "decode_step_host_delta_us": step_us,
-        "decode_step_ms_off": spread([o["decode_step_ms"]
-                                      for o in runs["off"]]),
-        # The collector's share of each arm's runs: retained spans and
-        # events are objects that survive, which drives passes.
-        "gc_s_per_run": {arm: spread([r["gc_s"] for r in rows])
-                         for arm, rows in runs.items()},
-        "gc_full_per_run": {arm: spread([r["gc_full"] for r in rows])
-                            for arm, rows in runs.items()},
-        "s_per_token_off": spread([o["s_per_token"] for o in runs["off"]]),
-        "decode_step_pairs": step_pairs,
+        "wall_s_alone": alone,
         "hooks": hooks,
         "decode_step_ms_perf_md": 24.1,
         "jax_cpu_events_overhead_pct": JAX_CPU_EVENTS_OVERHEAD_PCT,
@@ -3233,16 +3156,8 @@ def phase_observability(model, card_line: str) -> dict:
     log(f"[observability] {json.dumps(result)} | {card_line}")
     log(f"[observability] MFU {checked['mfu_last_step']:.4f} of the last "
         f"decode step against {checked['peak_flops']:.4g} FLOP/s "
-        f"({torch.cuda.get_device_name(0)}); per-token overhead, median "
-        f"(min, max) over {OBS_ROUNDS} paired rounds: " + "; ".join(
-            f"{arm} {v['median']:+.2f} % ({v['min']:+.2f}, "
-            f"{v['max']:+.2f})" for arm, v in overhead.items())
-        + f"; hooks {hooks['decode_step_hooks_us']:.1f} µs a decode step; "
-        f"decode steps of eight, paired over {STEP_PAIR_ROUNDS} rounds, "
-        f"median µs: " + ", ".join(
-            f"{arm} {v['median']:+.0f}" for arm, v in
-            step_pairs["delta_us"].items())
-        + f" against {step_pairs['off_step_ms']['median']:.2f} ms off "
+        f"({torch.cuda.get_device_name(0)}); hooks "
+        f"{hooks['decode_step_hooks_us']:.1f} µs a decode step "
         f"| {card_line}")
     return result
 
@@ -4239,8 +4154,9 @@ def ppo_rates(algo) -> dict:
 def phase_rl_ppo(card_line: str) -> dict:
     """PPO at the north-star config (bench_ppo's) on the card: one update
     on the card against the CPU's after four iterations; the two rates,
-    an iteration's split and the device's busy share; and, labelled as a CPU reading, the
-    same rates with device="cpu" on this machine."""
+    an iteration's split and the device's busy share. (The same rates
+    with device="cpu", a reading of the host and no check, went with the
+    script's 600 s budget.)"""
     algo = ppo_config("cuda").build()
     if not (_on_device(algo.learner.params, "cuda") and _on_device(
             algo.env_runner_group.local_runner.params, "cuda")):
@@ -4265,10 +4181,6 @@ def phase_rl_ppo(card_line: str) -> dict:
         "top_kernels")}
     result["card_against_cpu"] = against
     algo.stop()
-    cpu = ppo_config("cpu").build()
-    result["cpu_reading"] = {"what": "the same loop with device='cpu' "
-                             "on this machine's host CPU", **ppo_rates(cpu)}
-    cpu.stop()
     log(f"[rl-ppo] {json.dumps(result)} | {card_line}")
     if not result["metrics_finite"]:
         raise AssertionError(f"PPO: a metric is not finite: {r}")
@@ -5137,6 +5049,58 @@ def fit_in_gang(loop, config: dict, name: str, storage: str,
     return result, time.perf_counter() - t0
 
 
+def fit_in_group(fit, waiting_task: bool = False):
+    """Phase 23's placement check around one fit: the gang's group, as
+    the driver's ledger shows it while the fit runs, must be removed
+    once the fit ends. With ``waiting_task``, once the group holds the
+    card a task asks for half of it; it must not run while the group
+    lives, and must run once the group is removed. Returns the fit's own
+    return and the check's readings."""
+    from raytpu_torch import runtime
+    from raytpu_torch.runtime import api
+
+    out = {}
+
+    def run() -> None:
+        try:
+            out["fit"] = fit()
+        except BaseException as exc:  # raised below, in the phase
+            out["error"] = exc
+
+    fitting = threading.Thread(target=run, daemon=True)
+    fitting.start()
+    end = time.perf_counter() + RESOURCE_DEADLINE_S
+    while not api._ledger().groups():
+        if "error" in out:
+            raise out["error"]
+        if time.perf_counter() > end or not fitting.is_alive():
+            raise AssertionError("phase 23: the gang's group never showed")
+        time.sleep(0.01)
+    [group] = api._ledger().groups()
+    ref = runtime.remote(resource_probe).options(
+        num_gpus=RESOURCE_SHARE).remote() if waiting_task else None
+    ran_early = False
+    while api._ledger().group_info(group["id"]) is not None:
+        ran_early = ran_early or (
+            ref is not None and bool(runtime.wait([ref], timeout=0)[0]))
+        time.sleep(0.05)
+    removed_at = time.time()
+    fitting.join(RESOURCE_DEADLINE_S)
+    if "error" in out:
+        raise out["error"]
+    if "fit" not in out:
+        raise AssertionError("phase 23: the fit in its group never ended")
+    readings = {"group": group}
+    if ref is not None:
+        probe = runtime.get(ref, timeout=RESOURCE_DEADLINE_S)
+        readings.update({
+            "ran_while_group_lived": ran_early,
+            "task_visible": probe["visible"],
+            "task_started_after_removal_s": probe["started_at"] - removed_at,
+            "task_forbidden": probe["forbidden"]})
+    return out["fit"], readings
+
+
 def _losses(result) -> list:
     """The tensor-fed steps' losses (phase 28's dataset-fed ones are
     reported apart)."""
@@ -5313,11 +5277,11 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
                    "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
                    "ckpt_step": TRAINLIB_CKPT_STEP,
                    "resumed_steps": TRAINLIB_RESUMED_STEPS}
-    gpt, gpt_fit_s = fit_in_gang(gpt2_trainer_loop, gpt2_config, "gpt2",
-                                 storage)
-    resumed, resumed_fit_s = fit_in_gang(gpt2_trainer_loop, gpt2_config,
-                                         "gpt2-resumed", storage,
-                                         resume=gpt.checkpoint)
+    (gpt, gpt_fit_s), gpt_group = fit_in_group(
+        lambda: fit_in_gang(gpt2_trainer_loop, gpt2_config, "gpt2", storage))
+    (resumed, resumed_fit_s), resumed_group = fit_in_group(
+        lambda: fit_in_gang(gpt2_trainer_loop, gpt2_config, "gpt2-resumed",
+                            storage, resume=gpt.checkpoint))
     resnet_config = {"resnet": ResNetConfig.resnet50(),
                      "batch": RESNET_BATCH, "size": RESNET_SIZE,
                      "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
@@ -5334,9 +5298,10 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
     set_records(True, metrics_too=False)
     runtime.init(num_cpus=DATASET_POOL_CPUS)
     wire0 = object_store.stats()
-    resnet, resnet_fit_s = fit_in_gang(resnet_trainer_loop, resnet_config,
-                                       "resnet50", storage,
-                                       datasets={"train": ds})
+    (resnet, resnet_fit_s), waiting = fit_in_group(
+        lambda: fit_in_gang(resnet_trainer_loop, resnet_config, "resnet50",
+                            storage, datasets={"train": ds}),
+        waiting_task=True)
     wire1 = object_store.stats()
     del ds
     gc.collect()
@@ -5395,8 +5360,22 @@ def phase_trainlib(card_line: str, bare: dict) -> dict:
     launches = {name: g["launches"][name] + gr["launches"][name]
                 + r["launches"][name] for name in g["launches"]}
     result["launches"] = launches
+    seen = [gpt_group["group"], resumed_group["group"], waiting["group"]]
+    card = runtime.api._ledger().card_ids[0]
+    result["placement"] = {
+        "groups": [{k: grp[k] for k in ("strategy", "bundles", "cards")}
+                   for grp in seen],
+        "left": runtime.api._ledger().groups(), **waiting}
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"[trainlib] {json.dumps(result)} | {card_line}")
+    # Each gang in a STRICT_PACK group of one bundle of a CPU and the
+    # card, removed after its fit; the task waited for the card.
+    if result["placement"]["groups"] != [{
+            "strategy": "STRICT_PACK", "bundles": [{"CPU": 1.0, "GPU": 1.0}],
+            "cards": [[0]]}] * 3 or result["placement"]["left"] or \
+            waiting["ran_while_group_lived"] or \
+            waiting["task_visible"] != card or waiting["task_forbidden"]:
+        raise AssertionError(f"phase 23: placement {result['placement']}")
     n_layer = gcfg.n_layer
     per_step = {"flash_forward": 2 * n_layer, "flash_bwd_dq": n_layer,
                 "flash_bwd_dkv": n_layer, "paged_attention": 0, "rmsnorm": 0}
@@ -7420,7 +7399,10 @@ TUNE_CRASH_LR = 6e-4  # the largest: its loss leads each rung it reaches
 TUNE_MAX_T = 6
 TUNE_GRACE = 2
 TUNE_FACTOR = 2
-TUNE_CONCURRENT = 2
+# Each trial's request of the ledger: a CPU and half the card, so two
+# trials hold the card at a time (the tuner's own limit is the grid).
+TUNE_RESOURCES = {"CPU": 1, "GPU": 0.5}
+TUNE_ON_CARD = 2
 TUNE_CKPT_STEP = 4
 TUNE_FIT_DEADLINE_S = 300.0
 
@@ -7494,7 +7476,9 @@ def gpt2_tune_trainable(config):
                    if dev.type == "cuda" else 0.0}
         if first:
             metrics.update(started_at=started, resumed_from=done,
-                           facts=process_facts(), start_split={
+                           facts={**process_facts(), "visible": os.environ
+                                  .get("CUDA_VISIBLE_DEVICES")},
+                           start_split={
                                "to_trainable_s": entered - started,
                                "build_s": built - entered,
                                "first_step_s": metrics["span"][1] - built})
@@ -7567,8 +7551,9 @@ def replay_asha(calls) -> list:
 
 def run_tune(device: str, gcfg, batch: int) -> dict:
     """The experiment: a Tuner over ``gpt2_tune_trainable``, one trial a
-    learning rate, ASHA, two at a time, one retry allowed. Its grid, the
-    scheduler's log, the crash marker and the fit's seconds."""
+    learning rate, ASHA, each trial asking for TUNE_RESOURCES (two on the
+    card at a time), one retry allowed. Its grid, the scheduler's log,
+    the crash marker and the fit's seconds."""
     import multiprocessing
 
     from raytpu_torch import tune
@@ -7586,7 +7571,8 @@ def run_tune(device: str, gcfg, batch: int) -> dict:
                      "crash_lr": TUNE_CRASH_LR, "marker": marker},
         tune_config=tune.TuneConfig(
             metric="loss", mode="min", scheduler=asha,
-            max_concurrent_trials=TUNE_CONCURRENT, device=device),
+            max_concurrent_trials=len(TUNE_LRS), device=device,
+            resources_per_trial=TUNE_RESOURCES),
         run_config=RunConfig(name="gpt2-tune", storage_path=storage,
                              failure_config=FailureConfig(max_failures=1)))
     out = {}
@@ -7621,8 +7607,11 @@ def tune_readings(run: dict, per_step: dict) -> dict:
     # checkpoint was rolled back; the crash marker holds its numbers).
     reports = [(t, m) for t in trials for m in t.history]
     firsts = [m for _, m in reports if "facts" in m]
+    from raytpu_torch.runtime import api
+
+    card = api._ledger().card_ids[0]
     for m in firsts:
-        if m["facts"]["forbidden"] or (
+        if m["facts"]["visible"] != card or m["facts"]["forbidden"] or (
                 m["facts"]["main"][1] == "chip_smoke.py"
                 and m["facts"]["main"][0] != "__mp_main__"):
             raise AssertionError(f"tune: a trial process: {m['facts']}")
@@ -7682,6 +7671,17 @@ def tune_readings(run: dict, per_step: dict) -> dict:
     if run["left"]:
         raise AssertionError(f"tune: trial processes left: {run['left']}")
 
+    # The ledger's share: at no moment more than TUNE_ON_CARD trial
+    # processes between their first step's start and last step's end.
+    spans: dict = {}
+    for _, m in reports:
+        lo, hi = spans.get(m["pid"], (m["span"][0], m["span"][1]))
+        spans[m["pid"]] = (min(lo, m["span"][0]), max(hi, m["span"][1]))
+    on_card = max(sum(1 for a, b in spans.values() if a <= t < b)
+                  for t, _ in spans.values())
+    if on_card > TUNE_ON_CARD:
+        raise AssertionError(f"tune: {on_card} trials on the card at once")
+
     # Readings. A step is shared when another trial's step overlaps it;
     # a process's first step (warm-up, allocation) is left out.
     alone, shared = [], []
@@ -7713,6 +7713,7 @@ def tune_readings(run: dict, per_step: dict) -> dict:
         if shared else "not measured",
         "n_alone": len(alone), "n_shared": len(shared),
         "fit_s": run["fit_s"], "steps_s": steps_s,
+        "most_trials_on_card": on_card,
         "overhead_s": run["fit_s"] - steps_s,
         "retry_s": resumed[0]["span"][1] - run["crash"]["at"],
         "peak_gb": max(m["peak_gb"] for _, m in reports),
@@ -7753,6 +7754,264 @@ def phase_tune(card_line: str, bare: dict, trainlib: dict) -> dict:
     result["trainer_step_ms"] = trainlib["gpt2"]["step_ms"]
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"[tune] {json.dumps(result)} | {card_line}")
+    return result
+
+
+# ---- phase 31: the card as a resource --------------------------------
+
+RESOURCE_SHARE = 0.5       # each GPT-2 actor's share of the card
+RESOURCE_WAIT_S = 2.0      # the third actor's first call: no answer in it
+RESOURCE_DEADLINE_S = 300.0  # any one get, start or poll of this phase
+
+
+def resource_probe(_=None) -> dict:
+    """Run as a task: what this worker reads of the tree's resources, its
+    binding, and whether it has set CUDA up (a detection must not)."""
+    from raytpu_torch import runtime
+
+    return {"pid": os.getpid(), "cluster": runtime.cluster_resources(),
+            "available": runtime.available_resources(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "started_at": time.time(), **process_facts()}
+
+
+class Gpt2Server:
+    """Phase 31's actor: GPT-2 124M from phase 7's seed, built in its
+    process on the card it is bound to; ``serve`` drives phase 7's
+    prompts through ``drive_engine`` (launch counters of this process
+    set to 0 just before). Its start split: the fork (its owner's start
+    to the worker's body), the CUDA context and GPT-2's build."""
+
+    def __init__(self):
+        from raytpu_torch.models.gpt2 import GPT2, GPT2Config
+        from raytpu_torch.runtime import api
+
+        t0 = time.time()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        self.model = GPT2(GPT2Config.small(), device="cuda", seed=0)
+        torch.cuda.synchronize()
+        marks = api.START_MARKS
+        self.split = {"fork_s": marks["entered"] - marks["spawned"],
+                      "to_constructor_s": t0 - marks["entered"],
+                      "cuda_context_s": t1 - t0,
+                      "gpt2_build_s": time.time() - t1}
+
+    def facts(self) -> dict:
+        from raytpu_torch import get_runtime_context, runtime
+
+        ctx = get_runtime_context()
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(self.model.device),
+                "available_gpu": runtime.available_resources().get(
+                    "GPU", 0.0),
+                "reconstructed": ctx.was_current_actor_reconstructed,
+                "actor_id": ctx.get_actor_id().hex(), "split": self.split,
+                **process_facts()}
+
+    def serve(self, marker: str = "") -> dict:
+        """Phase 7's traffic; with ``marker``, a file written at the
+        engine's first output (the owner kills this process then)."""
+        from raytpu_torch.inference import engine as engine_mod
+
+        step = engine_mod.InferenceEngine.step
+
+        def marked(eng):
+            out = step(eng)
+            if out and marker and not os.path.exists(marker):
+                with open(marker, "w") as f:
+                    f.write(str(os.getpid()))
+            return out
+
+        prompts = gpt2_serve_prompts(np.random.default_rng(1),
+                                     self.model.config.vocab_size)
+        engine_mod.InferenceEngine.step = marked
+        try:
+            result = drive_engine(self.model, prompts, GPT2_SERVE_ARRIVALS,
+                                  0, max_model_len=self.model.config
+                                  .block_size,
+                                  prefill_chunk=GPT2_SERVE_CHUNK)
+        finally:
+            engine_mod.InferenceEngine.step = step
+        return {"tokens": result["tokens"], "launches": result["launches"],
+                "wall_s": result["wall_s"], "pid": os.getpid()}
+
+
+class CardWaiter:
+    """Phase 31's third actor: it asks for a share of the card and only
+    reports where it was bound."""
+
+    def __init__(self):
+        self.constructed_at = time.time()
+
+    def facts(self) -> dict:
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "constructed_at": self.constructed_at, **process_facts()}
+
+
+def actor_transitions(actor_id: str) -> list:
+    """The actor's transitions in the driver's state API."""
+    from raytpu_torch import state
+
+    for a in state.list_actors(detail=True)["actors"]:
+        if a["actor_id"] == actor_id:
+            return [e["transition"] for e in a.get("events", [])]
+    return []
+
+
+def phase_resources(card_line: str, gpt2_serve: dict) -> dict:
+    """GPT-2 124M actors sharing, waiting for and restarting on the card
+    through the runtime's ledger (see the module docstring); the actors'
+    own launch counters, set to 0 just before each run, are the phase's
+    launches."""
+    import multiprocessing
+    import signal
+
+    from raytpu_torch import runtime
+    from raytpu_torch.core.errors import ActorDiedError
+    from raytpu_torch.runtime import api
+    from raytpu_torch.util import task_events
+
+    t_phase = time.perf_counter()
+    before = {p.pid for p in multiprocessing.active_children()}
+    card = api._ledger().card_ids[0]
+    want = {k: gpt2_serve["launches"][k]
+            for k in ("flash_forward", "paged_attention")}
+    # The owner (this process) records its actors' CREATED, RESTARTED
+    # and DEAD in the driver's store; no child needs arming.
+    armed = task_events.enabled()
+    task_events.enable_task_events()
+    # The probe's task starts the tree's pool where no phase left one:
+    # this phase stops what it started.
+    own_pool = api._POOL is None
+    a = b = c = None
+    launches = []
+    try:
+        # 1. detection: a task worker reads the card without CUDA.
+        probe = runtime.get(runtime.remote(resource_probe).remote(),
+                            timeout=RESOURCE_DEADLINE_S)
+        # 2. two actors share the card.
+        t0 = time.perf_counter()
+        server = runtime.remote(Gpt2Server)
+        a = server.options(num_gpus=RESOURCE_SHARE, max_restarts=1).remote()
+        b = server.options(num_gpus=RESOURCE_SHARE).remote()
+        facts = runtime.get([a.facts.remote(), b.facts.remote()],
+                            timeout=RESOURCE_DEADLINE_S)
+        both_up_s = time.perf_counter() - t0
+        runs = runtime.get([a.serve.remote(), b.serve.remote()],
+                           timeout=RESOURCE_DEADLINE_S)
+        launches += [r["launches"] for r in runs]
+        # 3. a third waits while the two hold the card.
+        c = runtime.remote(CardWaiter).options(
+            num_gpus=RESOURCE_SHARE).remote()
+        asked = time.perf_counter()
+        c_ref = c.facts.remote()
+        early, _ = runtime.wait([c_ref], timeout=RESOURCE_WAIT_S)
+        # 4. the max_restarts=1 actor killed during a generate.
+        marker = os.path.join(tempfile.mkdtemp(prefix="resources-"), "m")
+        killed_ref = a.serve.remote(marker)
+        end = time.perf_counter() + RESOURCE_DEADLINE_S
+        while not os.path.exists(marker):
+            if time.perf_counter() > end:
+                raise AssertionError("phase 31: the generate never began")
+            time.sleep(0.01)
+        os.kill(facts[0]["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        died = None
+        try:
+            runtime.get(killed_ref, timeout=RESOURCE_DEADLINE_S)
+        except ActorDiedError as exc:
+            died = str(exc)[:200]
+        restarted = runtime.get(a.facts.remote(),
+                                timeout=RESOURCE_DEADLINE_S)
+        restart_s = time.perf_counter() - t_kill
+        again = runtime.get(a.serve.remote(), timeout=RESOURCE_DEADLINE_S)
+        launches.append(again["launches"])
+        after_restart = actor_transitions(facts[0]["actor_id"])
+        # The second death is final: the share goes to the third actor.
+        os.kill(restarted["pid"], signal.SIGKILL)
+        third = runtime.get(c_ref, timeout=RESOURCE_DEADLINE_S)
+        third_wait_s = time.perf_counter() - asked
+        final = None
+        try:
+            runtime.get(a.facts.remote(), timeout=RESOURCE_DEADLINE_S)
+        except ActorDiedError as exc:
+            final = str(exc)[:200]
+        end = time.perf_counter() + RECORDS_DEADLINE_S
+        while actor_transitions(facts[0]["actor_id"])[-1:] != ["DEAD"]:
+            if time.perf_counter() > end:
+                raise AssertionError(f"phase 31: the killed actor is not "
+                                     f"DEAD: {actor_transitions(facts[0]['actor_id'])}")
+            time.sleep(0.05)
+        transitions = actor_transitions(facts[0]["actor_id"])
+        admissions = api._ledger().admissions()
+    finally:
+        for h in (a, b, c):
+            if h is not None:
+                runtime.kill(h)
+        if own_pool:
+            runtime.shutdown()
+        if not armed:
+            task_events.disable_task_events()
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    processes = [probe, *facts, restarted, third]
+    result = {
+        "card": card, "share": RESOURCE_SHARE,
+        "probe": {k: probe[k] for k in ("cluster", "available", "visible",
+                                        "cuda_initialized")},
+        "start_split": {"a": facts[0]["split"], "b": facts[1]["split"],
+                        "a_restarted": restarted["split"]},
+        "both_up_s": both_up_s,
+        "visible": [f["visible"] for f in (*facts, restarted, third)],
+        "available_gpu_while_both": [f["available_gpu"] for f in facts],
+        "third_early_answer": bool(early),
+        "third_wait_s": third_wait_s,
+        "restart_s": restart_s, "killed_call": died, "final_death": final,
+        "transitions": transitions, "after_restart": after_restart,
+        "admissions": admissions,
+        "tokens_equal": [r["tokens"] == gpt2_serve["tokens"]
+                         for r in (*runs, again)],
+        "launches": {name: sum(l[name] for l in launches)
+                     for name in launches[0]},
+        "left": left, "phase_s": time.perf_counter() - t_phase}
+    log(f"[resources] {json.dumps(result)} | {card_line}")
+    if probe["cluster"].get("GPU") != 1.0 or probe["cuda_initialized"]:
+        raise AssertionError(f"phase 31: detection {result['probe']}")
+    if any(v != card for v in result["visible"]):
+        raise AssertionError(f"phase 31: bindings {result['visible']}, "
+                             f"the card is {card}")
+    if result["available_gpu_while_both"] != [0.0, 0.0]:
+        raise AssertionError(f"phase 31: the card's share left while both "
+                             f"ran: {result['available_gpu_while_both']}")
+    if not all(result["tokens_equal"]):
+        raise AssertionError(f"phase 31: tokens against phase 7's: "
+                             f"{result['tokens_equal']}")
+    for run_launches in launches:
+        check_launches(run_launches, {**want, "rmsnorm": 0,
+                                      "flash_bwd_dq": 0,
+                                      "flash_bwd_dkv": 0})
+    if early:
+        raise AssertionError("phase 31: the third actor answered while the "
+                             "two held the card")
+    if died is None or final is None:
+        raise AssertionError(f"phase 31: the killed call {died!r}, the "
+                             f"second death {final!r}")
+    if restarted["pid"] == facts[0]["pid"] or not restarted["reconstructed"] \
+            or facts[0]["reconstructed"]:
+        raise AssertionError(f"phase 31: the restart {restarted}")
+    if after_restart != ["CREATED", "DEAD", "RESTARTED", "CREATED"] or \
+            transitions != after_restart + ["DEAD"]:
+        raise AssertionError(f"phase 31: transitions {transitions}")
+    if any(p["forbidden"] for p in processes) or any(
+            p["main"][1] == "chip_smoke.py" and p["main"][0] != "__mp_main__"
+            for p in processes[1:]):
+        raise AssertionError(f"phase 31: a process loaded JAX or ran "
+                             f"outside __mp_main__: {processes}")
+    if left:
+        raise AssertionError(f"phase 31: processes left: {left}")
     return result
 
 
@@ -7799,80 +8058,116 @@ def kernel_line(cases: dict, runs: dict) -> dict:
     return {"kernels": out}
 
 
+# Each phase's seconds, in the order run, the builds and the models'
+# constructions among them: printed as one line before the kernels line.
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Time one phase of main into PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+
+
+def timed(name: str, fn, *args):
+    with phase_clock(name):
+        return fn(*args)
+
+
 def main() -> int:
-    card_line = phase_device()
+    PHASE_SECONDS["python_start"] = round(SCRIPT_IMPORTED - PYTHON_UP, 1)
+    card_line = timed("device", phase_device)
     from raytpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_prefill
     from raytpu_torch.models.llama import Llama, LlamaConfig
 
-    phase_build()
-    phase_accumulation(card_line)
-    cases = phase_kernels(card_line)
-    t0 = time.perf_counter()
-    model = Llama(LlamaConfig.llama2_7b(), device="cuda", seed=0)
-    torch.cuda.synchronize()
+    timed("build", phase_build)
+    timed("accumulation", phase_accumulation, card_line)
+    cases = timed("kernels", phase_kernels, card_line)
+    with phase_clock("llama_build"):
+        t0 = time.perf_counter()
+        model = Llama(LlamaConfig.llama2_7b(), device="cuda", seed=0)
+        torch.cuda.synchronize()
     log(f"[serve] Llama-2-7B random weights: "
         f"{sum(p.numel() for p in model.parameters())} parameters in "
         f"{time.perf_counter() - t0:.2f} s")
-    serve = phase_serve(model, card_line)
-    phase_profile(model, card_line)
-    phase_e2e(model, card_line)
-    observability = phase_observability(model, card_line)
+    serve = timed("serve", phase_serve, model, card_line)
+    timed("profile", phase_profile, model, card_line)
+    timed("e2e", phase_e2e, model, card_line)
+    observability = timed("observability", phase_observability, model,
+                          card_line)
     del model
     torch.cuda.empty_cache()
-    deployment = phase_deployment(card_line, serve)
-    disagg = phase_disagg(card_line)
-    serve_app = phase_serve_app(card_line, serve, deployment)
-    disagg_serve = phase_disagg_serve(card_line, disagg)
-    t0 = time.perf_counter()
-    gpt2 = GPT2(GPT2Config.small(), device="cuda", seed=0)
-    torch.cuda.synchronize()
+    deployment = timed("deployment", phase_deployment, card_line, serve)
+    disagg = timed("disagg", phase_disagg, card_line)
+    serve_app = timed("serve_app", phase_serve_app, card_line, serve,
+                      deployment)
+    disagg_serve = timed("disagg_serve", phase_disagg_serve, card_line,
+                         disagg)
+    with phase_clock("gpt2_build"):
+        t0 = time.perf_counter()
+        gpt2 = GPT2(GPT2Config.small(), device="cuda", seed=0)
+        torch.cuda.synchronize()
     log(f"[gpt2-serve] GPT-2 124M random weights: "
         f"{sum(p.numel() for p in gpt2.parameters())} parameters in "
         f"{time.perf_counter() - t0:.2f} s")
-    gpt2_serve = phase_gpt2_serve(gpt2, card_line)
-    jobs = phase_jobs(card_line, gpt2_serve)
-    phase_e2e(gpt2, card_line, gpt2_prefill, "gpt2-e2e")
+    gpt2_serve = timed("gpt2_serve", phase_gpt2_serve, gpt2, card_line)
+    jobs = timed("jobs", phase_jobs, card_line, gpt2_serve)
+    timed("gpt2_e2e", phase_e2e, gpt2, card_line, gpt2_prefill, "gpt2-e2e")
     del gpt2
     torch.cuda.empty_cache()
-    train, gpt2, tokens = phase_train(card_line)
-    phase_train_e2e(gpt2, tokens, card_line)
+    train, gpt2, tokens = timed("train", phase_train, card_line)
+    timed("train_e2e", phase_train_e2e, gpt2, tokens, card_line)
     del gpt2, tokens
     torch.cuda.empty_cache()
-    llama, llama_model, tokens = phase_llama_train(card_line)
+    llama, llama_model, tokens = timed("llama_train", phase_llama_train,
+                                       card_line)
     torch.cuda.empty_cache()  # the optimizer's state is gone
-    phase_llama_train_e2e(llama_model, tokens, card_line)
+    timed("llama_train_e2e", phase_llama_train_e2e, llama_model, tokens,
+          card_line)
     del llama_model, tokens
     torch.cuda.empty_cache()
-    mixtral, mixtral_model, tokens = phase_mixtral_train(card_line)
+    mixtral, mixtral_model, tokens = timed("mixtral_train",
+                                           phase_mixtral_train, card_line)
     torch.cuda.empty_cache()  # the optimizer's state is gone
-    phase_mixtral_train_e2e(mixtral_model, tokens, card_line)
+    timed("mixtral_train_e2e", phase_mixtral_train_e2e, mixtral_model,
+          tokens, card_line)
     del mixtral_model, tokens
     torch.cuda.empty_cache()
-    phase_gpt2_dropout(card_line)
+    timed("gpt2_dropout", phase_gpt2_dropout, card_line)
     torch.cuda.empty_cache()
     # The RL path reaches none of the five kernels: every counter must
     # read 0 after it.
     counters = kernel_counters()
     for counter in counters.values():
         counter.reset()
-    phase_rl_ppo(card_line)
-    phase_rl_pixel_ppo(card_line)
-    phase_rl_algorithms(card_line)
-    phase_rl_remote(card_line)
+    timed("rl_ppo", phase_rl_ppo, card_line)
+    timed("rl_pixel_ppo", phase_rl_pixel_ppo, card_line)
+    timed("rl_algorithms", phase_rl_algorithms, card_line)
+    timed("rl_remote", phase_rl_remote, card_line)
     rllib = {name: c.count for name, c in counters.items()}
     check_launches(rllib, {name: 0 for name in counters})
     torch.cuda.empty_cache()
     # The train workers launch the kernels; this process launches none.
     for counter in counters.values():
         counter.reset()
-    trainlib = phase_trainlib(card_line, train)
+    trainlib = timed("trainlib", phase_trainlib, card_line, train)
     check_launches({name: c.count for name, c in counters.items()},
                    {name: 0 for name in counters})
     torch.cuda.empty_cache()
     # The trial processes launch the kernels; this process launches none.
     for counter in counters.values():
         counter.reset()
-    tuned = phase_tune(card_line, train, trainlib)
+    tuned = timed("tune", phase_tune, card_line, train, trainlib)
+    check_launches({name: c.count for name, c in counters.items()},
+                   {name: 0 for name in counters})
+    # The actors launch the kernels; this process launches none.
+    for counter in counters.values():
+        counter.reset()
+    resources = timed("resources", phase_resources, card_line, gpt2_serve)
     check_launches({name: c.count for name, c in counters.items()},
                    {name: 0 for name in counters})
     runs = {"serve": serve["launches"],
@@ -7887,7 +8182,10 @@ def main() -> int:
             "gpt2_train": train["launches"],
             "llama_train": llama["launches"],
             "mixtral_train": mixtral["launches"], "rllib": rllib,
-            "trainlib": trainlib["launches"], "tune": tuned["launches"]}
+            "trainlib": trainlib["launches"], "tune": tuned["launches"],
+            "resources": resources["launches"]}
+    PHASE_SECONDS["total"] = round(time.time() - PYTHON_UP, 1)
+    log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(json.dumps(kernel_line(cases, runs)))
     log(card())
     log(json.dumps({"ok": True, "device": {

@@ -30,8 +30,15 @@ runtime's tasks and object store, and the Data library:
   package's entry points (``PPOConfig()...build().train()``), with a
   converter of the JAX package's RL weights. No kernel: RLlib reaches
   no TPU kernel;
+- the core API at the top level, the JAX package's 37 names
+  (``raytpu_torch.init``, ``remote``, ``get``, ``placement_group``,
+  ``get_runtime_context``, the ids and the errors ...), from
+  :mod:`raytpu_torch.runtime`;
 - :mod:`raytpu_torch.runtime` — a worker-process layer with the shape
-  of the JAX package's calls: actors in processes of their own, tasks
+  of the JAX package's calls: the driver's ledger of CPUs, the card
+  (``num_gpus``: the child is bound to its card through
+  ``CUDA_VISIBLE_DEVICES``) and custom resources, placement groups,
+  actor restarts (``max_restarts``), actors in processes of their own, tasks
   on one pool of worker processes for the whole tree, all forked from a
   server that imported torch once
   (``remote(fn)``, ``num_returns``, streaming, retries), refs that
@@ -94,6 +101,24 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+from raytpu_torch._version import __version__  # noqa: E402
+from raytpu_torch.core.errors import (ActorDiedError,  # noqa: E402
+                                      ActorError, GetTimeoutError,
+                                      ObjectLostError, RayTpuError,
+                                      RuntimeEnvError, TaskError,
+                                      WorkerCrashedError)
+from raytpu_torch.core.ids import (ActorID, JobID, NodeID,  # noqa: E402
+                                   ObjectID, PlacementGroupID, TaskID)
+from raytpu_torch.runtime.api import (available_resources,  # noqa: E402
+                                      cancel, cluster_resources, get,
+                                      get_actor, get_runtime_context, init,
+                                      is_initialized, kill, method, nodes,
+                                      put, remote, shutdown, timeline, wait)
+from raytpu_torch.runtime.generator import ObjectRefGenerator  # noqa: E402
+from raytpu_torch.runtime.object_ref import ObjectRef  # noqa: E402
+from raytpu_torch.runtime.placement_group import (  # noqa: E402
+    PlacementGroup, get_current_placement_group, placement_group,
+    remove_placement_group)
 from raytpu_torch.inference import (InferenceEngine,  # noqa: E402
                                     LLMDeployment, PagedKVCache,
                                     PrefixCache, SamplingParams, Scheduler,
@@ -105,8 +130,19 @@ from raytpu_torch.models.llama import (Llama, LlamaConfig,  # noqa: E402
 from raytpu_torch.models.mixtral import (Mixtral,  # noqa: E402
                                          MixtralConfig, mixtral_loss_fn)
 
-__all__ = ["GPT2", "GPT2Config", "InferenceEngine", "LLMDeployment", "Llama",
-           "LlamaConfig", "Mixtral", "MixtralConfig", "PagedKVCache",
-           "PrefixCache", "SamplingParams", "Scheduler", "Sequence",
-           "StepOutput", "llama_loss_fn", "make_train_step",
-           "mixtral_loss_fn", "resolve_device"]
+__all__ = [
+    # The core API, the JAX package's names (``raytpu.__all__``).
+    "__version__", "init", "shutdown", "is_initialized", "remote", "get",
+    "put", "wait", "cancel", "kill", "get_actor", "method",
+    "get_runtime_context", "available_resources", "cluster_resources",
+    "nodes", "timeline", "ObjectRef", "ObjectRefGenerator",
+    "placement_group", "PlacementGroup", "remove_placement_group",
+    "get_current_placement_group", "RayTpuError", "TaskError", "ActorError",
+    "ActorDiedError", "ObjectLostError", "WorkerCrashedError",
+    "GetTimeoutError", "RuntimeEnvError", "ObjectID", "TaskID", "ActorID",
+    "NodeID", "JobID", "PlacementGroupID",
+    # The models and the engine.
+    "GPT2", "GPT2Config", "InferenceEngine", "LLMDeployment", "Llama",
+    "LlamaConfig", "Mixtral", "MixtralConfig", "PagedKVCache",
+    "PrefixCache", "SamplingParams", "Scheduler", "Sequence", "StepOutput",
+    "llama_loss_fn", "make_train_step", "mixtral_loss_fn", "resolve_device"]

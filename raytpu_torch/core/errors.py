@@ -13,6 +13,12 @@ raises.
 - :class:`WorkerCrashedError`: a task's worker process died on its last
   try; :class:`TaskCancelledError`: the task was cancelled.
 - :class:`ObjectStoreFullError`: ``/dev/shm`` has no room for a value.
+- :class:`PlacementGroupError`: a placement group that cannot be
+  reserved (it does not fit the ledger, or STRICT_SPREAD asks for more
+  than the one host), or a request into a group that is gone.
+- :class:`RuntimeEnvError` and :class:`ActorUnavailableError`: the JAX
+  package's names; the port raises neither yet (``runtime_env`` is an
+  option it refuses).
 """
 
 from __future__ import annotations
@@ -49,6 +55,10 @@ class TaskError(RayTpuError):
 
 
 class ActorError(RayTpuError):
+    pass
+
+
+class ActorUnavailableError(ActorError):
     pass
 
 
@@ -89,4 +99,12 @@ class TaskCancelledError(RayTpuError):
 
 
 class ObjectStoreFullError(RayTpuError):
+    pass
+
+
+class RuntimeEnvError(RayTpuError):
+    pass
+
+
+class PlacementGroupError(RayTpuError):
     pass

@@ -60,3 +60,7 @@ __all__ = [
     "read_text",
     "read_webdataset",
 ]
+
+from raytpu_torch.util import usage_stats as _usage_stats
+
+_usage_stats.record_library_usage("data")

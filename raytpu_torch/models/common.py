@@ -19,14 +19,46 @@ Remat follows the JAX package's ``remat`` option:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+class _NoDefaultInit(TorchFunctionMode):
+    """Skip ``torch.nn.init``'s functions (a module's default init) in
+    this thread: the tensor comes back as it is."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__module__", None) == "torch.nn.init":
+            return args[0] if args else next(iter(kwargs.values()))
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def on_meta():
+    """Build modules on the meta device, skipping their default init:
+    every model draws each parameter itself from its seed after
+    :func:`to_empty`. A default init on a meta tensor runs torch's
+    reference ops, whose first use imports ``torch._dynamo`` and
+    ``sympy``: seconds in a fresh process, paid by every replica, trial
+    and worker at its first model."""
+    with torch.device("meta"), _NoDefaultInit():
+        yield
+
+
+def to_empty(module: nn.Module, device) -> None:
+    """``module.to_empty(device=device)`` by ``torch.empty``: the
+    module's ``empty_like`` of a meta tensor runs torch's reference op,
+    which imports ``sympy`` at its first use (see :func:`on_meta`)."""
+    module._apply(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                        device=device))
+
 
 # Standard deviation of a standard normal truncated to (-2, 2): JAX's
 # lecun_normal divides by it so the truncated draw keeps variance 1/fan_in.

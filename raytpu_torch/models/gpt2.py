@@ -42,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch import resolve_device
 from raytpu_torch.models.common import (Dense, lecun_normal_, make_step,
-                                        remat_call, remat_mode, write_kv)
+                                        on_meta, remat_call, remat_mode,
+                                        to_empty, write_kv)
 from raytpu_torch.ops.flash_attention import flash_attention
 from raytpu_torch.ops.paged_attention import paged_attention
 
@@ -282,12 +283,12 @@ class GPT2(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
-        with torch.device("meta"):
+        with on_meta():
             self.wte = nn.Embedding(c.vocab_size, c.n_embd)
             self.wpe = nn.Embedding(c.block_size, c.n_embd)
             self.h = nn.ModuleList(Block(c) for _ in range(c.n_layer))
             self.ln_f = LayerNorm(c.n_embd, c.dtype)
-        self.to_empty(device=dev)
+        to_empty(self, dev)
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():

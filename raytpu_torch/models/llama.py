@@ -39,8 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from raytpu_torch import resolve_device
-from raytpu_torch.models.common import (lecun_normal_, make_step,
-                                        remat_call, remat_mode, write_kv)
+from raytpu_torch.models.common import (lecun_normal_, make_step, on_meta,
+                                        remat_call, remat_mode, to_empty,
+                                        write_kv)
 from raytpu_torch.models.gpt2 import _chunked_xent, mean_nll
 from raytpu_torch.ops.flash_attention import flash_attention
 from raytpu_torch.ops.fused import rmsnorm
@@ -294,14 +295,14 @@ class Llama(nn.Module):
         self.config = c = config
         wdt = param_dtype or c.dtype
         sdt = param_dtype or torch.float32
-        with torch.device("meta"):
+        with on_meta():
             self.embed_tokens = nn.Embedding(c.vocab_size, c.n_embd,
                                              dtype=wdt)
             self.layers = nn.ModuleList(self.block_class(c, wdt, sdt)
                                         for _ in range(c.n_layer))
             self.final_norm = RMSNorm(c.n_embd, c.dtype, param_dtype=sdt)
             self.lm_head = Linear(c.n_embd, c.vocab_size, c.dtype, wdt)
-        self.to_empty(device=dev)
+        to_empty(self, dev)
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from raytpu_torch import resolve_device
-from raytpu_torch.models.common import Dense, lecun_normal_
+from raytpu_torch.models.common import (Dense, lecun_normal_, on_meta,
+                                        to_empty)
 
 
 class MLPClassifier(nn.Module):
@@ -34,13 +35,13 @@ class MLPClassifier(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.hidden = tuple(hidden)
-        with torch.device("meta"):
+        with on_meta():
             n_in = in_features
             for i, h in enumerate(self.hidden):
                 self.add_module(f"dense_{i}", Dense(n_in, h, dtype))
                 n_in = h
             self.head = Dense(n_in, n_classes, dtype)
-        self.to_empty(device=dev)
+        to_empty(self, dev)
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():

@@ -41,7 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from raytpu_torch import resolve_device
-from raytpu_torch.models.common import Dense, lecun_normal_, same_padding
+from raytpu_torch.models.common import (Dense, lecun_normal_, on_meta,
+                                        same_padding, to_empty)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,7 +215,7 @@ class ResNet(nn.Module):
         dev = resolve_device(device)
         self.config = c = config
         block = BottleneckBlock if c.bottleneck else BasicBlock
-        with torch.device("meta"):
+        with on_meta():
             self.conv_init = Conv(3, c.num_filters, 7, 2, c.dtype)
             self.bn_init = BatchNorm(c.num_filters, c.dtype)
             self.blocks = nn.ModuleList()
@@ -226,7 +227,7 @@ class ResNet(nn.Module):
                         n_in, filters, 2 if i > 0 and j == 0 else 1, c.dtype))
                     n_in = filters * block.expansion
             self.head = Dense(n_in, c.n_classes, torch.float32)
-        self.to_empty(device=dev)
+        to_empty(self, dev)
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():

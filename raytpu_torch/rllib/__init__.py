@@ -62,3 +62,7 @@ __all__ = [
     "EnvRunnerGroup", "SingleAgentEnvRunner", "register_env", "make_env",
     "CartPoleEnv", "PendulumEnv", "CatchEnv", "ReplayBuffer",
 ]
+
+from raytpu_torch.util import usage_stats as _usage_stats
+
+_usage_stats.record_library_usage("rllib")

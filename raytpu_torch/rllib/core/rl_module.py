@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from raytpu_torch.models.common import lecun_normal_, same_padding
+from raytpu_torch.models.common import lecun_normal_, on_meta, same_padding
 
 Params = Dict[str, Any]  # name -> tensor; SAC: "pi"/"q1"/"q2" -> such dicts
 
@@ -273,7 +273,7 @@ class RLModule:
         self.action_high = np.broadcast_to(
             np.asarray(action_high, np.float32), (action_dim,)).copy()
         self.model_config = model_config or {}
-        with torch.device("meta"):
+        with on_meta():
             self.net = self._build_net()
 
     def _hidden(self) -> Tuple[int, ...]:
@@ -431,7 +431,7 @@ class SACModule(GaussianPolicyModule):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        with torch.device("meta"):
+        with on_meta():
             self.critic = _QCriticNet(self.observation_dim, self.action_dim,
                                       self._hidden())
 

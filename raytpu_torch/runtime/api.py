@@ -2,8 +2,9 @@
 ``torch.multiprocessing``, with an object store between them.
 
 The calls of :mod:`raytpu.runtime.api` that the port's libraries use,
-with their shape: ``remote(cls)`` and ``.options(num_cpus=...,
-max_concurrency=..., name=..., namespace=..., lifetime=...)``, then
+with their shape: ``remote(cls)`` and ``.options(num_cpus=..., num_gpus=...,
+resources=..., max_concurrency=..., name=..., namespace=...,
+lifetime=..., max_restarts=..., placement_group=...)``, then
 ``.remote(*args)`` to start one process that holds one instance
 (forked from a server of the starter's environment,
 :mod:`raytpu_torch.runtime.starter`);
@@ -15,8 +16,9 @@ a future;
 (:mod:`raytpu_torch.runtime.remote_function`), whose calls run as tasks
 on the tree's one task pool (:mod:`raytpu_torch.runtime.task_pool`);
 ``put``, ``get``, ``wait``, ``cancel``, ``kill``, ``get_actor``,
-``init``, ``shutdown``, ``is_initialized``, ``cluster_resources`` and
-``available_resources``.
+``init``, ``shutdown``, ``is_initialized``, ``cluster_resources``,
+``available_resources``, ``nodes``, ``get_runtime_context`` and
+``method``.
 
 What it keeps of the JAX package's semantics:
 
@@ -86,14 +88,32 @@ pages (a write there is seen by every holder). Functions and classes
 that cannot be found by name go by value
 (:mod:`raytpu_torch.runtime.serialization`).
 
-What it leaves out: placement groups, actor restarts, streaming
-backpressure, resources other than CPUs, a cluster. ``num_cpus`` (the
-child's torch threads; 0 gives one thread and counts nothing against the
-task pool, whose slots are for tasks), ``max_concurrency``, ``name``,
-``namespace`` and ``lifetime`` are an actor's only options; any other
-option raises. :func:`call` runs a function on the instance inside the
-worker (Ray's ``__ray_call__``), for callers that need to reach into a
-worker without adding a method to its class.
+- **the card as a resource.** Every actor is admitted by the driver's
+  ledger (:mod:`raytpu_torch.runtime.ledger`) before its process starts:
+  its ``num_cpus`` (0 by default, as the JAX package's; also the child's
+  torch threads, 0 giving one), ``num_gpus`` (a share of one card, or
+  whole cards) and custom ``resources``, from the node or from a
+  placement group's bundle (``placement_group=``, its bundle index, or a
+  ``PlacementGroupSchedulingStrategy``). One that does not fit now waits
+  there (the handle returns at once, its calls queue); one that never
+  can raises ``ValueError``. A child granted a card is bound to it
+  before its first CUDA call (``CUDA_VISIBLE_DEVICES``, its device
+  ``cuda:0``); one that asks for none keeps the view it had;
+- **restarts.** Under ``max_restarts`` (-1: no limit) a worker that dies
+  (a crash, a SIGKILL, ``kill(no_restart=False)``) starts again on the
+  same socket, name and grant, as the JAX local backend restarts
+  (``raytpu/runtime/local_backend.py:1023-1050``): not after ``kill``
+  (from any process), a constructor's error, a dropped handle or
+  ``shutdown``. Its calls in flight fail with :class:`ActorDiedError`;
+  later ones reach the new process, whose
+  ``get_runtime_context().was_current_actor_reconstructed`` is true.
+  A copy of the handle in another process sees the death and stays on
+  it; a fresh ``get_actor`` reaches the new process.
+
+What it leaves out: streaming backpressure, ``runtime_env``, a cluster.
+:func:`call` runs a function on the instance inside the worker (Ray's
+``__ray_call__``), for callers that need to reach into a worker without
+adding a method to its class.
 
 Traces cross it as they cross the JAX package's RPC frames: every
 message carries the caller's ambient :class:`~raytpu_torch.util.tracing.TraceContext`
@@ -150,11 +170,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.multiprocessing as mp
 
+from raytpu_torch.core import topology
 from raytpu_torch.core.errors import (ActorDiedError, GetTimeoutError,
-                                      TaskError)
-from raytpu_torch.runtime import (object_store, records, refcount,
-                                  remote_function, serialization, starter,
-                                  task_pool, transport)
+                                      PlacementGroupError, TaskError)
+from raytpu_torch.runtime import (context, ledger, object_store, records,
+                                  refcount, remote_function, serialization,
+                                  starter, task_pool, transport)
 from raytpu_torch.runtime.object_ref import (ObjectRef, TopArg, is_ready,
                                              pending_caller, top_arg,
                                              value_of)
@@ -168,13 +189,17 @@ EXIT_GRACE_S = 2.0
 _POLL_S = 0.05
 # How long kill() waits for the process to be reaped.
 _REAP_S = 10.0
-OPTIONS = ("num_cpus", "max_concurrency", "name", "namespace", "lifetime")
+OPTIONS = ("num_cpus", "num_gpus", "resources", "max_concurrency", "name",
+           "namespace", "lifetime", "max_restarts", *ledger.PLACEMENT_OPTIONS)
 LIFETIMES = (None, "detached")
+# The exit code of a worker that kill() ended from a process that does not
+# own it: its owner restarts no worker that exits so.
+EXIT_KILLED = 75
 
 # Messages to a worker: (kind, call id, the sealed (method, args,
 # kwargs), the caller's trace context in its wire form or None, the
 # caller's pid, who owns what the worker seals for it).
-_CALL, _STREAM, _CANCEL = "call", "stream", "cancel"
+_CALL, _STREAM, _CANCEL, _KILL = "call", "stream", "cancel", "kill"
 # Messages from a worker: (call id, status, payload): a sealed value for
 # _OK and _ITEM, the error for _ERR. A call gets one _OK or _ERR; a
 # stream any number of _ITEM, then _END or _ERR.
@@ -313,6 +338,8 @@ class _Host:
                 kind, call_id, blob, tc, line.pid = transport.recv(line.conn)
             except (EOFError, OSError):
                 break  # the caller is gone
+            if kind == _KILL:
+                os._exit(EXIT_KILLED)
             if kind == _CANCEL:
                 self._cancel(line, call_id)
             else:
@@ -485,11 +512,21 @@ class _Host:
 def _worker_main(conn, listener: socket.socket, name: str, blob,
                  num_threads: int, max_concurrency: int,
                  registry: str, owner_pid: int, spawned: float,
-                 uid: str) -> None:
-    """The body of a worker process: build the instance, then serve calls
+                 uid: str, start: dict) -> None:
+    """The body of a worker process: bind its cards (``start["visible"]``,
+    before anything touches CUDA), build the instance, then serve calls
     until the owner closes its pipe; its records ship to the driver on a
-    timer (:mod:`raytpu_torch.runtime.records`)."""
+    timer (:mod:`raytpu_torch.runtime.records`). ``start`` also holds
+    the actor's id, its attempt and its placement group."""
     START_MARKS.update(spawned=spawned, entered=time.time())
+    bind_error = None
+    if start["visible"] is not None:
+        try:
+            topology.bind_card(start["visible"])
+        except RuntimeError as exc:  # the constructor's error, below
+            bind_error = exc
+    context.set_process(start["actor_id"], start["attempt"], start["pg"],
+                        start["capture"])
     tracing.set_process_identity("worker", name)
     # A daemonic process may not start children; this flag is the
     # worker's own record of itself (its owner started it as a daemon,
@@ -506,6 +543,8 @@ def _worker_main(conn, listener: socket.socket, name: str, blob,
     host = _Host(name, max_concurrency)
     owner = _Line(conn, owner_pid)
     try:
+        if bind_error is not None:
+            raise bind_error
         cls, args, kwargs = object_store.unseal(blob)
         START_MARKS["imported"] = time.time()
         args, kwargs = resolve_args(args, kwargs)
@@ -722,11 +761,19 @@ class _Caller:
 
 
 class _Worker(_Caller):
-    """The owner's side of one worker process: it started the process and
-    talks to it over a pipe, whose EOF in the child ends the worker."""
+    """The owner's side of one worker process: it asks the driver's ledger
+    to admit the actor (``spec``), starts the process once it is granted
+    (calls sent meanwhile wait, in order) and talks to it over a pipe,
+    whose EOF in the child ends the worker. A worker that dies while
+    ``max_restarts`` lasts (not by ``kill``, a constructor's error, a
+    dropped handle or shutdown) starts again on the same socket, name
+    and grant: the calls it had in flight fail with
+    :class:`ActorDiedError`, later ones go to the new process."""
 
     def __init__(self, cls, args, kwargs, num_threads: int,
-                 max_concurrency: int = 1, label: Optional[str] = None):
+                 max_concurrency: int = 1, label: Optional[str] = None,
+                 spec: Optional[ledger.Spec] = None, max_restarts: int = 0,
+                 capture: bool = False):
         super().__init__(f"{cls.__name__}-{uuid.uuid4().hex[:8]}",
                          transport.new_address())
         # The actor's name in the records (its registered name, else its
@@ -737,35 +784,104 @@ class _Worker(_Caller):
         # A bad argument raises here.
         self._ctor = refcount.Submission(None, keep, object_store.seal(
             (cls, args, kwargs), os.getpid()))
+        self._threads = num_threads
+        self._max_concurrency = max_concurrency
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self._capture = capture
+        self.proc = None
+        self._conn = None
+        self._queue: List[tuple] = []  # calls sent before the start
+        # The calls a restart failed (never sent to the new process).
+        self._failed: set = set()
+        self.started: Optional[Tuple[bool, Any]] = None
+        self._stop_reason: Optional[str] = None
+        self._reader: Optional[threading.Thread] = None
+        self.grant: Optional[dict] = None
+        self._released = False
+        self._rid = None
+        # The socket listens from here on, so a caller that connects
+        # before the start waits in its backlog, never on a missing
+        # address.
+        self._listener: Optional[socket.socket] = transport.listen(
+            self.address)
+        try:
+            view, self._rid = admit(spec or ledger.Spec({}), self._admitted)
+        except BaseException:
+            self._listener.close()
+            self._ctor.finish()
+            raise
+        if view is not None:
+            self._admitted(view)
+
+    @property
+    def pid(self) -> Optional[int]:
+        return None if self.proc is None else self.proc.pid
+
+    def _admitted(self, view) -> None:
+        """The ledger's grant (or the error of a group removed while the
+        actor waited): start the process."""
+        if isinstance(view, BaseException):
+            with self._send_lock:
+                listener, self._listener = self._listener, None
+            if listener is not None:
+                listener.close()
+            self._mark_dead(f"its placement failed: {view}")
+            self._ctor.finish()
+            return
+        with self._send_lock:
+            self.grant = view
+            if self._stop_reason is not None:  # killed while it waited
+                stopped = True
+            else:
+                stopped = False
+                self._launch()
+        if stopped:
+            self._release()
+            return
+        if self._reader is None:
+            self._reader = threading.Thread(target=self._read_and_reap,
+                                            name=f"{self.name}-reader",
+                                            daemon=True)
+            self._reader.start()
+
+    def _launch(self) -> None:
+        """Start the process on the grant (under the send lock), then send
+        what was queued."""
         self._conn, child = mp.Pipe()
-        # The socket listens before the child starts, so a caller that
-        # connects early waits in its backlog, never on a missing address.
-        listener = transport.listen(self.address)
+        listener, self._listener = (self._listener or transport.listen(
+            self.address)), None
+        start = {"visible": self.grant["visible"],
+                 "actor_id": self.actor_id, "attempt": self.restarts,
+                 "pg": self.grant["pg"], "capture": self._capture}
         self.proc = starter.Process(
             target=_worker_main,
-            args=(child, listener, self.name, self._ctor.sealed, num_threads,
-                  max_concurrency, _registry_address(), os.getpid(),
-                  time.time(), self.uid),
+            args=(child, listener, self.name, self._ctor.sealed,
+                  self._threads, self._max_concurrency, _registry_address(),
+                  os.getpid(), time.time(), self.uid, start),
             name=self.name, daemon=True)
+        self._exit_seen = None
         try:
             self.proc.start()
         finally:
             child.close()  # the child's ends live in the child only: EOF
             listener.close()
-        self.started: Optional[Tuple[bool, Any]] = None
-        self._stop_reason: Optional[str] = None
-        self._reader = threading.Thread(target=self._read_and_reap,
-                                        name=f"{self.name}-reader",
-                                        daemon=True)
-        self._reader.start()
-
-    @property
-    def pid(self) -> Optional[int]:
-        return self.proc.pid
+        queued, self._queue = self._queue, []
+        try:
+            for message in queued:
+                if message[1] not in self._failed:
+                    transport.send(self._conn, message)
+        except (BrokenPipeError, OSError):
+            pass  # the worker is gone: the reader marks it dead at EOF
 
     def _read_and_reap(self) -> None:
-        self._read_loop(self._conn)
-        self.proc.join(timeout=_REAP_S)
+        while True:
+            self._read_loop(self._conn)
+            self.proc.join(timeout=_REAP_S)
+            if not self._restart():
+                break
+        # Its share is free by the time its death is seen.
+        self._release()
         self._mark_dead(None)
         if metrics.enabled() or profiling_enabled():
             records.proc_dead(self.uid)
@@ -774,13 +890,77 @@ class _Worker(_Caller):
         # with it.
         object_store.sweep_owner(self.proc.pid)
 
+    def _restart(self) -> bool:
+        """Start the worker again where ``max_restarts`` allows (the JAX
+        local backend's rule); False where it stays dead."""
+        with self._send_lock:
+            if not (self._stop_reason is None
+                    and self.proc.exitcode != EXIT_KILLED
+                    and self.started is not None and self.started[0]
+                    and (self.max_restarts < 0
+                         or self.restarts < self.max_restarts)):
+                return False
+            self.restarts += 1
+            reason = self._death()
+            old_pid, old_uid = self.proc.pid, self.uid
+            self.started = None
+            self.uid = records.new_uid()
+            # Calls from here on queue for the new process.
+            old_conn, self._conn = self._conn, None
+            with READY:
+                pending, self._pending = self._pending, {}
+                # What was sent to the dead process is not sent again.
+                self._failed = set(pending) | set(self.streams)
+                for buf in self.streams.values():
+                    buf.append((_ERR, ActorDiedError(self.name, reason)))
+                self._tids.clear()  # a call its death fails ends no task
+                READY.notify_all()
+        for sub in pending.values():
+            sub.finish()
+            refcount.fail(sub.oid, ActorDiedError(self.name, reason))
+        if task_events.enabled():
+            # The JAX local backend's record of a restart: the death,
+            # then RESTARTED; CREATED follows at the new start.
+            task_events.emit("actor", self.actor_id,
+                             task_events.TaskTransition.DEAD,
+                             name=self.label, error=reason,
+                             worker_id=old_uid)
+            task_events.emit("actor", self.actor_id,
+                             task_events.TaskTransition.RESTARTED,
+                             name=self.label, attempt=self.restarts,
+                             error=reason, worker_id=old_uid)
+        if metrics.enabled() or profiling_enabled():
+            records.proc_dead(old_uid)
+        object_store.sweep_owner(old_pid)
+        old_conn.close()
+        with self._send_lock:
+            if self._stop_reason is not None:
+                return False  # killed meanwhile
+            self._launch()
+        return True
+
+    def _release(self) -> None:
+        """Give the grant back to the ledger (once), or drop the request
+        that still waits there."""
+        with self._send_lock:
+            grant, released = self.grant, self._released
+            self._released = True
+        if released:
+            return
+        if grant is not None:
+            release(grant["gid"])
+        elif self._rid is not None:
+            cancel_admission(self._rid)
+
     def _started(self, ok: bool, value) -> None:
         self.started = (ok, value)
-        self._ctor.finish()
+        if self.max_restarts == 0:
+            self._ctor.finish()  # a restart would construct it again
         if ok and task_events.enabled():
             task_events.emit("actor", self.actor_id,
                              task_events.TaskTransition.CREATED,
-                             name=self.label, worker_id=self.uid)
+                             name=self.label, worker_id=self.uid,
+                             attempt=self.restarts)
 
     def _died(self) -> None:
         if task_events.enabled():
@@ -794,30 +974,59 @@ class _Worker(_Caller):
             return self._stop_reason
         if self.started and not self.started[0]:
             return f"its constructor raised:\n{self.started[1]}"
+        if self.proc is None:
+            return "it was never started"
+        if self.proc.exitcode == EXIT_KILLED:
+            return "killed by kill()"
         return (f"process {self.proc.pid} exited with code "
                 f"{self.proc.exitcode}")
 
     def _gone(self) -> bool:
-        return self.proc.exitcode is not None
+        return self.proc is not None and self.proc.exitcode is not None
 
     def _send(self, message) -> None:
         try:
             with self._send_lock:
+                if self._conn is None:
+                    if self.dead is None:
+                        self._queue.append(message)
+                    return
                 transport.send(self._conn, message)
         except (BrokenPipeError, OSError):
             pass  # the worker is gone: the reader marks it dead at EOF
 
+    def crash(self) -> None:
+        """SIGKILL the process, as a crash would end it: the worker
+        restarts where ``max_restarts`` allows (``kill(no_restart=False)``)."""
+        proc = self.proc
+        if proc is not None and proc.exitcode is None:
+            proc.kill()
+
     def shutdown(self, reason: str) -> None:
         """End the process now (SIGKILL), reap it, and let the reader see
-        the EOF. Safe to call more than once."""
-        self._stop_reason = self._stop_reason or reason
-        if self.proc.exitcode is None:
-            self.proc.kill()
-        self.proc.join(timeout=_REAP_S)
+        the EOF; a worker still waiting for the ledger never starts. Safe
+        to call more than once."""
+        with self._send_lock:
+            self._stop_reason = self._stop_reason or reason
+            proc = self.proc
+        if proc is None:  # waiting for the ledger
+            with self._send_lock:
+                listener, self._listener = self._listener, None
+            if listener is not None:
+                listener.close()
+            self._release()
+            self._mark_dead(None)
+            self._ctor.finish()
+            return
+        if proc.exitcode is None:
+            proc.kill()
+        proc.join(timeout=_REAP_S)
         self._mark_dead(None)
-        if self._reader is not threading.current_thread():
+        if self._reader is not None and \
+                self._reader is not threading.current_thread():
             self._reader.join(timeout=_REAP_S)
-        if not self._reader.is_alive():
+        if self._reader is not None and not self._reader.is_alive() \
+                and self._conn is not None:
             self._conn.close()
 
 
@@ -878,13 +1087,19 @@ class _Client(_Caller):
         return f"its connection closed: process {self._pid} exited"
 
     def _gone(self) -> bool:
+        if self._pid is None:  # handed over before its worker started
+            return False
         try:
             os.kill(self._pid, 0)
         except ProcessLookupError:
             return True
         except PermissionError:  # another user's process took the pid
             return True
-        return False
+        try:  # exited, and not reaped yet by its owner
+            with open(f"/proc/{self._pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except (OSError, IndexError):
+            return False
 
     def _send(self, message) -> None:
         self.connect()
@@ -898,10 +1113,18 @@ class _Client(_Caller):
             except (BrokenPipeError, OSError):
                 pass  # the worker is gone: the reader marks it dead at EOF
 
-    def kill(self, reason: str) -> None:
-        """SIGKILL the worker's process from a process that does not own
-        it; the owner reaps it at the pipe's EOF."""
-        if self.dead is None:
+    def kill(self, reason: str, no_restart: bool = True) -> None:
+        """End the worker's process from a process that does not own it;
+        the owner reaps it at the pipe's EOF. With ``no_restart`` the
+        worker exits itself, with :data:`EXIT_KILLED`, which its owner
+        restarts no worker for (SIGKILL where it has not exited within
+        :data:`EXIT_GRACE_S`); else a SIGKILL, a crash to its owner."""
+        if self.dead is None and no_restart:
+            self._send((_KILL, 0, None, None, os.getpid()))
+            deadline = time.monotonic() + EXIT_GRACE_S
+            while not self._gone() and time.monotonic() < deadline:
+                time.sleep(_POLL_S)
+        if self.dead is None and self._pid is not None:
             try:
                 os.kill(self._pid, signal.SIGKILL)
             except ProcessLookupError:
@@ -999,9 +1222,8 @@ def _rebuild_handle(cls, name: str, address: str, pid: int) -> ActorHandle:
 
 
 class RemoteClass:
-    """What :func:`remote` makes of a class: ``.options(num_cpus=...,
-    max_concurrency=..., name=..., namespace=..., lifetime=...)`` and
-    ``.remote(*args, **kwargs)``."""
+    """What :func:`remote` makes of a class: ``.options(...)`` (any of
+    :data:`OPTIONS`) and ``.remote(*args, **kwargs)``."""
 
     def __init__(self, cls, options: Optional[Dict[str, Any]] = None):
         options = dict(options or {})
@@ -1009,10 +1231,11 @@ class RemoteClass:
         if unknown:
             raise ValueError(f"options {unknown}: the port's runtime takes "
                              f"only {list(OPTIONS)}")
-        num_cpus = options.get("num_cpus", 1)
+        num_cpus = options.get("num_cpus", 0)
         if not isinstance(num_cpus, (int, float)) or num_cpus < 0:
-            raise ValueError(f"num_cpus={num_cpus!r}: a number >= 0 (the "
-                             f"worker's torch threads; 0 gives one)")
+            raise ValueError(f"num_cpus={num_cpus!r}: a number >= 0 (held "
+                             f"in the ledger, and the worker's torch "
+                             f"threads; 0 gives one)")
         max_concurrency = options.get("max_concurrency", 1)
         if not isinstance(max_concurrency, int) or max_concurrency < 1:
             raise ValueError(f"max_concurrency={max_concurrency!r}: a "
@@ -1024,6 +1247,12 @@ class RemoteClass:
         if options.get("lifetime") not in LIFETIMES:
             raise ValueError(f"lifetime={options['lifetime']!r}: the port's "
                              f"runtime takes {list(LIFETIMES)}")
+        max_restarts = options.get("max_restarts", 0)
+        if not isinstance(max_restarts, int) or max_restarts < -1:
+            raise ValueError(f"max_restarts={max_restarts!r}: an int >= -1 "
+                             f"(-1: no limit)")
+        # An actor holds no CPU unless it asks (the JAX package's default).
+        self._resources = ledger.build_resources(options, default_cpus=0.0)
         self._cls = cls
         self._options = options
         self._threads = max(1, int(num_cpus))
@@ -1041,11 +1270,14 @@ class RemoteClass:
             # this process.
             return _ask_registry("create", self._cls, args, kwargs,
                                  self._options)
+        pg, bundle, capture = ledger.placement_of(self._options)
+        spec = ledger.Spec(self._resources, pg, bundle)
         if name is not None:
             _names("reserve", namespace, name)
         try:
             worker = _Worker(self._cls, args, kwargs, self._threads,
-                             self._max_concurrency, name)
+                             self._max_concurrency, name, spec,
+                             self._options.get("max_restarts", 0), capture)
         except BaseException:
             if name is not None:
                 _names("release", namespace, name)
@@ -1161,7 +1393,7 @@ def _answer(conn) -> None:
     try:
         op, args = transport.recv(conn)
         if op == "pool":
-            task_pool.serve_client(conn, _pool())
+            task_pool.serve_client(conn, _pool, _serve_link, _drop_route)
             return
         if op == "hello":
             _serve_member(conn, *args)
@@ -1585,40 +1817,80 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
     return ready, [r for r in ref_list if id(r) not in taken]
 
 
-def kill(actor: ActorHandle) -> None:
+def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
     """End the worker's process now, from its owner or from any process
     that holds a copy of its handle; calls on it without a result raise
-    :class:`ActorDiedError` at ``get``."""
-    if actor._finalizer is not None:
+    :class:`ActorDiedError` at ``get``. With ``no_restart=False`` the
+    process is killed as a crash would end it, and its owner starts it
+    again where ``max_restarts`` allows."""
+    if actor._finalizer is not None and not no_restart:
+        actor._worker.crash()
+    elif actor._finalizer is not None:
         actor._finalizer.detach()
         actor._worker.shutdown("killed by kill()")
-    else:
+    elif no_restart:
         actor._worker.kill("killed by kill()")
+    else:
+        actor._worker.kill("killed by kill()", no_restart=False)
 
 
-# ---- the task pool -----------------------------------------------------
+# ---- the task pool and the ledger -------------------------------------
 
 # In the driver: the tree's task pool, once init() (or the first task)
-# started it.
+# started it, and the ledger of the tree's resources, once init() or the
+# first admission made it.
 _POOL: Optional[task_pool.TaskPool] = None
 _POOL_LOCK = threading.Lock()
-# In any other process: its connection to the driver's pool.
+_LEDGER: Optional[ledger.Ledger] = None
+# In any other process: its connection to the driver's pool and ledger.
 _LINK: Optional["_PoolLink"] = None
 
 
-def init(num_cpus: Optional[int] = None, *, address: Optional[str] = None,
-         ignore_reinit_error: bool = False) -> None:
-    """Start the runtime in the driver: the task pool's ``num_cpus``
-    workers (``os.cpu_count()`` by default) start at once, from a thread,
-    while the caller goes on. With ``address`` (a driver's
-    :func:`driver_address`), join that driver's tree instead, as a
-    process of its own: its tasks run on that driver's pool, and it is
-    tombstoned there when it ends; an address that no driver answers
-    raises ``ConnectionError`` naming it. A second ``init`` raises unless
-    ``ignore_reinit_error``; in a process the runtime started (which is
-    already connected to the driver's pool) it raises the same way. The
-    address of this process's own tree is nothing to join: a no-op."""
-    global _POOL
+def _new_ledger(num_cpus: Optional[float], num_gpus: Optional[int],
+                resources: Optional[Dict[str, float]]) -> ledger.Ledger:
+    """The ledger of ``num_cpus`` (the host's count by default), the
+    cards (detected without touching CUDA, or ``num_gpus`` of them: the
+    detected ones first, pretend ones past them) and ``resources``."""
+    cpus = (os.cpu_count() or 1) if num_cpus is None else num_cpus
+    ids = topology.detect_local_gpus()["ids"]
+    if num_gpus is not None:
+        ids = (ids + [str(i) for i in range(len(ids), num_gpus)])[:num_gpus]
+    return ledger.Ledger(cpus, ids, resources)
+
+
+def _ledger() -> ledger.Ledger:
+    """The driver's ledger, made at the first need."""
+    global _LEDGER
+    with _POOL_LOCK:
+        if _LEDGER is None:
+            _LEDGER = _new_ledger(None, None, None)
+        return _LEDGER
+
+
+def init(num_cpus: Optional[int] = None, *, num_gpus: Optional[int] = None,
+         resources: Optional[Dict[str, float]] = None,
+         address: Optional[str] = None, ignore_reinit_error: bool = False,
+         **kwargs) -> None:
+    """Start the runtime in the driver: the ledger of ``num_cpus`` CPUs
+    (``os.cpu_count()`` by default), the cards (detected, or
+    ``num_gpus``: the counterpart of the JAX package's ``num_tpus``, for
+    a run with pretend cards) and custom ``resources``; and the task
+    pool's ``num_cpus`` workers, started at once from a thread while the
+    caller goes on. With ``address`` (a driver's :func:`driver_address`),
+    join that driver's tree instead, as a process of its own: its tasks
+    run on that driver's pool, and it is tombstoned there when it ends;
+    an address that no driver answers raises ``ConnectionError`` naming
+    it. A second ``init`` raises unless ``ignore_reinit_error``; in a
+    process the runtime started (which is already connected to the
+    driver's pool) it raises the same way. The address of this
+    process's own tree is nothing to join: a no-op. ``runtime_env``
+    raises."""
+    global _POOL, _LEDGER
+    if kwargs.get("runtime_env"):
+        raise ValueError("runtime_env: the port's runtime does not take it")
+    unknown = sorted(set(kwargs) - {"runtime_env"})
+    if unknown:
+        raise TypeError(f"init() got unexpected keyword arguments {unknown}")
     if address is not None and _own_tree(address):
         return  # this process's own tree: nothing to join
     with _POOL_LOCK:
@@ -1631,9 +1903,19 @@ def init(num_cpus: Optional[int] = None, *, address: Optional[str] = None,
             _join(address)
             return
         size = (os.cpu_count() or 1) if num_cpus is None else int(num_cpus)
-        pool = task_pool.TaskPool(size, _registry_address())
+        if _LEDGER is None or num_gpus is not None or resources:
+            if _LEDGER is not None and _LEDGER.holds_grants():
+                raise RuntimeError("init(num_gpus=/resources=) after actors "
+                                   "were admitted: call it first")
+            _LEDGER = _new_ledger(size, num_gpus, resources)
+        else:
+            _LEDGER.resize_cpus(size)
+        pool = task_pool.TaskPool(size, _registry_address(), _LEDGER)
         pool.start()
         _POOL = pool
+    from raytpu_torch.util import usage_stats
+
+    usage_stats.record_library_usage("core_local")
 
 
 def is_initialized() -> bool:
@@ -1652,8 +1934,8 @@ def _pool() -> task_pool.TaskPool:
 def shutdown() -> None:
     """Stop the task pool (its workers are killed, queued tasks fail) and
     every worker this process owns. In the driver a later ``init`` (or
-    task) starts a fresh pool."""
-    global _POOL
+    task) starts a fresh pool and ledger."""
+    global _POOL, _LEDGER
     with _POOL_LOCK:
         pool, _POOL = _POOL, None
     if pool is not None:
@@ -1662,6 +1944,12 @@ def shutdown() -> None:
         handles = list(_OWNED.values())
     for handle in handles:
         kill(handle)
+    if _REGISTRY is None:
+        with _POOL_LOCK:
+            _LEDGER = None
+        from raytpu_torch.util import usage_stats
+
+        usage_stats.report()
 
 
 def pool_submit(spec: dict) -> None:
@@ -1690,26 +1978,158 @@ def cancel(ref: ObjectRef, *, force: bool = False) -> None:
         pool_cancel(tid, force)
 
 
-def _resources() -> dict:
+def _driver_admit(spec: ledger.Spec, on_grant: Callable[[Any], None],
+                  owner: Any = None):
+    """In the driver: ask the ledger to admit ``spec``; ``(view, None)``
+    when granted now, else ``(None, rid)`` and ``on_grant(view)`` later
+    (or the error of a group removed meanwhile)."""
+    led = _ledger()
+
+    def granted(grant) -> None:
+        on_grant(grant if isinstance(grant, BaseException)
+                 else grant.view(led.card_ids))
+
+    grant, rid = led.request(spec, granted, owner)
+    if grant is None:
+        return None, rid
+    return grant.view(led.card_ids), None
+
+
+def _serve_link(message: tuple, route) -> None:
+    """In the driver: one message of another process's link that is not
+    a task's: an admission, a release, or a call of the ledger."""
+    kind = message[0]
+    if kind == "release":
+        if _LEDGER is not None:
+            _LEDGER.release(message[1])
+        return
+    if kind == "cancel_admission":
+        if _LEDGER is not None:
+            _LEDGER.cancel(message[1])
+        return
+    rid = message[1]
+    try:
+        if kind == "admit":
+            value = _driver_admit(
+                message[2], lambda view: route(("admitted", rid, view)),
+                route)
+        else:
+            value = _ledger_op(message[2], message[3])
+        route(("answer", rid, True, value))
+    except Exception as exc:  # the asking process raises it
+        route(("answer", rid, False, exc))
+
+
+def _drop_route(route) -> None:
+    """A process's connection closed: its queued tasks go (what runs
+    ends), and its waiting requests and its grants go back to the
+    ledger."""
+    pool = _POOL
+    if pool is not None:
+        pool.drop_route(route)
+    if _LEDGER is not None:
+        _LEDGER.drop_owner(route)
+
+
+def admit(spec: ledger.Spec, on_grant: Callable[[Any], None]):
+    """Admission of an actor, from any process of the tree: ``(view,
+    None)`` or ``(None, rid)`` (see :meth:`ledger.Ledger.request`); raises
+    where it can never fit."""
     if _REGISTRY is None:
-        return _pool().resources()
-    return _link().resources()
+        return _driver_admit(spec, on_grant)
+    return _link().admit(spec, on_grant)
+
+
+def release(gid: int) -> None:
+    """Give a grant back, from any process of the tree."""
+    if _REGISTRY is None:
+        if _LEDGER is not None:
+            _LEDGER.release(gid)
+    else:
+        _link().send(("release", gid))
+
+
+def cancel_admission(rid: int) -> None:
+    """Drop a request that waits in the ledger."""
+    if _REGISTRY is None:
+        if _LEDGER is not None:
+            _LEDGER.cancel(rid)
+    else:
+        _link().send(("cancel_admission", rid))
+
+
+def _ledger_op(op: str, args: tuple):
+    """In the driver: one of the ledger's calls that cross processes."""
+    led = _ledger()
+    if op == "resources":
+        return led.resources()
+    if op == "nodes":
+        return led.nodes(context.node_id().hex())
+    if op in ("create_group", "remove_group", "group_info"):
+        return getattr(led, op)(*args)
+    if op == "check":
+        return led.check(ledger.Spec(*args))
+    raise ValueError(f"unknown ledger call {op!r}")
+
+
+def ledger_call(op: str, *args):
+    """A call of the driver's ledger, from any process of the tree."""
+    if _REGISTRY is None:
+        return _ledger_op(op, args)
+    return _link().ask(op, args)
+
+
+def check_request(resources: Dict[str, float]) -> None:
+    """Raise ``ValueError`` where ``resources`` (a request's, as
+    :func:`ledger.build_resources` makes it) can never fit the tree: a
+    library's check before it starts anything."""
+    ledger_call("check", resources)
 
 
 def cluster_resources() -> Dict[str, float]:
-    """The task pool's CPUs."""
-    return _resources()["total"]
+    """The tree's resources: the CPUs, the cards (``"GPU"``) and custom
+    resources the driver's ledger holds."""
+    return ledger_call("resources")["total"]
 
 
 def available_resources() -> Dict[str, float]:
-    """The task pool's CPUs that no running task holds."""
-    return _resources()["available"]
+    """What of them no task, actor or placement group holds."""
+    return ledger_call("resources")["available"]
+
+
+def nodes() -> List[dict]:
+    """The one node, the driver's host: its id, and its resources in
+    all and available."""
+    return ledger_call("nodes")
+
+
+def get_runtime_context() -> context.RuntimeContext:
+    """This process's context: the job, node, task and actor ids (see
+    :mod:`raytpu_torch.runtime.context`)."""
+    return context.current()
+
+
+def method(*, num_returns: int = 1, concurrency_group: str = ""):
+    """Per-method defaults (``@raytpu.method``): the port's calls take
+    ``num_returns=1`` (or ``"streaming"`` through ``.options``) and no
+    concurrency groups, so other values raise here."""
+    if num_returns != 1 or concurrency_group:
+        raise ValueError("method(): the port's runtime takes num_returns=1 "
+                         "and no concurrency_group")
+
+    def wrap(fn):
+        fn._num_returns = num_returns
+        fn._concurrency_group = concurrency_group
+        return fn
+
+    return wrap
 
 
 class _PoolLink:
-    """A process's connection to the driver's task pool (through its
-    registry socket): submissions and cancels out, the tasks' messages
-    back, read by a thread of its own."""
+    """A process's connection to the driver's task pool and ledger
+    (through its registry socket): submissions, cancels, admissions and
+    ledger calls out; the tasks' messages, grants and answers back, read
+    by a thread of its own."""
 
     def __init__(self):
         self._conn = transport.connect(_REGISTRY)
@@ -1717,6 +2137,7 @@ class _PoolLink:
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._answers: Dict[int, Any] = {}
+        self._on_grant: Dict[int, Callable[[Any], None]] = {}
         threading.Thread(target=self._read, name="raytpu-torch-pool-link",
                          daemon=True).start()
 
@@ -1724,13 +2145,35 @@ class _PoolLink:
         with self._lock:
             transport.send(self._conn, message)
 
-    def resources(self) -> dict:
-        rid = next(self._ids)
-        self.send(("resources", rid))
+    def _wait(self, rid: int):
         with READY:
             while rid not in self._answers:
                 READY.wait(_POLL_S)
-            return self._answers.pop(rid)
+            ok, value = self._answers.pop(rid)
+        if not ok:
+            raise value
+        return value
+
+    def ask(self, op: str, args: tuple):
+        rid = next(self._ids)
+        self.send(("ask", rid, op, args))
+        return self._wait(rid)
+
+    def admit(self, spec: ledger.Spec, on_grant):
+        rid = next(self._ids)
+        with READY:
+            self._on_grant[rid] = on_grant
+        self.send(("admit", rid, spec))
+        try:
+            view, waiting = self._wait(rid)
+        except BaseException:
+            with READY:
+                self._on_grant.pop(rid, None)
+            raise
+        if view is not None:
+            with READY:
+                self._on_grant.pop(rid, None)
+        return view, waiting
 
     def _read(self) -> None:
         while True:
@@ -1738,10 +2181,18 @@ class _PoolLink:
                 message = transport.recv(self._conn)
             except (EOFError, OSError):
                 return  # the driver is gone, and this process with it
-            if message[0] == "resources":
+            kind = message[0]
+            if kind == "answer":
                 with READY:
-                    self._answers[message[1]] = message[2]
+                    self._answers[message[1]] = (message[2], message[3])
                     READY.notify_all()
+            elif kind == "admitted":
+                with READY:
+                    on_grant = self._on_grant.pop(message[1], None)
+                if on_grant is not None:
+                    threading.Thread(target=on_grant, args=(message[2],),
+                                     name="raytpu-torch-admit",
+                                     daemon=True).start()
             else:
                 remote_function.deliver(message)
 

@@ -3,14 +3,22 @@
 ``.remote(*args, **kwargs)`` to run ``fn`` as a task on the tree's task
 pool (:mod:`raytpu_torch.runtime.task_pool`).
 
-Options, with the JAX package's defaults: ``num_cpus`` (1), ``num_returns``
-(1: one ref; N > 1: a list of N refs, the function returning N values;
+Options, with the JAX package's defaults: ``num_cpus`` (1), ``num_gpus``
+(a share of one card, or whole cards), ``resources`` (custom ones), the
+placement options (``scheduling_strategy``, ``placement_group``,
+``placement_group_bundle_index``,
+``placement_group_capture_child_tasks``; see
+:mod:`raytpu_torch.runtime.placement_group`), ``num_returns`` (1: one
+ref; N > 1: a list of N refs, the function returning N values;
 ``"streaming"``: an
 :class:`~raytpu_torch.runtime.generator.ObjectRefGenerator` of the
 values a generator function yields), ``name`` (the function's qualified
 name), ``max_retries`` (3, ``cfg.task_max_retries``) and
-``retry_exceptions`` (False). Any other option raises ``ValueError``
-naming it.
+``retry_exceptions`` (False). Any other option (``runtime_env``
+among them) raises ``ValueError`` naming it. The resources are built as
+the JAX package builds them; the driver's ledger admits the task
+(:mod:`raytpu_torch.runtime.ledger`), and one that can never fit fails
+at once with :class:`~raytpu_torch.core.errors.TaskError`.
 
 The function is pickled by value where it cannot be found by name (a
 lambda, a closure, a function defined inside another), once for all its
@@ -29,10 +37,10 @@ import threading
 from collections import deque
 from typing import Any, Dict, Optional
 
-from raytpu_torch.runtime import object_ref, object_store, refcount
+from raytpu_torch.runtime import ledger, object_ref, object_store, refcount
 
-OPTIONS = ("num_cpus", "num_returns", "name", "max_retries",
-           "retry_exceptions")
+OPTIONS = ("num_cpus", "num_gpus", "resources", "num_returns", "name",
+           "max_retries", "retry_exceptions", *ledger.PLACEMENT_OPTIONS)
 # The JAX package's cfg.task_max_retries.
 TASK_MAX_RETRIES = 3
 
@@ -55,6 +63,7 @@ def check_options(options: Dict[str, Any]) -> None:
     if not isinstance(retries, int) or retries < -1:
         raise ValueError(f"max_retries={retries!r}: an int >= -1 "
                          f"(-1: no limit)")
+    ledger.build_resources(options, default_cpus=1.0)  # raises where bad
 
 
 class _Submitted:
@@ -190,10 +199,14 @@ class RemoteFunction:
             _SUBMITTED[tid] = _Submitted(
                 returns, streaming, refcount.Submission(None, keep, sealed))
         retries = opts.get("max_retries", TASK_MAX_RETRIES)
+        resources = ledger.build_resources(opts, default_cpus=1.0)
+        pg, bundle, capture = ledger.placement_of(opts)
         spec = {"tid": tid, "fn": fn_blob, "args": sealed,
                 "name": self._name, "num_returns": 1 if streaming
                 else num_returns, "streaming": streaming,
-                "num_cpus": float(opts.get("num_cpus", 1)),
+                "num_cpus": resources.get("CPU", 0.0),
+                "resources": resources, "pg": pg, "bundle": bundle,
+                "capture": capture,
                 "retries": (1 << 30) if retries == -1 else retries,
                 "retry_exceptions": opts.get("retry_exceptions", False),
                 "owner_pid": os.getpid()}

@@ -38,9 +38,19 @@ torch threads.
   deltas (:mod:`raytpu_torch.runtime.records`), so a worker killed
   mid-task loses only that attempt's RUNNING.
 
-What it leaves out: placement, resources other than CPUs, a task that
-blocks in ``get`` on tasks it submitted keeps its slot (with every slot
-so held the pool stalls), and no backpressure on streams.
+- **Resources.** A task is dispatched once the driver's ledger
+  (:mod:`raytpu_torch.runtime.ledger`) grants what it asks for (its
+  CPUs, a share of the card, custom resources, from a placement group's
+  bundle where it runs in one), first in first out among those that
+  fit; what can never fit fails at once (:class:`TaskError`). A task
+  that asks for a card runs in a worker forked for it and bound to the
+  granted card before its first CUDA call (``CUDA_VISIBLE_DEVICES``),
+  which exits after that task: a pooled worker may have touched CUDA
+  already, and then keeps the cards it saw.
+
+What it leaves out: a task that blocks in ``get`` on tasks it submitted
+keeps its grant (with every CPU so held the pool stalls), and no
+backpressure on streams.
 """
 
 from __future__ import annotations
@@ -56,10 +66,13 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.multiprocessing as mp
 
-from raytpu_torch.core.errors import (TaskCancelledError, TaskError,
+from raytpu_torch.core import topology
+from raytpu_torch.core.errors import (PlacementGroupError,
+                                      TaskCancelledError, TaskError,
                                       WorkerCrashedError)
-from raytpu_torch.runtime import (object_store, records, refcount,
-                                  serialization, starter, transport)
+from raytpu_torch.runtime import (context, ledger, object_store, records,
+                                  refcount, serialization, starter,
+                                  transport)
 from raytpu_torch.util import metrics, profiler, task_events
 from raytpu_torch.util.profiler import profiling_enabled
 
@@ -76,43 +89,60 @@ class Task:
 
     __slots__ = ("tid", "fn", "args", "name", "num_returns", "streaming",
                  "num_cpus", "retries", "retry_exceptions", "owner_pid",
-                 "route", "cancelled", "sent_items", "attempt")
+                 "resources", "pg", "bundle", "capture", "route",
+                 "cancelled", "sent_items", "attempt", "grant")
 
     def __init__(self, spec: dict, route: Callable[[tuple], None]):
         for key in ("tid", "fn", "args", "name", "num_returns", "streaming",
-                    "num_cpus", "retries", "retry_exceptions", "owner_pid"):
+                    "num_cpus", "retries", "retry_exceptions", "owner_pid",
+                    "resources", "pg", "bundle", "capture"):
             setattr(self, key, spec[key])
         self.route = route
         self.cancelled = False
         self.sent_items = False
         self.attempt = 0
+        self.grant: Optional[ledger.Grant] = None
+
+    @property
+    def spec(self) -> ledger.Spec:
+        return ledger.Spec(self.resources, self.pg, self.bundle)
+
+    @property
+    def gpus(self) -> float:
+        return self.resources.get("GPU", 0.0)
 
     def message(self) -> tuple:
         return ("run", self.tid, self.fn, self.args,
                 {"name": self.name, "num_returns": self.num_returns,
                  "streaming": self.streaming, "num_cpus": self.num_cpus,
                  "retry_exceptions": self.retry_exceptions,
-                 "owner_pid": self.owner_pid, "attempt": self.attempt})
+                 "owner_pid": self.owner_pid, "attempt": self.attempt,
+                 "pg": self.pg, "capture": self.capture})
 
 
 class _Proc:
-    def __init__(self, process, conn, spawned: float, uid: str):
+    def __init__(self, process, conn, spawned: float, uid: str,
+                 bound: bool = False):
         self.process = process
         self.conn = conn
         self.uid = uid  # its id in the records
         self.task: Optional[Task] = None
         self.marks = {"spawned": spawned}
+        # A worker forked for one task that asks for a card, bound to it:
+        # it exits after that task and is not replaced.
+        self.bound = bound
 
 
 class TaskPool:
     """The driver's pool of ``size`` task worker processes."""
 
-    def __init__(self, size: int, registry: str):
+    def __init__(self, size: int, registry: str, led: ledger.Ledger):
         if size < 1:
             raise ValueError(f"num_cpus={size}: the task pool needs at "
                              f"least one CPU")
         self.size = int(size)
-        self.free = float(size)
+        self._ledger = led
+        led.add_listener(self._kick)
         self._registry = registry
         self._lock = threading.Lock()
         self._procs: List[_Proc] = []
@@ -142,23 +172,39 @@ class TaskPool:
         for _ in range(self.size - 1):
             self._spawn()
 
-    def _spawn(self) -> None:
+    def _spawn(self, task: Optional[Task] = None) -> None:
+        """Start a worker for the pool; or, given a task that asks for a
+        card, one bound to its grant's cards that runs only it."""
         with self._lock:
             if self._closed:
-                return
+                closed = True
+            else:
+                closed = False
+        if closed:
+            if task is not None:
+                self._ledger.release(task.grant.gid)
+                task.route(("done", task.tid, False, WorkerCrashedError(
+                    "the task pool was shut down")))
+            return
         parent, child = mp.Pipe()
         uid = records.new_uid()
+        visible = None
+        if task is not None:
+            visible = task.grant.view(self._ledger.card_ids)["visible"]
         process = starter.Process(
             target=_worker_main,
-            args=(child, self._registry, time.time(), uid),
+            args=(child, self._registry, time.time(), uid, visible),
             name=f"raytpu-task-{next(self._names)}", daemon=True)
         spawned = time.time()
         process.start()
         child.close()
-        proc = _Proc(process, parent, spawned, uid)
+        proc = _Proc(process, parent, spawned, uid, bound=task is not None)
         with self._lock:
             self._procs.append(proc)
             closed = self._closed
+            if task is not None:
+                proc.task = task
+                self._running[task.tid] = proc
         if closed:
             process.kill()
         threading.Thread(target=self._read, args=(proc,),
@@ -178,9 +224,15 @@ class TaskPool:
     # -- tasks ----------------------------------------------------------
 
     def submit(self, task: Task) -> None:
-        if task.num_cpus > self.size:
-            raise ValueError(f"num_cpus={task.num_cpus} exceeds the task "
-                             f"pool's {self.size} CPUs")
+        """Queue a task; one that can never fit (its CPUs, cards or
+        custom resources past the ledger's total or its bundle's, or a
+        group that is gone) fails at once."""
+        try:
+            self._ledger.check(task.spec)
+        except (ValueError, PlacementGroupError) as exc:
+            task.route(("done", task.tid, False,
+                        TaskError.from_exception(task.name, exc)))
+            return
         with self._lock:
             if not self._closed:
                 if task_events.enabled():
@@ -188,29 +240,66 @@ class TaskPool:
                                      task_events.TaskTransition.SUBMITTED,
                                      name=task.name, attempt=task.attempt)
                 self._queue.append(task)
-                self._dispatch()
-                return
-        task.route(("done", task.tid, False, WorkerCrashedError(
-            "the task pool was shut down"), False))
-
-    def _dispatch(self) -> None:
-        """Hand queued tasks to idle workers, first in first out among
-        those whose CPUs fit. Under the lock."""
-        while self._idle and self._queue:
-            for i, task in enumerate(self._queue):
-                if task.num_cpus <= self.free + 1e-9:
-                    break
+                starts, failed = self._dispatch()
             else:
+                starts, failed = None, None
+        if starts is None:
+            task.route(("done", task.tid, False, WorkerCrashedError(
+                "the task pool was shut down"), False))
+            return
+        self._after_dispatch(starts, failed)
+
+    def _kick(self) -> None:
+        """Dispatch what now fits (the ledger released a grant)."""
+        with self._lock:
+            if self._closed:
                 return
-            del self._queue[i]
+            starts, failed = self._dispatch()
+        self._after_dispatch(starts, failed)
+
+    def _dispatch(self) -> tuple:
+        """Hand queued tasks to idle workers, first in first out among
+        those the ledger grants now; a task that asks for a card gets a
+        worker of its own. Under the lock. Returns the tasks whose bound
+        workers to start, and those that failed (their group gone), for
+        :meth:`_after_dispatch` outside the lock."""
+        starts, failed, skipped = [], [], set()
+        for task in list(self._queue):
+            if not task.gpus and not self._idle:
+                continue
+            sig = task.spec.signature()
+            if sig in skipped:
+                continue
+            try:
+                grant = self._ledger.try_acquire(task.spec)
+            except (ValueError, PlacementGroupError) as exc:
+                self._queue.remove(task)
+                failed.append((task, exc))
+                continue
+            if grant is None:
+                skipped.add(sig)
+                continue
+            self._queue.remove(task)
+            task.grant = grant
+            if task.gpus:
+                starts.append(task)
+                continue
             proc = self._idle.popleft()
             proc.task = task
-            self.free -= task.num_cpus
             self._running[task.tid] = proc
             try:
                 transport.send(proc.conn, task.message())
             except OSError:
                 pass  # the worker is gone: its reader requeues the task
+        return starts, failed
+
+    def _after_dispatch(self, starts, failed) -> None:
+        for task, exc in failed:
+            task.route(("done", task.tid, False,
+                        TaskError.from_exception(task.name, exc)))
+        for task in starts:
+            threading.Thread(target=self._spawn, args=(task,),
+                             name="raytpu-task-bound", daemon=True).start()
 
     def _read(self, proc: _Proc) -> None:
         while True:
@@ -221,9 +310,15 @@ class TaskPool:
             kind = message[0]
             if kind == "ready":
                 proc.marks.update(message[1], ready=time.time())
+                if proc.bound:
+                    try:
+                        transport.send(proc.conn, proc.task.message())
+                    except OSError:
+                        pass  # the worker is gone: its reader requeues it
+                    continue
                 with self._lock:
                     self._idle.append(proc)
-                    self._dispatch()
+                self._kick()
             elif kind == "item":
                 task = proc.task
                 if task is not None:
@@ -240,7 +335,7 @@ class TaskPool:
         with self._lock:
             task, proc.task = proc.task, None
             self._running.pop(tid, None)
-            self.free += task.num_cpus
+            grant, task.grant = task.grant, None
             again = (not ok and retryable and task.retries > 0
                      and not task.cancelled and not task.sent_items)
             if again:
@@ -251,8 +346,11 @@ class TaskPool:
                                      task_events.TaskTransition.RETRIED,
                                      name=task.name, attempt=task.attempt)
                 self._queue.appendleft(task)
-            self._idle.append(proc)
-            self._dispatch()
+            if not proc.bound:
+                self._idle.append(proc)
+        if proc.bound:
+            proc.conn.close()  # its one task is done: it exits
+        self._ledger.release(grant.gid)  # and dispatches what now fits
         if again:
             return
         if task.cancelled and not task.streaming:
@@ -268,6 +366,7 @@ class TaskPool:
         object_store.sweep_owner(proc.process.pid)
         if metrics.enabled() or profiling_enabled():
             records.proc_dead(proc.uid)
+        grant = None
         with self._lock:
             if proc in self._procs:
                 self._procs.remove(proc)
@@ -277,7 +376,7 @@ class TaskPool:
             again = False
             if task is not None:
                 self._running.pop(task.tid, None)
-                self.free += task.num_cpus
+                grant, task.grant = task.grant, None
                 again = (task.retries > 0 and not task.cancelled
                          and not task.sent_items and not self._closed)
                 if task_events.enabled():
@@ -298,7 +397,8 @@ class TaskPool:
                             task_events.TaskTransition.RETRIED,
                             name=task.name, attempt=task.attempt)
                     self._queue.appendleft(task)
-            replace = not self._closed
+            replace = not self._closed and not proc.bound
+        self._ledger.release(None if grant is None else grant.gid)
         if task is not None and not again:
             error = (TaskCancelledError(f"task {task.name} was cancelled")
                      if task.cancelled else WorkerCrashedError(
@@ -341,11 +441,6 @@ class TaskPool:
                 if proc.task is not None and proc.task.route is route:
                     proc.task.cancelled = True
 
-    def resources(self) -> dict:
-        with self._lock:
-            return {"total": {"CPU": float(self.size)},
-                    "available": {"CPU": float(self.free)}}
-
     def live(self) -> List[dict]:
         """The tasks the pool holds now: queued, and running."""
         with self._lock:
@@ -359,8 +454,10 @@ class TaskPool:
         return rows
 
     def workers(self) -> List[int]:
+        """The pool's workers' pids (a worker forked for one task that
+        asks for a card is not the pool's)."""
         with self._lock:
-            return [p.process.pid for p in self._procs]
+            return [p.process.pid for p in self._procs if not p.bound]
 
     def stop(self) -> None:
         """Kill every worker and fail what is queued. Safe twice. A stop
@@ -383,9 +480,14 @@ class TaskPool:
                 "the task pool was shut down")))
 
 
-def serve_client(conn, pool: TaskPool) -> None:
+def serve_client(conn, pool: Callable[[], TaskPool],
+                 handle: Callable[[tuple, Callable], None],
+                 closed: Callable[[Callable], None]) -> None:
     """One other process's submissions, on its registry connection, until
-    it closes; each task's messages go back on it."""
+    it closes; each task's messages go back on it. ``pool()`` gives the
+    driver's pool (started at the first submission). The process's other
+    messages (admissions and calls of the ledger) go to ``handle(message,
+    route)``; ``closed(route)`` at the end drops what it left."""
     lock = threading.Lock()
 
     def route(message) -> None:
@@ -402,15 +504,12 @@ def serve_client(conn, pool: TaskPool) -> None:
             break
         kind = message[0]
         if kind == "submit":
-            try:
-                pool.submit(Task(message[1], route))
-            except ValueError as exc:
-                route(("done", message[1]["tid"], False, exc))
+            pool().submit(Task(message[1], route))
         elif kind == "cancel":
-            pool.cancel(message[1], message[2])
-        elif kind == "resources":
-            route(("resources", message[1], pool.resources()))
-    pool.drop_route(route)
+            pool().cancel(message[1], message[2])
+        else:
+            handle(message, route)
+    closed(route)
 
 
 # ---- the worker ----------------------------------------------------------
@@ -438,14 +537,18 @@ def _retryable(exc: BaseException, retry_exceptions) -> bool:
     return False
 
 
-def _worker_main(conn, registry: str, spawned: float, uid: str) -> None:
+def _worker_main(conn, registry: str, spawned: float, uid: str,
+                 visible: Optional[str] = None) -> None:
     """A task worker: run the tasks the pool sends, one at a time, in
     this thread; a reader thread takes cancels meanwhile. Its records
-    ride each done message."""
+    ride each done message. ``visible``: the cards of the one task it
+    was forked for, bound before anything touches CUDA."""
     from raytpu_torch.runtime import api
     from raytpu_torch.util import tracing
 
     marks = {"spawned": spawned, "entered": time.time()}
+    if visible is not None:
+        topology.bind_card(visible)  # raises: the task is retried or fails
     tracing.set_process_identity("task-worker", str(os.getpid()))
     api.set_registry(registry)
     records.set_identity(False, uid)
@@ -480,11 +583,21 @@ def _worker_main(conn, registry: str, spawned: float, uid: str) -> None:
 
 
 def _run(conn, message: tuple, cancelled: set) -> None:
-    from raytpu_torch.runtime import api
-
     _, tid, fn_blob, args, opts = message
     name, owner, attempt = opts["name"], opts["owner_pid"], opts["attempt"]
     torch.set_num_threads(max(1, int(opts["num_cpus"])))
+    context.set_task(tid, opts["pg"], opts["capture"])
+    try:
+        _run_task(conn, tid, fn_blob, args, opts, cancelled, name, owner,
+                  attempt)
+    finally:
+        context.set_task(None)
+
+
+def _run_task(conn, tid, fn_blob, args, opts, cancelled, name, owner,
+              attempt) -> None:
+    from raytpu_torch.runtime import api
+
     if task_events.enabled():
         task_events.emit("task", tid, task_events.TaskTransition.RUNNING,
                          name=name, attempt=attempt)

@@ -59,6 +59,10 @@ __all__ = [
     "ingress", "shutdown", "start", "status",
 ]
 
+from raytpu_torch.util import usage_stats as _usage_stats  # noqa: E402
+
+_usage_stats.record_library_usage("serve")
+
 _llm_deployment = None
 
 

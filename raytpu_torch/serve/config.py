@@ -3,7 +3,9 @@ field for field.
 
 Plain dataclasses validated at construction. Two things differ from the
 JAX package: ``ray_actor_options`` takes what the port's runtime takes
-(``num_cpus``: a replica's torch threads), any other key raising
+of a replica's resources (``num_cpus``: held in the driver's ledger, and
+the replica's torch threads; ``num_gpus``: its share of the card, which
+it is bound to; ``resources``: custom ones), any other key raising
 ``ValueError`` naming it; and ``ReplicaConfig.serialized_callable`` is
 the target pickled by name with the standard pickle (no ``cloudpickle``),
 so a deployment's class or function sits at a module's top level.
@@ -17,8 +19,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 # What a replica's ray_actor_options may set: the port's runtime options
-# other than max_concurrency, which the controller sets itself.
-ACTOR_OPTIONS = ("num_cpus",)
+# of its resources (max_concurrency the controller sets itself).
+ACTOR_OPTIONS = ("num_cpus", "num_gpus", "resources")
 
 
 @dataclass

@@ -28,7 +28,6 @@ What the port has none of reads empty: ``list_placement_groups`` is
 from __future__ import annotations
 
 import functools
-import os
 from typing import Any, Dict, List, Optional
 
 from raytpu_torch.runtime import records
@@ -91,22 +90,13 @@ def _match(row: dict, state: Optional[str], node: Optional[str],
 
 @_in_driver
 def list_nodes(detail: bool = False) -> List[Dict[str, Any]]:
-    """The port's one host: its id, its task pool's CPUs (total and not
-    held by a running task; the host's CPUs before the pool starts) and
-    its cards."""
-    import torch
-
+    """The port's one host: its id, and the driver's ledger's resources
+    (CPUs, cards, custom ones) in all and not held."""
     from raytpu_torch.runtime import api
 
-    if api._POOL is not None:
-        res = api._POOL.resources()
-    else:
-        cpus = {"CPU": float(os.cpu_count() or 1)}
-        res = {"total": cpus, "available": dict(cpus)}
-    gpus = float(torch.cuda.device_count())
+    res = api._ledger().resources()
     node = {"node_id": records.node_id(), "alive": True,
-            "resources": {**res["total"], "GPU": gpus},
-            "available": {**res["available"], "GPU": gpus}}
+            "resources": res["total"], "available": res["available"]}
     if detail:
         node["events"] = _events_by_id("node").get(node["node_id"], [])
     return [node]
@@ -191,8 +181,13 @@ def list_objects(detail: bool = False) -> List[Dict[str, Any]]:
 
 
 def list_placement_groups() -> List[Dict[str, Any]]:
-    """``[]``: the port has no placement groups."""
-    return []
+    """The driver's ledger's placement groups, as the JAX local
+    backend's rows."""
+    from raytpu_torch.runtime import api
+
+    return [{"placement_group_id": g["id"], "state": g["state"],
+             "strategy": g["strategy"], "bundles": g["bundles"]}
+            for g in api._ledger().groups()]
 
 
 @_in_driver

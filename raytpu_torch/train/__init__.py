@@ -40,3 +40,7 @@ __all__ = [
     "get_dataset_shard",
     "StepProfiler",
 ]
+
+from raytpu_torch.util import usage_stats as _usage_stats
+
+_usage_stats.record_library_usage("train")

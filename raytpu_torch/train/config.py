@@ -5,14 +5,15 @@ What changed:
 
 - ``ScalingConfig.device`` takes the place of ``use_tpu`` and
   ``chips_per_worker``: ``"cuda"`` (the default) gives each worker one
-  card, ``cuda:<local rank>``, and forms the gang's process group on
+  card (a bundle's ``"GPU": 1``; the worker is bound to it and runs on
+  ``cuda:0`` of what it sees) and forms the gang's process group on
   NCCL; ``"cpu"`` forms it on gloo. NCCL cannot hold two ranks on one
-  card, so :func:`check_cards` refuses a CUDA gang larger than the card
-  count.
-- No placement groups (the port's runtime has none): no
-  ``placement_strategy`` and no ``bundle_specs``.
-  ``resources_per_worker`` takes ``{"CPU": n}`` only: the worker's torch
-  threads.
+  card, so :func:`check_cards` refuses a CUDA gang larger than the
+  tree's card count.
+- The gang runs in a placement group of :meth:`ScalingConfig.bundle_specs`
+  (``placement_strategy``, STRICT_PACK by default), as the JAX trainer's
+  does; ``resources_per_worker`` takes ``"CPU"`` (held, and the worker's
+  torch threads), ``"GPU"`` and custom resources.
 - No elasticity and no multi-host: ``elastic=True`` with ``min_workers <
   num_workers`` and a ``coordinator_address`` other than ``None`` or
   ``"auto"`` raise :class:`NotImplementedError`. Both need what the port
@@ -26,9 +27,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
-import torch
-
 from raytpu_torch import resolve_device
+from raytpu_torch.runtime.ledger import VALID_STRATEGIES
 
 
 @dataclasses.dataclass
@@ -36,6 +36,7 @@ class ScalingConfig:
     num_workers: int = 1
     device: str = "cuda"
     resources_per_worker: Optional[Dict[str, float]] = None
+    placement_strategy: str = "STRICT_PACK"
     coordinator_address: Optional[str] = None
     min_workers: Optional[int] = None
     elastic: bool = False
@@ -58,10 +59,14 @@ class ScalingConfig:
                 f"coordinator_address={self.coordinator_address!r}: a "
                 f"multi-host gang is not ported; the trainer forms its gang "
                 f"on this host (None or 'auto')")
-        unknown = sorted(set(self.resources_per_worker or {}) - {"CPU"})
-        if unknown:
-            raise ValueError(f"resources_per_worker {unknown}: the port's "
-                             f"workers take only 'CPU' (their threads)")
+        if self.placement_strategy not in VALID_STRATEGIES:
+            raise ValueError(f"placement_strategy="
+                             f"{self.placement_strategy!r}: one of "
+                             f"{VALID_STRATEGIES}")
+        if self.device == "cpu" and (self.resources_per_worker or {}).get(
+                "GPU"):
+            raise ValueError("resources_per_worker asks for a card on a "
+                             "gang of device='cpu'")
 
     @property
     def backend(self) -> str:
@@ -73,15 +78,30 @@ class ScalingConfig:
     def cpus_per_worker(self) -> int:
         return int((self.resources_per_worker or {}).get("CPU", 1))
 
+    def bundle_specs(self, world_size: Optional[int] = None
+                     ) -> List[Dict[str, float]]:
+        """One bundle a worker, as the JAX package's (its ``"TPU"``
+        chips a worker are ``"GPU": 1`` on the card); ``world_size``
+        overrides ``num_workers``."""
+        per = dict(self.resources_per_worker or {})
+        per.setdefault("CPU", 1)
+        if self.device == "cuda":
+            per.setdefault("GPU", 1)
+        n = self.num_workers if world_size is None else world_size
+        return [dict(per) for _ in range(n)]
+
 
 def check_cards(scaling: ScalingConfig) -> None:
     """Raise unless the gang can form: a CUDA gang needs a card (the
     port's rule: it never moves to the CPU on its own) and one card a
-    worker."""
+    worker, of the cards the driver's ledger holds."""
     if scaling.device != "cuda":
         return
-    resolve_device("cuda")
-    cards = torch.cuda.device_count()
+    from raytpu_torch.runtime import api
+
+    cards = int(api.cluster_resources().get("GPU", 0))
+    if cards == 0:
+        resolve_device("cuda")  # raises: no card here
     if scaling.num_workers > cards:
         raise ValueError(
             f"a CUDA gang of {scaling.num_workers} workers needs one card "

@@ -15,8 +15,11 @@ ends with the gang that reads from it.
 
 The gang:
 
-- **Workers.** One :class:`TrainWorker` process a rank, on ``cuda:<rank>``
-  (one card each; the ranks are local) or on the CPU.
+- **Workers.** One :class:`TrainWorker` process a rank, each in its
+  bundle of the gang's placement group (``ScalingConfig.bundle_specs``,
+  made for the gang and removed after it, as the JAX trainer's): on the
+  card its bundle reserved, bound to it and seen as ``cuda:0`` (the
+  ranks are local), or on the CPU.
 - **Rendezvous.** The port's runtime has no named actors, so there is no
   ``_RendezvousStore``: rank 0's worker binds a free port on this host
   and returns ``host:port`` from a call, and the driver hands it to every
@@ -65,6 +68,8 @@ import torch
 from raytpu_torch import resolve_device, runtime
 from raytpu_torch.cluster import constants
 from raytpu_torch.core.errors import RayTpuError, TaskError
+from raytpu_torch.runtime.placement_group import (placement_group,
+                                                  remove_placement_group)
 from raytpu_torch.train import session as session_mod
 from raytpu_torch.train.checkpoint import Checkpoint, CheckpointManager
 from raytpu_torch.train.config import (Result, RunConfig, ScalingConfig,
@@ -86,7 +91,8 @@ class TrainWorker:
                  device: str):
         self.rank = rank
         self.world_size = world_size
-        dev = resolve_device("cpu" if device == "cpu" else f"cuda:{rank}")
+        # On the card the process is bound to: cuda:0 of what it sees.
+        dev = resolve_device("cpu" if device == "cpu" else "cuda")
         self.context = session_mod.TrainContext(
             rank=rank, world_size=world_size, local_rank=rank, device=dev,
             **context_kwargs)
@@ -262,13 +268,20 @@ class DataParallelTrainer(BaseTrainer):
         workers = []
         history = []
         last_ckpt = None
+        pg = None
         try:
+            bundles = sc.bundle_specs(n)
+            pg = placement_group(bundles, strategy=sc.placement_strategy)
             shards = _split_datasets(self.datasets, n)
-            worker_cls = runtime.remote(TrainWorker).options(
-                num_cpus=sc.cpus_per_worker)
             ctx_kwargs = {"experiment_name": name, "storage_path": run_dir}
-            workers = [worker_cls.remote(rank, n, ctx_kwargs, sc.device)
-                       for rank in range(n)]
+            for rank, bundle in enumerate(bundles):
+                custom = {k: v for k, v in bundle.items()
+                          if k not in ("CPU", "GPU")}
+                workers.append(runtime.remote(TrainWorker).options(
+                    num_cpus=bundle["CPU"], num_gpus=bundle.get("GPU", 0),
+                    resources=custom, placement_group=pg,
+                    placement_group_bundle_index=rank,
+                ).remote(rank, n, ctx_kwargs, sc.device))
             address = runtime.get(workers[0].rendezvous_address.remote(),
                                   timeout=GANG_CALL_TIMEOUT_S)
             runtime.get([w.setup_distributed.remote(address, sc.backend)
@@ -328,6 +341,8 @@ class DataParallelTrainer(BaseTrainer):
         finally:
             for w in workers:
                 runtime.kill(w)
+            if pg is not None:
+                remove_placement_group(pg)
 
 
 def _split_datasets(datasets: Dict[str, Any], n: int):

@@ -1,11 +1,10 @@
 """raytpu_torch.tune — experiment runner, the port of :mod:`raytpu.tune`
 (reference: ``python/ray/tune/``): the same names and ``__all__``, with
 ``report`` from the port's Train session. Each trial is a worker process
-of :mod:`raytpu_torch.runtime`; trials run on the card (``cuda:0``, shared)
-unless ``TuneConfig(device="cpu")`` asks for the CPU.
-
-The JAX package records its use through ``usage_stats`` on import; the
-port has no ``util/usage_stats`` yet (ROADMAP.md), so it records nothing.
+of :mod:`raytpu_torch.runtime`; trials run on the card (bound to the
+share of it ``resources_per_trial`` asks for, ``cuda:0`` in the trial)
+unless ``TuneConfig(device="cpu")`` asks for the CPU. As the JAX
+package, it records its use through ``usage_stats`` on import.
 """
 
 from raytpu_torch.train.session import report  # same report API as Train
@@ -55,3 +54,7 @@ __all__ = [
     "TPESearcher",
     "PopulationBasedTraining",
 ]
+
+from raytpu_torch.util import usage_stats as _usage_stats
+
+_usage_stats.record_library_usage("tune")

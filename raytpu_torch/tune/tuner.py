@@ -14,19 +14,24 @@ staged checkpoints after the run, and the throttled experiment state.
 
 What changed:
 
-- **Device.** Trials run on ``cuda:0`` (so every trial shares the one
-  card) unless the caller asks for the CPU with
-  ``TuneConfig(device="cpu")``. A trial on ``"cuda"`` raises at ``fit``
+- **Device.** Trials run on the card unless the caller asks for the CPU
+  with ``TuneConfig(device="cpu")``: bound to the share of it that
+  ``resources_per_trial["GPU"]`` asks for (``cuda:0`` in the trial), or,
+  without a ``"GPU"``, on ``cuda:0`` of every card, as before the port
+  counted the card. A trial on ``"cuda"`` raises at ``fit``
   when there is no card; the port never moves to the CPU on its own.
   When the trainable is a :class:`DataParallelTrainer`, the trials run
   where its ``ScalingConfig.device`` says (a ``TuneConfig.device`` that
   disagrees raises).
-- **Resources.** ``resources_per_trial`` takes ``{"CPU": n}`` only: the
-  trial process's torch threads (the runtime's ``num_cpus``). Any other
-  key raises ``ValueError`` naming it.
-- **Concurrency.** The port has no ``cluster_resources()``; the default
-  ``max_concurrent_trials`` is the host's CPU count (``os.cpu_count()``),
-  the number of CPUs the JAX package's default ``init`` registers.
+- **Resources.** ``resources_per_trial`` is the trial's request of the
+  driver's ledger: ``"CPU"`` (held, and the trial process's torch
+  threads; 1 by default), ``"GPU"`` (a share of the card) and custom
+  resources. A trial that does not fit waits there for a running
+  trial's share, so ``{"CPU": 1, "GPU": 0.5}`` holds two trials on one
+  card at a time; one the tree can never hold raises at ``fit``. A
+  ``"GPU"`` on CPU trials is held (and bound) all the same. The default
+  ``max_concurrent_trials`` is ``cluster_resources()["CPU"]``, as in the
+  JAX package.
 - **Pickling.** The trainable crosses to the trial processes, and into
   the experiment state, by the standard ``pickle`` (no ``cloudpickle``),
   so it is a module-level function (or an object that pickles); ``fit``
@@ -54,6 +59,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from raytpu_torch import resolve_device, runtime
 from raytpu_torch.core.errors import RayTpuError, TaskError
+from raytpu_torch.runtime.ledger import build_resources
 from raytpu_torch.train import session as session_mod
 from raytpu_torch.train.checkpoint import Checkpoint, CheckpointManager
 from raytpu_torch.train.config import Result, RunConfig, check_cards
@@ -73,8 +79,6 @@ TRIAL_CALL_TIMEOUT_S = 300.0
 # The pause between poll rounds, and the experiment state's throttle.
 POLL_PACE_S = 0.05
 SAVE_EVERY_S = 2.0
-# What resources_per_trial may set: the runtime's num_cpus.
-TRIAL_RESOURCES = ("CPU",)
 DEVICES = ("cuda", "cpu")
 
 
@@ -233,14 +237,16 @@ def _trial_device(tc: TuneConfig, trainable) -> str:
     return tc.device or "cuda"
 
 
-def _trial_cpus(resources: Optional[Dict[str, float]]) -> int:
-    unknown = sorted(set(resources or {}) - set(TRIAL_RESOURCES))
-    if unknown:
-        raise ValueError(
-            f"resources_per_trial {unknown}: a trial process of the port's "
-            f"runtime takes only {list(TRIAL_RESOURCES)} (its torch "
-            f"threads)")
-    return int((resources or {}).get("CPU", 1))
+def _trial_options(resources: Optional[Dict[str, float]]
+                   ) -> Dict[str, Any]:
+    """The trial actor's options from ``resources_per_trial``: its CPUs
+    (1 by default), its share of the card and its custom resources;
+    raises where the tree can never hold one trial."""
+    res = dict(resources or {})
+    options = {"num_cpus": res.pop("CPU", 1), "num_gpus": res.pop("GPU", 0),
+               "resources": res}
+    runtime.api.check_request(build_resources(options, default_cpus=1.0))
+    return options
 
 
 def _state_blob(state: dict) -> bytes:
@@ -313,7 +319,7 @@ class Tuner:
         resolve_device("cpu" if device == "cpu" else "cuda:0")
         if isinstance(self.trainable, _TrainerTrainable):
             check_cards(self.trainable.trainer.scaling_config)
-        cpus = _trial_cpus(tc.resources_per_trial)
+        trial_options = _trial_options(tc.resources_per_trial)
         _check_pickles(self.trainable)
         name = rc.name or f"raytpu-tune-{int(time.time())}"
         storage = rc.storage_path or os.path.join(
@@ -332,7 +338,7 @@ class Tuner:
 
         trials: List[Trial] = []
         ckpt_managers: Dict[str, CheckpointManager] = {}
-        worker_cls = runtime.remote(TrainWorker).options(num_cpus=cpus)
+        worker_cls = runtime.remote(TrainWorker).options(**trial_options)
 
         # A trial's start call, not waited for where it is sent: the
         # processes of a wave start together, and the trial's first poll
@@ -521,9 +527,15 @@ class Tuner:
 
             live = [t for t in trials if t.state == "RUNNING"]
             while live:
-                refs = [t.actor.poll.remote() for t in live]
-                polls = [polled(t, ref) for t, ref in zip(live, refs)]
-                for trial, (pairs, finished, err) in zip(live, polls):
+                # A trial whose process still waits for the ledger (its
+                # start unanswered) is not polled: its poll would wait
+                # behind it, and so the trials that could free its share.
+                started = [t for t in live if t.trial_id not in starts
+                           or runtime.wait([starts[t.trial_id]],
+                                           timeout=0)[0]]
+                refs = [t.actor.poll.remote() for t in started]
+                polls = [polled(t, ref) for t, ref in zip(started, refs)]
+                for trial, (pairs, finished, err) in zip(started, polls):
                     decision = CONTINUE
                     for metrics, ckpt_path in pairs:
                         trial.iterations += 1
@@ -648,9 +660,8 @@ class Tuner:
         return mgr.register(Checkpoint(ckpt_path), metrics)
 
     def _default_concurrency(self) -> int:
-        # The JAX package reads cluster_resources()["CPU"], which its
-        # default init sets to os.cpu_count().
-        return max(1, os.cpu_count() or 1)
+        res = runtime.cluster_resources()
+        return max(1, int(res.get("CPU", 1)))
 
 
 def run(trainable, *, param_space=None, tune_config=None, run_config=None):

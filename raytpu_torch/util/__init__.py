@@ -39,4 +39,17 @@ Each process's events and metric deltas ship to the driver
 (:mod:`raytpu_torch.runtime.records`), which :mod:`raytpu_torch.state`
 reads; spans are gathered on demand through the runtime's process tree
 (``tracing.cluster_timeline``).
+
+And the JAX package's ``raytpu.util`` names, its copies on the port's
+runtime: :class:`ActorPool`, :class:`Queue` and the scheduling strategy
+objects; :mod:`~raytpu_torch.util.usage_stats`, the libraries' local
+usage record.
 """
+
+from raytpu_torch.util.actor_pool import ActorPool
+from raytpu_torch.util.queue import Queue
+from raytpu_torch.util.scheduling_strategies import (
+    NodeAffinitySchedulingStrategy, PlacementGroupSchedulingStrategy)
+
+__all__ = ["ActorPool", "Queue", "NodeAffinitySchedulingStrategy",
+           "PlacementGroupSchedulingStrategy"]

@@ -15,10 +15,11 @@ histogram bucket increments) into primitive-only frames
 :class:`~raytpu_torch.util.tsdb.MetricStore`
 (:mod:`raytpu_torch.runtime.records`): on an actor's ship timer, and
 with a task worker's done message. Same bounded-buffer /
-requeue-on-failure contract as task-event shipping. The port ships only
-when armed (``RAYTPU_METRICS_SHIP=1``, :func:`enable_metrics_ship`;
-the JAX package ships by default, to its head); disarmed, each ship
-site costs a single flag check (:func:`enabled`).
+requeue-on-failure contract as task-event shipping. As in the JAX
+package, shipping is on unless ``RAYTPU_METRICS_SHIP`` is ``0``,
+``false`` or ``False`` (:func:`enable_metrics_ship` turns it on or off
+in process); disarmed, each ship site costs a single flag check
+(:func:`enabled`).
 :func:`start_metrics_server` serves the driver's store as Prometheus
 text at ``/metrics``, as the JAX head's dashboard does.
 
@@ -324,8 +325,7 @@ ENV_SHIP = "RAYTPU_METRICS_SHIP"
 ENV_BUFFER_MAX = "RAYTPU_METRICS_BUFFER_MAX"
 
 _BUFFER_MAX = int(os.environ.get(ENV_BUFFER_MAX, "") or 256)
-_ship_enabled = os.environ.get(ENV_SHIP, "") not in ("", "0", "false",
-                                                     "False")
+_ship_enabled = os.environ.get(ENV_SHIP, "") not in ("0", "false", "False")
 _ship_lock = threading.Lock()
 _frames: Deque[list] = deque()
 _frames_dropped_total = 0

@@ -50,7 +50,15 @@ RUNTIME_MODULES = ("core.errors", "runtime.api", "runtime.generator",
                    "runtime.serialization", "runtime.object_ref",
                    "runtime.refcount", "runtime.object_store",
                    "runtime.remote_function",
-                   "util.tenancy", "util.failpoints")
+                   "util.tenancy", "util.failpoints",
+                   "core.ids", "core.resources", "runtime.context",
+                   "runtime.placement_group", "util.actor_pool",
+                   "util.queue", "util.scheduling_strategies",
+                   "util.usage_stats")
+# The port's own modules of the card as a resource, with no JAX module
+# of their path (the JAX local backend's ledger and
+# ``detect_local_tpu`` are their counterparts).
+RESOURCE_MODULES = ("runtime.ledger", "core.topology")
 
 # The serve library, each module with its JAX module of the same path.
 SERVE_MODULES = ("serve/__init__.py", "serve/api.py", "serve/batching.py",
@@ -109,7 +117,8 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
     assert "raytpu_torch.inference.engine" in loaded
     assert "raytpu_torch.dashboard.app" in loaded
     assert {f"raytpu_torch.util.{m}" for m in UTIL_MODULES} <= set(loaded)
-    assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES} <= set(loaded)
+    assert {f"raytpu_torch.{m}" for m in RUNTIME_MODULES
+            + RESOURCE_MODULES + ("_version",)} <= set(loaded)
     assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
         ".__init__", "") for m in TRAIN_MODULES + SERVE_MODULES
         + DATA_MODULES} <= set(loaded)
@@ -296,6 +305,59 @@ def test_replica_processes_import_no_jax_and_an_llm_replica_needs_a_card(
     finally:
         serve.shutdown()
     assert {p.pid for p in multiprocessing.active_children()} <= before
+
+
+_IMPORT_TOP = """
+import json, multiprocessing, sys, torch
+import raytpu_torch
+print(json.dumps({"cuda": torch.cuda.is_initialized(),
+                  "children": len(multiprocessing.active_children()),
+                  "forbidden": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in ("jax", "raytpu"))}))
+"""
+
+
+def test_import_creates_no_cuda_context_and_starts_no_process():
+    """``import raytpu_torch`` (the core API at its top included) in a
+    fresh interpreter: no CUDA context, no child, nothing of JAX."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_TOP], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "cuda": False, "children": 0, "forbidden": []}
+
+
+_PRELOAD = """
+import importlib, json, torch
+
+def touched(*a, **k):
+    raise AssertionError("a CUDA query at import")
+
+for name in ("is_available", "device_count", "current_device", "init",
+             "_lazy_init", "get_device_properties"):
+    setattr(torch.cuda, name, touched)
+from raytpu_torch.runtime import starter
+for name in starter.PRELOAD:
+    importlib.import_module(name)
+print(json.dumps(torch.cuda.is_initialized()))
+"""
+
+
+def test_the_starter_s_preload_queries_no_card():
+    """What every server of the starter imports before it forks (a CUDA
+    query there would fix the device count of every child before its
+    binding) makes no CUDA call."""
+    out = subprocess.run([sys.executable, "-c", _PRELOAD], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "false"
+
+
+def test_the_top_level_holds_the_jax_package_s_names():
+    import raytpu
+
+    assert set(raytpu.__all__) <= set(raytpu_torch.__all__)
+    assert all(hasattr(raytpu_torch, name) for name in raytpu_torch.__all__)
 
 
 def test_runtime_modules_are_held_to_the_rules():
@@ -812,8 +874,8 @@ NOT_EMITTED = {
                      "one pool, which its SUBMITTED already says",
     "SCHEDULED": "no head picks a node: the pool runs every task",
     "LEASED": "no leases: the pool's workers are its own, never leased",
-    "RESTARTING": "no actor restarts (an actor that dies stays DEAD)",
-    "RESTARTED": "no actor restarts",
+    "RESTARTING": "an actor's restart is recorded as the JAX local "
+                  "backend records it: DEAD, RESTARTED, then CREATED",
     "TRANSFERRED": "no nodes to cross: a value's segment is mapped where "
                    "it is read",
     "NODE_ADDED": "one host, no node lifecycle",
@@ -842,16 +904,17 @@ def test_every_task_event_emission_is_under_one_flag_check():
             assert guarded, f"{path.relative_to(REPO)}:{line}"
             sites += 1
     # The pool's four (SUBMITTED, RETRIED twice, a dead worker's FAILED),
-    # its worker's four (RUNNING, FINISHED twice, FAILED), an actor's two
-    # (CREATED, DEAD), its calls' two (SUBMITTED; FINISHED at a reply or
-    # a stream's end or close), the object table's PUT.
-    assert sites == 13
+    # its worker's four (RUNNING, FINISHED twice, FAILED), an actor's four
+    # (CREATED, DEAD, and a restart's DEAD and RESTARTED), its calls' two
+    # (SUBMITTED; FINISHED at a reply or a stream's end or close), the
+    # object table's PUT.
+    assert sites == 15
 
 
 @pytest.mark.parametrize("site,flag,n", [
     ("metrics.collect", "metrics.enabled", 2),
     ("metrics.drain", "metrics.enabled", 2),
-    ("records.proc_dead", "metrics.enabled", 2),
+    ("records.proc_dead", "metrics.enabled", 3),
     ("task_events.drain", "task_events.ship_enabled", 2)])
 def test_every_ship_site_is_under_one_flag_check(site, flag, n):
     """Metric collection and tombstones under ``metrics.enabled()``, an

@@ -145,8 +145,8 @@ def test_num_cpus_sets_the_worker_s_threads_and_other_options_raise(pair):
     a, b = pair
     assert runtime.get([runtime.call(a, threads), runtime.call(b, threads)],
                        timeout=T) == [1, 2]
-    with pytest.raises(ValueError, match="num_gpus"):
-        runtime.remote(Probe).options(num_gpus=1)
+    with pytest.raises(ValueError, match="runtime_env"):
+        runtime.remote(Probe).options(runtime_env={"env_vars": {}})
     with pytest.raises(ValueError, match="num_cpus"):
         runtime.remote(Probe).options(num_cpus=-1)
     # num_cpus=0 (the JAX _SplitCoordinator's) starts with one thread.

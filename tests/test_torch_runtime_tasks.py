@@ -278,16 +278,16 @@ def test_lambdas_closures_and_local_classes_cross_by_value(pools):
 
 def test_unknown_options_raise(pools):
     f = runtime.remote(lambda: 1)
-    for bad in ({"num_gpus": 1}, {"scheduling_strategy": "SPREAD"},
-                {"resources": {"x": 1}}):
+    for bad in ({"runtime_env": {"env_vars": {}}}, {"memory": 1},
+                {"concurrency_groups": {"io": 1}}):
         with pytest.raises(ValueError, match=next(iter(bad))):
             f.options(**bad)
         with pytest.raises(ValueError, match=next(iter(bad))):
             runtime.remote(**bad)(lambda: 1)
     with pytest.raises(ValueError, match="num_returns"):
         f.options(num_returns=0)
-    with pytest.raises(ValueError, match="exceeds"):
-        f.options(num_cpus=64).remote()
+    with pytest.raises(TaskError, match="can never fit"):
+        runtime.get(f.options(num_cpus=64).remote(), timeout=T)
     with pytest.raises(TypeError, match="cannot be called directly"):
         f()
 

@@ -768,8 +768,8 @@ def test_what_does_not_pickle_is_refused_before_any_process(pkgs):
     with pytest.raises(TypeError, match="init argument 'lock'"):
         port_serve.run(deploy(port_serve, Adder).bind(
             increment=1, lock=threading.Lock()), name="lock")
-    with pytest.raises(ValueError, match="num_gpus"):
-        deploy(port_serve, Doubler, ray_actor_options={"num_gpus": 1})
+    with pytest.raises(ValueError, match="runtime_env"):
+        deploy(port_serve, Doubler, ray_actor_options={"runtime_env": {}})
     with pytest.raises(TypeError, match="called directly"):
         deploy(port_serve, Doubler)()
     left = [(p.name, p.pid) for p in multiprocessing.active_children()

@@ -505,7 +505,10 @@ def test_guards_raise(monkeypatch):
         ScalingConfig(device="tpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    # The tree's cards are the driver's ledger's: one.
+    from raytpu_torch.runtime import api
+    monkeypatch.setattr(api, "cluster_resources",
+                        lambda: {"CPU": 4.0, "GPU": 1.0})
     gang = train.DataParallelTrainer(
         loop_metrics, scaling_config=ScalingConfig(num_workers=2))
     before = children()

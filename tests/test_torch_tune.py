@@ -458,7 +458,7 @@ def test_guards_raise(tmp_path, monkeypatch):
     for tuner, match in (
             (tune.Tuner(closure, tune_config=cpu()), "does not pickle"),
             (tune.Tuner(objective_v, tune_config=cpu(
-                resources_per_trial={"CPU": 1, "GPU": 1})), "'GPU'"),
+                resources_per_trial={"CPU": 1, "TPU": 1})), "'TPU'"),
             (tune.Tuner(objective_v, tune_config=tune.TuneConfig(
                 device="tpu")), "device='tpu'")):
         tuner.run_config = RunConfig(storage_path=str(tmp_path))
