@@ -351,6 +351,41 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     JAX and none is left. Readings: each actor's start (fork, CUDA
     context, GPT-2's build), the restart's seconds (SIGKILL to the first
     answer), the third actor's wait and the ledger's admission of it.
+32. Compiled graphs, channels and workflows (after phase 31; this
+    process launches only 32d's recomputation). a: two GPT-2 124M stage
+    actors at ``num_gpus=0.5`` (phase 7's model and seed 1's), a
+    generate stage (phase 7's traffic through ``drive_engine``) and a
+    score stage (each sequence's summed fp32 log-probability of its
+    completion, one causal forward over the right-padded batch), six
+    rounds as chained actor calls then six through
+    ``MultiOutputNode([toks, score(inp, toks)])`` compiled, all submitted
+    before the first get, a round with an empty prompt (the engine's
+    ``ValueError`` at the driver's get) and one more round; b: a
+    two-stage echo graph against the same chain of calls, 200 rounds of
+    a 64 KiB tensor and ECHO_ROUNDS_LARGE of a 32 MiB one (above a
+    slot, through the store), and a 32 MiB CUDA tensor from one stage
+    to the other through a channel; c: a fresh echo graph whose second
+    stage is SIGKILLed while the driver's get is parked; d: a workflow of
+    tasks, prepare (phase 9's batch and a held-out one), train (GPT-2
+    124M, phase 9's step, 10 steps, the card) and evaluate (the card),
+    the evaluation failing once, then resumed. Fails unless every
+    round's tokens equal phase 7's and its launches phase 7's (the
+    scorer's 12 flash forwards a call), both modes' scores are equal to
+    the bit and finite, the planted round raises ``ValueError`` and the
+    round after it equals round 0, each actor answers after
+    ``teardown()`` and no ring of the graph is left in ``/dev/shm``,
+    every echo and the CUDA tensor arrive equal to the bit (the CUDA one
+    again after its writer dropped it), the death raises
+    ``ActorDiedError`` within 10 s and leaves no ring, the resume runs
+    the training once in all and reads ``SUCCESSFUL``, its held-out loss
+    equals this process's recomputation from the checkpointed state to
+    the bit, the first training loss is within TRAIN_E2E_LOSS_TOL of
+    phase 9's, the training launches the flash trio 24, 12 and 12 times
+    a step, no process loads JAX or runs outside ``__mp_main__``, and
+    none is left. Readings: each mode's rounds/s, a round's latency and
+    the stages' own seconds, the echo rounds' p50 and p99 µs, the CUDA
+    crossing's seconds, the death's seconds to raise, each step's
+    seconds, the state's checkpoint write and load, the resume's.
 
 Before the kernels line, ``{"phase_seconds": {...}}`` gives each phase's
 seconds in the order run (the builds and the models' constructions
@@ -6388,9 +6423,13 @@ def burst(handle, rng, vocab: int) -> tuple:
     """DASH_BURST streams of DASH_BURST_TOKENS from client threads, each
     prompt fresh: (the threads, each stream's request id and tokens, a
     barrier that the caller and every stream pass once each stream has
-    its first token: the caller waits on it)."""
+    its first token: the caller waits on it). Each stream starts once the
+    one before has its first token, so that the router's queue probes
+    count it: streams sent at once may all see two empty queues and land
+    on one replica, whose partner then has nothing to step."""
     streams = {}
     first = threading.Barrier(DASH_BURST + 1)
+    admitted = [threading.Event() for _ in range(DASH_BURST)]
 
     def one(i: int, prompt: list) -> None:
         gen = handle.generate.remote_streaming(
@@ -6399,13 +6438,15 @@ def burst(handle, rng, vocab: int) -> tuple:
         for n, tok in enumerate(gen):
             got["tokens"].append(tok)
             if n == 0:
+                admitted[i].set()
                 first.wait(DASH_DEADLINE_S)
 
     threads = [threading.Thread(target=one, daemon=True, args=(
         i, rng.integers(0, vocab, DASH_BURST_PROMPT).tolist()))
         for i in range(DASH_BURST)]
-    for t in threads:
+    for t, started in zip(threads, admitted):
         t.start()
+        started.wait(DASH_DEADLINE_S)
     return threads, streams, first
 
 
@@ -8015,6 +8056,639 @@ def phase_resources(card_line: str, gpt2_serve: dict) -> dict:
     return result
 
 
+# ---- phase 32: compiled graphs, channels and workflows ---------------
+
+GRAPH_SHARE = 0.5        # each stage actor's share of the card
+GRAPH_ROUNDS = 6         # rounds a mode, all submitted before the first get
+ECHO_ROUNDS = 200        # rounds a leg of the channel's cost
+# The 32 MiB legs' rounds: each round seals 32 MiB three times into fresh
+# /dev/shm pages (0.30-0.57 s a round on the H100's hosts), so 200 rounds
+# a leg would take minutes of the phase's 40 s.
+ECHO_ROUNDS_LARGE = 4
+ECHO_SMALL = (8, 1024)   # GPT-2's int64 batch, 64 KiB: a channel slot holds it
+ECHO_LARGE = 4 << 20     # int64 elements, 32 MiB: above a slot, via the store
+CUDA_CROSS = 4 << 20     # int64 elements on the card, 32 MiB, by CUDA IPC
+ECHO_DELAY_S = 0.5       # phase 32c's first stage holds a round this long
+DEATH_DEADLINE_S = 10.0  # the stage's SIGKILL to the parked get's error
+GRAPH_DEADLINE_S = 300.0  # any one get, start or step of this phase
+HELDOUT_SEED = 9         # phase 32d's held-out batch (phase 9's is seed 0)
+
+
+def _reset_counts() -> dict:
+    counters = kernel_counters()
+    for counter in counters.values():
+        counter.reset()
+    return counters
+
+
+class GraphGenerator:
+    """Phase 32's generate stage: GPT-2 124M from phase 7's seed on the
+    card it is bound to; ``generate`` serves phase 7's traffic through
+    ``drive_engine`` (this process's launch counters set to 0 just
+    before), with phase 7's settings (``max_model_len=1024``,
+    ``prefill_chunk=256``, greedy)."""
+
+    def __init__(self):
+        from raytpu_torch.models.gpt2 import GPT2, GPT2Config
+
+        self.model = GPT2(GPT2Config.small(), device="cuda", seed=0)
+        torch.cuda.synchronize()
+
+    def generate(self, prompts: dict) -> dict:
+        t0 = time.perf_counter()
+        result = drive_engine(self.model, prompts, GPT2_SERVE_ARRIVALS, 0,
+                              max_model_len=self.model.config.block_size,
+                              prefill_chunk=GPT2_SERVE_CHUNK)
+        return {"tokens": result["tokens"], "launches": result["launches"],
+                "stage_s": time.perf_counter() - t0}
+
+    def echo(self, x):
+        return x
+
+    def facts(self) -> dict:
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(self.model.device), **process_facts()}
+
+    def cuda_send(self, ch, n: int) -> None:
+        """Write ``n`` int64s made on the card; the channel holds them
+        until the reader has read them."""
+        ch.write(torch.arange(n, dtype=torch.int64, device="cuda"))
+        torch.cuda.synchronize()
+
+    def cuda_drop(self, ch) -> int:
+        """Write once more: the reader has read the tensor, so the write
+        releases this process's last reference to it; free the cache."""
+        ch.write(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return len(ch._held)
+
+
+def inference_config():
+    """GPT-2 124M for a forward without gradients: no remat, whose
+    ``torch.utils.checkpoint`` would import ``torch._dynamo`` in a fresh
+    process (8-9 s on the H100's host) for nothing; the same weights."""
+    from raytpu_torch.models.gpt2 import GPT2Config
+
+    return dataclasses.replace(GPT2Config.small(), remat=False)
+
+
+class GraphScorer:
+    """Phase 32's score stage: a second GPT-2 124M (seed 1); ``score``
+    returns each sequence's summed fp32 log-probability of its completion
+    under one causal forward over the right-padded batch (this process's
+    launch counters set to 0 just before)."""
+
+    def __init__(self):
+        from raytpu_torch.models.gpt2 import GPT2
+
+        self.model = GPT2(inference_config(), device="cuda", seed=1)
+        torch.cuda.synchronize()
+        self.received = None
+
+    def score(self, prompts: dict, generated: dict) -> dict:
+        counters = _reset_counts()
+        t0 = time.perf_counter()
+        toks = generated["tokens"]
+        rids = sorted(prompts)
+        seqs = [list(prompts[r]) + list(toks[r]) for r in rids]
+        width = max(map(len, seqs))
+        batch = torch.zeros((len(seqs), width), dtype=torch.int64)
+        mask = torch.zeros((len(seqs), width - 1))
+        for i, (r, s) in enumerate(zip(rids, seqs)):
+            batch[i, :len(s)] = torch.tensor(s)
+            # Position p predicts token p + 1: the completion's tokens.
+            mask[i, len(prompts[r]) - 1:len(s) - 1] = 1.0
+        batch, mask = batch.cuda(), mask.cuda()
+        with torch.no_grad():
+            logp = torch.log_softmax(self.model(batch)[:, :-1].float(), -1)
+            picked = logp.gather(-1, batch[:, 1:, None])[..., 0]
+            sums = (picked * mask).sum(-1).tolist()
+        return {"scores": dict(zip(rids, sums)),
+                "launches": {n: c.count for n, c in counters.items()},
+                "stage_s": time.perf_counter() - t0}
+
+    def echo(self, x):
+        return x
+
+    def facts(self) -> dict:
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(self.model.device), **process_facts()}
+
+    def cuda_receive(self, ch, rid: int, n: int) -> dict:
+        self.received = ch.read(rid, timeout=GRAPH_DEADLINE_S)
+        want = torch.arange(n, dtype=torch.int64, device="cuda")
+        return {"device": str(self.received.device),
+                "equal": bool(torch.equal(self.received, want))}
+
+    def cuda_recheck(self, ch, rid: int, n: int) -> bool:
+        """After the writer dropped its reference: the next version, then
+        the tensor read before, still equal to the bit."""
+        ch.read(rid, timeout=GRAPH_DEADLINE_S)
+        want = torch.arange(n, dtype=torch.int64, device="cuda")
+        return bool(torch.equal(self.received, want))
+
+
+class EchoStage:
+    """Phase 32c's stage: echoes, after ``delay`` seconds."""
+
+    def echo(self, x, delay: float = 0.0):
+        time.sleep(delay)
+        return x
+
+    def getpid(self) -> int:
+        return os.getpid()
+
+
+def graph_rounds(submit, get, n: int) -> dict:
+    """``n`` rounds submitted at once (``submit()`` each), then taken in
+    order (``get(handle)``): each round's outputs, latency (its
+    submission to its result) and the rounds' rate."""
+    t0 = time.perf_counter()
+    handles = [(submit(), time.perf_counter()) for _ in range(n)]
+    outs, latency = [], []
+    for h, sent in handles:
+        outs.append(get(h))
+        latency.append(time.perf_counter() - sent)
+    wall = time.perf_counter() - t0
+    stages = {"generate_s": sum(o[0]["stage_s"] for o in outs),
+              "score_s": sum(o[1]["stage_s"] for o in outs)}
+    return {"outs": outs, "reading": {
+        "rounds": n, "wall_s": wall, "rounds_per_s": n / wall,
+        "latency": quantiles_ms(latency), **stages,
+        # What the rounds took beyond their stages' own time (negative
+        # where the stages overlapped).
+        "beyond_stages_s": wall - sum(stages.values())}}
+
+
+def echo_cost(gen, scorer, x, rounds: int = ECHO_ROUNDS) -> dict:
+    """µs of a round of ``x`` through the two stages' ``echo``: a
+    compiled graph, then the same chain of actor calls."""
+    from raytpu_torch import runtime
+    from raytpu_torch.dag import InputNode
+
+    with InputNode() as inp:
+        dag = scorer.echo.bind(gen.echo.bind(inp))
+    compiled = dag.experimental_compile()
+    try:
+        compiled.execute(x).get(timeout=GRAPH_DEADLINE_S)  # warm
+        graph = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            out = compiled.execute(x).get(timeout=GRAPH_DEADLINE_S)
+            graph.append(time.perf_counter() - t0)
+    finally:
+        compiled.teardown()
+    same = torch.equal(out, x)
+    runtime.get(scorer.echo.remote(gen.echo.remote(x)),
+                timeout=GRAPH_DEADLINE_S)  # warm
+    chain = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        out = runtime.get(scorer.echo.remote(gen.echo.remote(x)),
+                          timeout=GRAPH_DEADLINE_S)
+        chain.append(time.perf_counter() - t0)
+    same = same and torch.equal(out, x)
+
+    def us(xs):
+        xs = np.asarray(xs) * 1e6
+        return {"p50_us": float(np.percentile(xs, 50)),
+                "p99_us": float(np.percentile(xs, 99))}
+
+    return {"bytes": x.numel() * x.element_size(), "rounds": rounds,
+            "graph": us(graph),
+            "actor_calls": us(chain), "equal": bool(same)}
+
+
+def wf_prepare(vocab: int) -> dict:
+    """Phase 32d's first step (a CPU task): phase 9's batch from its
+    seed and a held-out batch."""
+    t0 = time.perf_counter()
+    shape = (TRAIN_BATCH, 1024)
+    return {"batch": np.random.default_rng(0).integers(0, vocab, shape),
+            "heldout": np.random.default_rng(HELDOUT_SEED).integers(
+                0, vocab, shape),
+            "stage_s": time.perf_counter() - t0}
+
+
+def wf_train(data: dict, count: str) -> dict:
+    """Phase 32d's train step (a task with the card): GPT-2 124M from seed
+    0 takes TRAIN_STEPS of phase 9's steps on its batch; the losses and
+    the trained state as CPU tensors. Appends a line to ``count``."""
+    from raytpu_torch.models.gpt2 import GPT2, GPT2Config, make_train_step
+
+    with open(count, "a") as f:
+        f.write(f"{os.getpid()}\n")
+    counters = _reset_counts()
+    t0 = time.perf_counter()
+    model = GPT2(GPT2Config.small(), device="cuda", seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1, foreach=True)
+    step = make_train_step(model, opt)
+    tokens = torch.from_numpy(data["batch"]).cuda()
+    losses = [step(tokens).item() for _ in range(TRAIN_STEPS)]
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return {"losses": losses, "state": state,
+            "launches": {n: c.count for n, c in counters.items()},
+            "stage_s": time.perf_counter() - t0, **{
+                k: v for k, v in process_facts().items()
+                if k != "launches"}}
+
+
+def heldout_loss(state: dict, heldout) -> float:
+    """GPT-2 124M with ``state`` on the card: its loss on ``heldout``."""
+    from raytpu_torch.models.gpt2 import GPT2, gpt2_loss_fn
+
+    model = GPT2(inference_config(), device="cuda", seed=0)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        return gpt2_loss_fn(model, torch.from_numpy(heldout).cuda()).item()
+
+
+def wf_evaluate(trained: dict, data: dict, marker: str) -> dict:
+    """Phase 32d's last step (a task with the card): the held-out loss of
+    the trained state; its first attempt raises while ``marker``
+    exists."""
+    if os.path.exists(marker):
+        os.unlink(marker)
+        raise RuntimeError("evaluation interrupted (planted)")
+    counters = _reset_counts()
+    t0 = time.perf_counter()
+    loss = heldout_loss(trained["state"], data["heldout"])
+    return {"heldout": loss, "losses": trained["losses"],
+            "train_launches": trained["launches"],
+            "train_s": trained["stage_s"], "train_facts": {
+                k: trained[k] for k in ("pid", "forbidden", "main")},
+            "launches": {n: c.count for n, c in counters.items()},
+            "stage_s": time.perf_counter() - t0, **{
+                k: v for k, v in process_facts().items()
+                if k != "launches"}}
+
+
+def timed_storage(root: str):
+    """A WorkflowStorage that records each step's checkpoint write and
+    load seconds by the step's name."""
+    from raytpu_torch.workflow.storage import WorkflowStorage
+
+    class Timed(WorkflowStorage):
+        def __init__(self, root):
+            super().__init__(root)
+            self.seconds = {}
+
+        def save_step(self, wid, sid, name, value):
+            t0 = time.perf_counter()
+            super().save_step(wid, sid, name, value)
+            self.seconds[f"{name}_write_s"] = time.perf_counter() - t0
+
+        def load_step(self, wid, sid):
+            t0 = time.perf_counter()
+            value = super().load_step(wid, sid)
+            self.seconds[f"{sid.split('-', 1)[1]}_load_s"] = \
+                time.perf_counter() - t0
+            return value
+
+    return Timed(root)
+
+
+def graph_workflow(card_line: str, vocab: int) -> dict:
+    """Phase 32d: prepare → train → evaluate as a workflow of tasks,
+    the evaluation failing once, then resumed."""
+    from raytpu_torch import runtime, workflow
+    from raytpu_torch.workflow import api as wf_api
+
+    root = tempfile.mkdtemp(prefix="graphs-workflow-")
+    try:
+        workflow.init(root)
+        storage = wf_api._storage = timed_storage(root)
+        count, marker = os.path.join(root, "count"), os.path.join(root, "m")
+        with open(marker, "w") as f:
+            f.write("arm")
+        data = runtime.remote(wf_prepare).bind(vocab)
+        trained = runtime.remote(wf_train).options(num_gpus=1).bind(data,
+                                                                    count)
+        dag = runtime.remote(wf_evaluate).options(num_gpus=1).bind(
+            trained, data, marker)
+        t0 = time.perf_counter()
+        failed = None
+        try:
+            workflow.run(dag, workflow_id="fine-tune")
+        except Exception as exc:
+            failed = str(exc).strip().splitlines()[-1][:200]
+        first_s = time.perf_counter() - t0
+        status = workflow.get_status("fine-tune")
+        t0 = time.perf_counter()
+        out = workflow.resume("fine-tune")
+        resume_s = time.perf_counter() - t0
+        steps = {s["name"]: s["step_id"]
+                 for s in workflow.list_steps("fine-tune")}
+        with open(count) as f:
+            trains = f.read().split()
+        # The driver's own reading of the checkpointed state.
+        state = storage.load_step("fine-tune", steps["wf_train"])["state"]
+        heldout = storage.load_step("fine-tune", steps["wf_prepare"])[
+            "heldout"]
+        t0 = time.perf_counter()
+        driver_loss = heldout_loss(state, heldout)
+        driver_s = time.perf_counter() - t0
+        del state
+        result = {
+            "first_run_error": failed, "status_after_failure": status,
+            "status_after_resume": workflow.get_status("fine-tune"),
+            "train_runs": len(trains), "first_run_s": first_s,
+            "resume_s": resume_s, "steps": sorted(
+                s["name"] for s in workflow.list_steps("fine-tune")),
+            "losses": out["losses"], "heldout": out["heldout"],
+            "driver_heldout": driver_loss, "driver_eval_s": driver_s,
+            "train_s": out["train_s"], "evaluate_s": out["stage_s"],
+            "train_launches": out["train_launches"],
+            "evaluate_launches": out["launches"],
+            "checkpoint_s": dict(storage.seconds),
+            "processes": [out["train_facts"], {
+                k: out[k] for k in ("pid", "forbidden", "main")}]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def graph_pipeline(gen, scorer, prompts: dict) -> dict:
+    """Phase 32a: the rounds as a chain of actor calls, then through a
+    compiled graph (a planted error and one more round after them), then
+    teardown."""
+    from raytpu_torch import runtime
+    from raytpu_torch.dag import InputNode, MultiOutputNode
+    from raytpu_torch.runtime import channel
+
+    chain = graph_rounds(
+        lambda: (lambda g: (g, scorer.score.remote(prompts, g)))(
+            gen.generate.remote(prompts)),
+        lambda h: runtime.get(list(h), timeout=GRAPH_DEADLINE_S),
+        GRAPH_ROUNDS)
+    with InputNode() as inp:
+        toks = gen.generate.bind(inp)
+        dag = MultiOutputNode([toks, scorer.score.bind(inp, toks)])
+    t0 = time.perf_counter()
+    compiled = dag.experimental_compile()
+    compile_s = time.perf_counter() - t0
+    rings = {ch.name for ch in compiled._channels}
+    planted = None
+    try:
+        graph = graph_rounds(lambda: compiled.execute(prompts),
+                             lambda h: h.get(timeout=GRAPH_DEADLINE_S),
+                             GRAPH_ROUNDS)
+        try:  # the engine refuses an empty prompt before any step
+            compiled.execute(dict(prompts, g2=[])).get(
+                timeout=GRAPH_DEADLINE_S)
+        except ValueError as exc:
+            planted = f"{type(exc).__name__}: {exc}"
+        after_error = compiled.execute(prompts).get(timeout=GRAPH_DEADLINE_S)
+    finally:
+        t0 = time.perf_counter()
+        compiled.teardown()
+        teardown_s = time.perf_counter() - t0
+    return {"chain": chain, "graph": graph, "after_error": after_error,
+            "planted": planted, "compile_s": compile_s,
+            "teardown_s": teardown_s,
+            "rings_left": sorted(rings & {n for n, _ in channel.segments()}),
+            "answers": runtime.get([gen.echo.remote("up"),
+                                    scorer.echo.remote("up")],
+                                   timeout=GRAPH_DEADLINE_S)}
+
+
+def graph_channel(gen, scorer, vocab: int) -> dict:
+    """Phase 32b: the channel's cost against actor calls, and a CUDA
+    tensor from one card actor to the other."""
+    from raytpu_torch import runtime
+    from raytpu_torch.runtime import channel
+
+    echo = {
+        "small": echo_cost(gen, scorer, torch.from_numpy(
+            np.random.default_rng(2).integers(0, vocab, ECHO_SMALL))),
+        "large": echo_cost(gen, scorer, torch.arange(ECHO_LARGE),
+                           ECHO_ROUNDS_LARGE)}
+    ch = channel.Channel(num_readers=1, capacity=2)
+    rid = ch.reader_id()
+    try:
+        t0 = time.perf_counter()
+        sent = gen.cuda_send.remote(ch, CUDA_CROSS)
+        cuda = runtime.get(scorer.cuda_receive.remote(ch, rid, CUDA_CROSS),
+                           timeout=GRAPH_DEADLINE_S)
+        runtime.get(sent, timeout=GRAPH_DEADLINE_S)
+        cuda["cross_s"] = time.perf_counter() - t0
+        cuda["bytes"] = CUDA_CROSS * 8
+        cuda["writer_holds_after_drop"] = runtime.get(
+            gen.cuda_drop.remote(ch), timeout=GRAPH_DEADLINE_S)
+        cuda["equal_after_drop"] = runtime.get(
+            scorer.cuda_recheck.remote(ch, rid, CUDA_CROSS),
+            timeout=GRAPH_DEADLINE_S)
+    finally:
+        ch.close()
+    return {"echo": echo, "cuda": cuda}
+
+
+def graph_death() -> dict:
+    """Phase 32c: a fresh two-stage echo graph whose second stage is
+    SIGKILLed while a round is parked in the driver's get()."""
+    import signal
+
+    from raytpu_torch import runtime
+    from raytpu_torch.core.errors import ActorDiedError
+    from raytpu_torch.dag import InputNode
+    from raytpu_torch.runtime import channel
+
+    echo_stage = runtime.remote(EchoStage).options(num_gpus=GRAPH_SHARE)
+    stages = [echo_stage.remote(), echo_stage.remote()]
+    try:
+        victim = runtime.get(stages[1].getpid.remote(),
+                             timeout=GRAPH_DEADLINE_S)
+        with InputNode() as inp:
+            dag = stages[1].echo.bind(stages[0].echo.bind(inp, ECHO_DELAY_S))
+        doomed = dag.experimental_compile()
+        rings = {c.name for c in doomed._channels}
+        ref = doomed.execute(1)
+        killed = {}
+
+        def kill():
+            killed["at"] = time.perf_counter()
+            os.kill(victim, signal.SIGKILL)
+
+        killer = threading.Timer(ECHO_DELAY_S / 2, kill)
+        killer.start()
+        died, raise_s = None, None
+        try:
+            ref.get()  # no timeout
+        except ActorDiedError as exc:
+            raise_s = time.perf_counter() - killed["at"]
+            died = str(exc)[:200]
+        killer.join()
+        t0 = time.perf_counter()
+        doomed.teardown()
+        return {"error": died, "kill_to_raise_s": raise_s,
+                "teardown_s": time.perf_counter() - t0,
+                "rings_left": sorted(rings & {
+                    n for n, _ in channel.segments()})}
+    finally:
+        for h in stages:
+            runtime.kill(h)
+
+
+def phase_graphs(card_line: str, gpt2_serve: dict, train: dict) -> dict:
+    """Compiled graphs, channels and workflows on the card (see the module
+    docstring); the actors' and tasks' own launch counters, set to 0 just
+    before each run, and this process's recomputation of the held-out
+    loss are the phase's launches."""
+    import multiprocessing
+
+    from raytpu_torch import runtime
+    from raytpu_torch.models.gpt2 import GPT2Config
+    from raytpu_torch.runtime import api
+
+    t_phase = time.perf_counter()
+    before = {p.pid for p in multiprocessing.active_children()}
+    # A task of 32d starts the tree's pool where no phase left one: this
+    # phase stops what it started.
+    own_pool = api._POOL is None
+    vocab = GPT2Config.small().vocab_size
+    prompts = gpt2_serve_prompts(np.random.default_rng(1), vocab)
+    gen = scorer = None
+    timings = {}
+    try:
+        t0 = time.perf_counter()
+        gen = runtime.remote(GraphGenerator).options(
+            num_gpus=GRAPH_SHARE).remote()
+        scorer = runtime.remote(GraphScorer).options(
+            num_gpus=GRAPH_SHARE).remote()
+        facts = runtime.get([gen.facts.remote(), scorer.facts.remote()],
+                            timeout=GRAPH_DEADLINE_S)
+        timings["actors_up_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipe = graph_pipeline(gen, scorer, prompts)
+        timings["pipeline_s"] = time.perf_counter() - t0
+        log(f"[graphs] a: {json.dumps(timings)} chain "
+            f"{json.dumps(pipe['chain']['reading'])} graph "
+            f"{json.dumps(pipe['graph']['reading'])}")
+        t0 = time.perf_counter()
+        chan = graph_channel(gen, scorer, vocab)
+        timings["channel_s"] = time.perf_counter() - t0
+        log(f"[graphs] b: {json.dumps(chan)}")
+        for h in (gen, scorer):  # 32d's tasks take the whole card
+            runtime.kill(h)
+        gen = scorer = None
+        t0 = time.perf_counter()
+        death = graph_death()
+        timings["death_s"] = time.perf_counter() - t0
+        log(f"[graphs] c: {json.dumps(death)} {json.dumps(timings)}")
+        t0 = time.perf_counter()
+        flow = graph_workflow(card_line, vocab)
+        timings["workflow_s"] = time.perf_counter() - t0
+    finally:
+        for h in (gen, scorer):
+            if h is not None:
+                runtime.kill(h)
+        if own_pool:
+            runtime.shutdown()
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    rounds = [*pipe["chain"]["outs"], *pipe["graph"]["outs"],
+              pipe["after_error"]]
+    flash, paged = (gpt2_serve["launches"][k]
+                    for k in ("flash_forward", "paged_attention"))
+    n_layer = GPT2Config.small().n_layer
+    launches = {name: 0 for name in KERNEL_META}
+    for g, s in rounds:
+        for counts in (g["launches"], s["launches"]):
+            for name, n in counts.items():
+                launches[name] += n
+    for counts in (flow["train_launches"], flow["evaluate_launches"]):
+        for name, n in counts.items():
+            launches[name] += n
+    # This process's recomputation of the held-out loss: one forward.
+    driver = {name: 0 for name in KERNEL_META}
+    driver["flash_forward"] = n_layer
+    for name, n in driver.items():
+        launches[name] += n
+    chain_scores = [s["scores"] for _, s in pipe["chain"]["outs"]]
+    graph_scores = [s["scores"] for _, s in pipe["graph"]["outs"]]
+    result = {
+        "actors": [{k: f[k] for k in ("visible", "device", "pid")}
+                   for f in facts],
+        **timings, "compile_s": pipe["compile_s"],
+        "teardown_s": pipe["teardown_s"],
+        "chain": pipe["chain"]["reading"], "graph": pipe["graph"]["reading"],
+        "planted": pipe["planted"], "rings_left": pipe["rings_left"],
+        "answers_after_teardown": pipe["answers"],
+        "tokens_equal": [g["tokens"] == gpt2_serve["tokens"]
+                         for g, _ in rounds],
+        "scores_equal_across_modes": chain_scores == graph_scores,
+        "after_error_equals_round_0": (
+            pipe["after_error"][0]["tokens"] == rounds[0][0]["tokens"]
+            and pipe["after_error"][1]["scores"] == chain_scores[0]),
+        "scores": chain_scores[0], **chan, "death": death,
+        "workflow": {k: v for k, v in flow.items() if k != "processes"},
+        "launches": launches, "driver_launches": driver, "left": left,
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"[graphs] {json.dumps(result)} | {card_line}")
+    if any(f["visible"] != facts[0]["visible"] or f["device"] != "cuda:0"
+           for f in facts):
+        raise AssertionError(f"phase 32: the stages' bindings {facts}")
+    if not all(result["tokens_equal"]):
+        raise AssertionError(f"phase 32: tokens against phase 7's: "
+                             f"{result['tokens_equal']}")
+    if not result["scores_equal_across_modes"] or not all(
+            np.isfinite(list(s.values())).all() for s in chain_scores):
+        raise AssertionError("phase 32: the scores differ between the "
+                             "modes or are not finite")
+    for g, s in rounds:
+        check_launches(g["launches"], {**{k: 0 for k in KERNEL_META},
+                                       "flash_forward": flash,
+                                       "paged_attention": paged})
+        check_launches(s["launches"], {**{k: 0 for k in KERNEL_META},
+                                       "flash_forward": n_layer})
+    if not (pipe["planted"] or "").startswith("ValueError") or \
+            not result["after_error_equals_round_0"]:
+        raise AssertionError(f"phase 32: the planted error {pipe['planted']!r}"
+                             f", the next round equal to round 0: "
+                             f"{result['after_error_equals_round_0']}")
+    if pipe["answers"] != ["up", "up"] or pipe["rings_left"]:
+        raise AssertionError(f"phase 32: after teardown: answers "
+                             f"{pipe['answers']}, rings {pipe['rings_left']}")
+    if not all(e["equal"] for e in chan["echo"].values()) or not (
+            chan["cuda"]["equal"] and chan["cuda"]["equal_after_drop"]
+            and chan["cuda"]["device"] == "cuda:0"
+            and chan["cuda"]["writer_holds_after_drop"] == 1):
+        raise AssertionError(f"phase 32: the channel's values {chan}")
+    if death["error"] is None or death["kill_to_raise_s"] > \
+            DEATH_DEADLINE_S or death["rings_left"]:
+        raise AssertionError(f"phase 32: the stage's death {death}")
+    want_train = {**{k: 0 for k in KERNEL_META},
+                  "flash_forward": 2 * n_layer * TRAIN_STEPS,
+                  "flash_bwd_dq": n_layer * TRAIN_STEPS,
+                  "flash_bwd_dkv": n_layer * TRAIN_STEPS}
+    check_launches(flow["train_launches"], want_train)
+    check_launches(flow["evaluate_launches"], driver)
+    if not (flow["first_run_error"] and "planted" in flow["first_run_error"]
+            and flow["status_after_failure"] == "FAILED"
+            and flow["status_after_resume"] == "SUCCESSFUL"
+            and flow["train_runs"] == 1):
+        raise AssertionError(f"phase 32: the failure and the resume {flow}")
+    if flow["heldout"] != flow["driver_heldout"] or not np.isfinite(
+            flow["heldout"]):
+        raise AssertionError(f"phase 32: held-out {flow['heldout']} against "
+                             f"the driver's {flow['driver_heldout']}")
+    first = train["losses"][0]
+    if abs(flow["losses"][0] - first) > TRAIN_E2E_LOSS_TOL * abs(first):
+        raise AssertionError(f"phase 32: the workflow's first loss "
+                             f"{flow['losses'][0]} against phase 9's {first}")
+    processes = [*facts, *flow["processes"]]
+    if any(p["forbidden"] for p in processes) or any(
+            p["main"][1] == "chip_smoke.py" and p["main"][0] != "__mp_main__"
+            for p in processes):
+        raise AssertionError(f"phase 32: a process loaded JAX or ran "
+                             f"outside __mp_main__: {processes}")
+    if left:
+        raise AssertionError(f"phase 32: processes left: {left}")
+    return result
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -8170,6 +8844,13 @@ def main() -> int:
     resources = timed("resources", phase_resources, card_line, gpt2_serve)
     check_launches({name: c.count for name, c in counters.items()},
                    {name: 0 for name in counters})
+    # The stages and tasks launch the kernels; this process only its
+    # recomputation of the held-out loss.
+    for counter in counters.values():
+        counter.reset()
+    graphs = timed("graphs", phase_graphs, card_line, gpt2_serve, train)
+    check_launches({name: c.count for name, c in counters.items()},
+                   graphs["driver_launches"])
     runs = {"serve": serve["launches"],
             "observability": observability["launches"],
             "deployment": deployment["launches"],
@@ -8183,7 +8864,8 @@ def main() -> int:
             "llama_train": llama["launches"],
             "mixtral_train": mixtral["launches"], "rllib": rllib,
             "trainlib": trainlib["launches"], "tune": tuned["launches"],
-            "resources": resources["launches"]}
+            "resources": resources["launches"],
+            "graphs": graphs["launches"]}
     PHASE_SECONDS["total"] = round(time.time() - PYTHON_UP, 1)
     log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(json.dumps(kernel_line(cases, runs)))

@@ -113,7 +113,11 @@ that cannot be found by name go by value
 What it leaves out: streaming backpressure, ``runtime_env``, a cluster.
 :func:`call` runs a function on the instance inside the worker (Ray's
 ``__ray_call__``), for callers that need to reach into a worker without
-adding a method to its class.
+adding a method to its class (a compiled graph parks its exec loops so).
+``.bind(...)`` on a remote class and on a method of a handle (any copy
+of it, in any process) gives a node of :mod:`raytpu_torch.dag`, as on a
+remote function; :func:`on_shutdown` registers what :func:`shutdown`
+runs first (the compiled graphs' teardown).
 
 Traces cross it as they cross the JAX package's RPC frames: every
 message carries the caller's ambient :class:`~raytpu_torch.util.tracing.TraceContext`
@@ -1133,10 +1137,12 @@ class _Client(_Caller):
 
 
 class _Method:
-    def __init__(self, worker: _Caller, name: str, num_returns=1):
+    def __init__(self, worker: _Caller, name: str, num_returns=1,
+                 handle: Optional["ActorHandle"] = None):
         self._worker = worker
         self._name = name
         self._num_returns = num_returns
+        self._handle = handle
 
     def options(self, **options) -> "_Method":
         """``num_returns=1`` (a future) or ``"streaming"`` (an
@@ -1150,12 +1156,19 @@ class _Method:
         if num_returns not in (1, "streaming"):
             raise ValueError(f"num_returns={num_returns!r}: the port's "
                              f"runtime takes 1 or 'streaming'")
-        return _Method(self._worker, self._name, num_returns)
+        return _Method(self._worker, self._name, num_returns, self._handle)
 
     def remote(self, *args, **kwargs):
         if self._num_returns == "streaming":
             return self._worker.submit_stream(self._name, args, kwargs)
         return self._worker.submit(self._name, args, kwargs)
+
+    def bind(self, *args, **kwargs):
+        """A lazy call of this method (:class:`raytpu_torch.dag.
+        ActorMethodNode`), for ``execute`` or ``experimental_compile``."""
+        from raytpu_torch.dag.node import ActorMethodNode
+
+        return ActorMethodNode(self._handle, self._name, args, kwargs)
 
 
 # The owner's handles by worker address (a handle unpickled where its
@@ -1186,7 +1199,7 @@ class ActorHandle:
                                                         None)):
             raise AttributeError(f"{self._cls.__name__} has no method "
                                  f"{name!r}")
-        return _Method(self._worker, name)
+        return _Method(self._worker, name, handle=self)
 
     @property
     def pid(self) -> Optional[int]:
@@ -1260,6 +1273,13 @@ class RemoteClass:
 
     def options(self, **options) -> "RemoteClass":
         return RemoteClass(self._cls, {**self._options, **options})
+
+    def bind(self, *args, **kwargs):
+        """A lazy construction (:class:`raytpu_torch.dag.ClassNode`): its
+        actor is created at the DAG's first execution or compilation."""
+        from raytpu_torch.dag.node import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs) -> ActorHandle:
         name = self._options.get("name")
@@ -1931,11 +1951,26 @@ def _pool() -> task_pool.TaskPool:
     return _POOL
 
 
+# Called first by shutdown(), while the workers still live (the compiled
+# graphs' teardown, :mod:`raytpu_torch.dag.compiled`).
+_SHUTDOWN_HOOKS: List[Callable[[], None]] = []
+
+
+def on_shutdown(hook: Callable[[], None]) -> None:
+    """Run ``hook`` at the start of every :func:`shutdown`, and so at the
+    driver's exit."""
+    if hook not in _SHUTDOWN_HOOKS:
+        _SHUTDOWN_HOOKS.append(hook)
+
+
 def shutdown() -> None:
     """Stop the task pool (its workers are killed, queued tasks fail) and
-    every worker this process owns. In the driver a later ``init`` (or
-    task) starts a fresh pool and ledger."""
+    every worker this process owns, after the :func:`on_shutdown` hooks.
+    In the driver a later ``init`` (or task) starts a fresh pool and
+    ledger."""
     global _POOL, _LEDGER
+    for hook in list(_SHUTDOWN_HOOKS):
+        hook()
     with _POOL_LOCK:
         pool, _POOL = _POOL, None
     if pool is not None:

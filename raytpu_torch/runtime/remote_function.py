@@ -169,6 +169,13 @@ class RemoteFunction:
             rf._blob = self._blob
         return rf
 
+    def bind(self, *args, **kwargs):
+        """A lazy call (:class:`raytpu_torch.dag.FunctionNode`), for
+        ``execute`` or a workflow."""
+        from raytpu_torch.dag.node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
+
     def _pickled(self) -> bytes:
         if self._blob is None:
             from raytpu_torch.runtime import serialization

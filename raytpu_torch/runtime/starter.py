@@ -38,11 +38,16 @@ PRELOAD = ["raytpu_torch.runtime.task_pool"]
 
 _SERVERS: Dict[tuple, forkserver.ForkServer] = {}
 _LOCK = threading.Lock()
+# Variables that name the moment, not a setting: left out of a server's
+# key (pytest rewrites this one at every phase of every test, which
+# would launch a server a test).
+_UNKEYED = ("PYTEST_CURRENT_TEST",)
 
 
 def _server() -> forkserver.ForkServer:
     """The server of this process's environment of the moment."""
-    key = tuple(sorted(os.environ.items()))
+    key = tuple(sorted(kv for kv in os.environ.items()
+                       if kv[0] not in _UNKEYED))
     with _LOCK:
         server = _SERVERS.get(key)
         if server is None:

@@ -86,6 +86,13 @@ DATA_MODULES = ("data/__init__.py", "data/block.py", "data/executor.py",
                 "data/dataset.py", "data/read_api.py", "data/tfrecord.py",
                 "data/avro.py", "perf.py")
 
+# Compiled graphs, channels and workflows, each with its JAX module of
+# the same path.
+GRAPH_MODULES = ("dag/__init__.py", "dag/node.py", "dag/compiled.py",
+                 "runtime/channel.py", "workflow/__init__.py",
+                 "workflow/api.py", "workflow/executor.py",
+                 "workflow/storage.py")
+
 # Packages the Data library imports only where a reader or writer needs
 # them (the card's machine may lack them).
 OPTIONAL_PACKAGES = ("cloudpickle", "pyarrow", "pandas", "PIL")
@@ -121,7 +128,7 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
             + RESOURCE_MODULES + ("_version",)} <= set(loaded)
     assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
         ".__init__", "") for m in TRAIN_MODULES + SERVE_MODULES
-        + DATA_MODULES} <= set(loaded)
+        + DATA_MODULES + GRAPH_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -974,6 +981,30 @@ def test_the_state_api_has_the_jax_package_s_names():
 
 
 # ---- the operator's surface: the dashboard, the CLI and jobs ----------
+
+
+def test_graph_modules_are_held_to_the_rules():
+    """Each of the port's modules of compiled graphs, channels and
+    workflows has its JAX module of the same path and that module's
+    public names."""
+    import importlib
+
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for name in GRAPH_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+    for mod in ("dag", "workflow"):
+        jmod = importlib.import_module(f"raytpu.{mod}")
+        pmod = importlib.import_module(f"raytpu_torch.{mod}")
+        assert pmod.__all__ == jmod.__all__
+        assert all(hasattr(pmod, n) for n in pmod.__all__)
+    from raytpu.runtime import channel as jchannel
+
+    from raytpu_torch.runtime import channel as pchannel
+
+    assert {"Channel", "ChannelClosed"} <= set(vars(pchannel))
+    assert {"Channel", "ChannelClosed"} <= set(vars(jchannel))
 
 
 def test_operator_modules_are_held_to_the_rules():
