@@ -386,6 +386,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     the stages' own seconds, the echo rounds' p50 and p99 µs, the CUDA
     crossing's seconds, the death's seconds to raise, each step's
     seconds, the state's checkpoint write and load, the resume's.
+33. The parallel package and the collectives (after phase 32; this
+    process launches no kernel). a: one ``DataParallelTrainer`` worker
+    (world 1, NCCL) builds meshes over the gang's group and runs every
+    ``mesh_ops`` op on a bf16 tensor on the card (each its world-1 value
+    to the bit, a CPU mesh on the NCCL group refused); ring attention and
+    Ulysses (``attn_fn`` the port's ``flash_attention``) at Llama-2-7B's
+    attention shape (B=1, H=32, T=4096, D=128, bf16, causal, sp=1)
+    against the fp32 reference at the JAX 8k test's bounds (max 4e-2,
+    mean 4e-3), Ulysses' gradients through the flash backward against
+    the reference's (5e-2 of their largest magnitude), the flash
+    forward, dQ and dK/dV launched once each by the Ulysses step;
+    ``MoELayer`` at Mixtral-8x7B's widths (fp32, 4096 tokens, capacity
+    1.25, ep=1) against a plain per-token computation of the same
+    routing (1e-4 relative); one Mixtral ``MoEFFN`` at those widths
+    (bf16 compute) with its experts over an ``ep`` axis of 1, output, aux
+    and every gradient equal to the unsharded layer's to the bit; and
+    ``pipelined_apply`` with pp=1 and 4 microbatches equal to the stage
+    on each microbatch to the bit. b: four task processes form a
+    host-plane group: ``allreduce`` of 1 MiB and 64 MiB of fp32,
+    ``allgather``, ``broadcast``, ``reducescatter``, ``send``/``recv``
+    and ``barrier``, each exact; then a task on every worker of the pool
+    sees no group. Fails unless every check holds, no process loads
+    JAX and none is left. Readings: each op's ms on the card, each
+    error against its bound, ring's, Ulysses' and the flash kernel's
+    forward ms, the MoE layer's ms, the host ops' p50 ms and the
+    all-reduce's MB/s, the fit's and 33b's seconds.
 
 Before the kernels line, ``{"phase_seconds": {...}}`` gives each phase's
 seconds in the order run (the builds and the models' constructions
@@ -8689,6 +8715,493 @@ def phase_graphs(card_line: str, gpt2_serve: dict, train: dict) -> dict:
     return result
 
 
+# ---- phase 33: the parallel package and the collectives -------------
+
+# Llama-2-7B's attention (B, H, T, D), bf16, causal, the sequence over sp.
+PARALLEL_ATTN = (1, 32, 4096, 128)
+# The JAX 8k test's bf16 bounds against the fp32 reference
+# (tests/test_parallel.py:107-128), the mean held tighter than its 4e-3,
+# and Ulysses' gradients through the flash backward against the
+# reference's: max |g - g_ref| over max |g_ref|.
+PARALLEL_BF16_MAX = 4e-2
+PARALLEL_BF16_MEAN = 1e-3
+PARALLEL_GRAD_TOL = 5e-2
+# MoELayer at Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1), fp32 as
+# in JAX, against a plain per-token computation of the same routing: max
+# |y - y_ref| over max |y_ref|.
+PARALLEL_MOE = {"d_model": 4096, "d_ff": 14336, "experts": 8,
+                "tokens": 4096, "capacity_factor": 1.25}
+PARALLEL_MOE_REL = 1e-4
+PARALLEL_PIPE = {"batch": 8, "dim": 4096, "n_micro": 4}
+PARALLEL_TIME_ITERS = 5
+# 33b: four task processes, contributions of 1 MiB and 64 MiB of fp32.
+HOST_WORLD = 4
+HOST_SIZES = {"1MiB": 1 << 18, "64MiB": 1 << 24}
+HOST_REPEATS = {"1MiB": 5, "64MiB": 3}
+HOST_GROUP = "phase33"
+PARALLEL_DEADLINE_S = 300.0  # any one get or fit of this phase
+
+
+def _bit_equal(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def parallel_mesh_ops(dev) -> dict:
+    """Each device-plane op on a bf16 tensor on the card over the gang's
+    one-rank NCCL group: its world-1 value to the bit, and its ms."""
+    import torch.distributed as dist
+
+    from raytpu_torch.collective import mesh_ops
+    from raytpu_torch.parallel.mesh import Mesh, PartitionSpec as P
+    from raytpu_torch.parallel.mesh import build_mesh
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    x = torch.randn(64, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    dp = build_mesh({"dp": -1}, device=dev)  # over the gang's group
+    mesh = Mesh(dp.ranks, ("x",), device=dev)
+    try:
+        build_mesh({"dp": -1}, device="cpu")
+        refused = None
+    except ValueError as exc:  # gloo asked for on an NCCL group
+        refused = str(exc)
+    def in_mesh(op):  # x replicated in, the op's value out
+        return lambda: mesh_ops.group_call(mesh, op, x, in_specs=P(),
+                                           out_specs=P())
+
+    ops = {
+        "allreduce_sum": in_mesh(lambda t: mesh_ops.allreduce(t, "x")),
+        "allreduce_max": in_mesh(lambda t: mesh_ops.allreduce(t, "x",
+                                                              "max")),
+        "allreduce_min": in_mesh(lambda t: mesh_ops.allreduce(t, "x",
+                                                              "min")),
+        "allreduce_mean": in_mesh(lambda t: mesh_ops.allreduce(t, "x",
+                                                               "mean")),
+        "allgather": in_mesh(lambda t: mesh_ops.allgather(t, "x", axis=1)),
+        "reducescatter": in_mesh(lambda t: mesh_ops.reducescatter(t, "x")),
+        "broadcast": in_mesh(lambda t: mesh_ops.broadcast(t, "x")),
+        "ppermute": in_mesh(lambda t: mesh_ops.ppermute(t, "x", [(0, 0)])),
+        "send_next": in_mesh(lambda t: mesh_ops.send_next(t, "x", 1)),
+        "all_to_all": in_mesh(lambda t: mesh_ops.all_to_all(t, "x", 0, 1)),
+        # group_call alone, x sharded over the axis: the others' overhead.
+        "group_call": lambda: mesh_ops.group_call(
+            mesh, lambda t: t, x, in_specs=P("x"), out_specs=P("x")),
+    }
+    equal = {name: _bit_equal(fn(), x) for name, fn in ops.items()}
+    equal["barrier"] = int(mesh_ops.group_call(
+        mesh, lambda: mesh_ops.barrier("x"), out_specs=P())) == 1
+    ms = {name: time_ms(fn, iters=PARALLEL_TIME_ITERS, warmup=1)
+          for name, fn in ops.items()}
+    return {"equal": equal, "ms": ms, "mesh": dict(mesh.shape),
+            "dp_mesh": dict(dp.shape), "cpu_refused": refused,
+            "backend": str(dist.get_backend())}
+
+
+def parallel_attention(dev) -> dict:
+    """Ring attention and Ulysses (with the port's flash_attention) at
+    Llama-2-7B's attention shape with sp=1, against the fp32 reference;
+    Ulysses' gradients through the flash backward against the
+    reference's. Returns the readings, the flash kernels' launches of
+    the Ulysses forward and backward, and Ulysses' forward ms split into
+    its parts."""
+    from raytpu_torch.ops import flash_attention
+    from raytpu_torch.parallel.mesh import Mesh
+    from raytpu_torch.parallel.ring_attention import (reference_attention,
+                                                      ring_attention_sharded)
+    from raytpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    mesh = Mesh(np.zeros(1, np.int64), ("sp",), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    q, k, v, w = (torch.randn(PARALLEL_ATTN, generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(4))
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+    ref = reference_attention(qr, kr, vr, causal=True)
+    (ref * w.float()).sum().backward()
+    ref = ref.detach()
+    with torch.no_grad():
+        ring = ring_attention_sharded(q, k, v, mesh, causal=True)
+    _reset_counters()
+    qu, ku, vu = (t.clone().requires_grad_() for t in (q, k, v))
+    uly = ulysses_attention_sharded(qu, ku, vu, mesh, causal=True,
+                                    attn_fn=flash_attention)
+    (uly.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    launches = {n: c.count for n, c in kernel_counters().items()}
+
+    def errs(out):
+        e = (out.float() - ref).abs()
+        return {"max": e.max().item(), "mean": e.mean().item(),
+                "dtype": str(out.dtype), "shape": list(out.shape)}
+
+    grads = {}
+    for name, got, want in (("q", qu, qr), ("k", ku, kr), ("v", vu, vr)):
+        grads[name] = ((got.grad.float() - want.grad).abs().max()
+                       / want.grad.abs().max()).item()
+    with torch.no_grad():
+        ms = {"ring": time_ms(lambda: ring_attention_sharded(
+                  q, k, v, mesh, causal=True), iters=PARALLEL_TIME_ITERS,
+                  warmup=1),
+              "ulysses": time_ms(lambda: ulysses_attention_sharded(
+                  q, k, v, mesh, causal=True, attn_fn=flash_attention),
+                  iters=PARALLEL_TIME_ITERS, warmup=1),
+              "flash_attention": time_ms(lambda: flash_attention(
+                  q, k, v, causal=True), iters=PARALLEL_TIME_ITERS,
+                  warmup=1)}
+        ms["ulysses_split"] = ulysses_split(q, k, v, mesh)
+    return {"ring": errs(ring), "ulysses": errs(uly),
+            "ulysses_grad_rel": grads, "ms": ms, "launches": launches}
+
+
+def ulysses_split(q, k, v, mesh) -> dict:
+    """Ulysses' forward at sp=1 less its attention, part by part (ms,
+    CUDA events): ``group_call``'s shard of q, k, v and assembly of o;
+    the four all-to-alls inside it (q, k, v to heads, o back); the
+    all-to-alls' NCCL calls alone; their concatenations alone (a copy
+    each at sp=1); and the four 32 MiB copies that ``group_call`` made
+    before its shards became views."""
+    import torch.distributed as dist
+
+    from raytpu_torch.collective import mesh_ops
+    from raytpu_torch.parallel.mesh import PartitionSpec as P
+
+    spec = P(None, None, "sp", None)
+    four = (q, k, v, q)
+
+    def exchanges(a, b, c):
+        heads = [mesh_ops.all_to_all(t, "sp", split_axis=1, concat_axis=2)
+                 for t in (a, b, c)]
+        return mesh_ops.all_to_all(heads[0], "sp", split_axis=2,
+                                   concat_axis=1)
+
+    def nccl():
+        for t in four:
+            dist.all_to_all_single(torch.empty_like(t), t,
+                                   group=mesh.group("sp"))
+
+    def call(fn):
+        return lambda: mesh_ops.group_call(mesh, fn, q, k, v,
+                                           in_specs=(spec,) * 3,
+                                           out_specs=spec)
+
+    parts = {"group_call_io": call(lambda a, b, c: a),
+             "all_to_all_x4": call(exchanges), "nccl_x4": nccl,
+             "cat_x4": lambda: [torch.cat([t]) for t in four],
+             "copies_removed_x4": lambda: [t.clone() for t in four]}
+    return {name: time_ms(fn, iters=PARALLEL_TIME_ITERS, warmup=1)
+            for name, fn in parts.items()}
+
+
+def plain_moe(params, x, experts: int, capacity_factor: float):
+    """The MoE layer's function token by token: each kept token through
+    its top-1 expert times its gate; a token without a slot gives zero.
+    The slot rule is the JAX layer's (``raytpu/parallel/moe.py:42-45``):
+    a token's place is its count at its expert minus E, so an expert
+    keeps its tokens E to E + capacity - 1 in token order."""
+    import torch.nn.functional as F
+
+    gates = torch.softmax(x @ params["gate"], dim=-1)
+    top, gate = gates.argmax(-1), gates.amax(-1)
+    capacity = max(1, int(capacity_factor * x.shape[0] / experts))
+    y = torch.zeros_like(x)
+    for e in range(experts):
+        idx = (top == e).nonzero().squeeze(1)[experts - 1:
+                                               experts - 1 + capacity]
+        h = F.gelu(x[idx] @ params["wi"][e],
+                   approximate="tanh") @ params["wo"][e]
+        y[idx] = gate[idx, None] * h
+    return y, capacity
+
+
+def parallel_moe(dev) -> dict:
+    """MoELayer through group_call with ep=1 at Mixtral-8x7B's widths,
+    fp32, against plain_moe."""
+    from raytpu_torch.collective.mesh_ops import group_call
+    from raytpu_torch.parallel.mesh import Mesh, PartitionSpec as P
+    from raytpu_torch.parallel.moe import MoELayer
+
+    c = PARALLEL_MOE
+    mesh = Mesh(np.zeros(1, np.int64), ("ep",), device=dev)
+    layer = MoELayer(num_experts=c["experts"],
+                     capacity_factor=c["capacity_factor"])
+    gen = torch.Generator(device=dev).manual_seed(35)
+    params = layer.init(gen, c["d_model"], c["d_ff"], c["experts"],
+                        device=dev)
+    x = torch.randn(c["tokens"], c["d_model"], generator=gen, device=dev)
+    specs = ({"gate": P(), "wi": P("ep"), "wo": P("ep")}, P("ep"))
+
+    def run():
+        return group_call(mesh, lambda p, xl: layer(p, xl), params, x,
+                          in_specs=specs, out_specs=P("ep"))
+
+    with torch.no_grad():
+        y = run()
+        ref, capacity = plain_moe(params, x, c["experts"],
+                                  c["capacity_factor"])
+        rel = ((y - ref).abs().max() / ref.abs().max()).item()
+        kept = int((ref.abs().sum(-1) > 0).sum())
+        ms = time_ms(run, iters=2, warmup=1)
+    return {"rel_err": rel, "capacity": capacity, "kept_tokens": kept,
+            "ms": ms, "finite": bool(torch.isfinite(y).all())}
+
+
+def parallel_mixtral(dev) -> dict:
+    """One Mixtral MoEFFN at Mixtral-8x7B's widths (bf16 compute, 4096
+    tokens) with its experts over an ep axis of 1 against the unsharded
+    layer: output, aux and every gradient to the bit."""
+    from torch import nn
+
+    from raytpu_torch.models.mixtral import MoEFFN, shard_experts
+    from raytpu_torch.parallel.mesh import Mesh
+
+    cfg = mixtral_train_config()
+    gen = torch.Generator(device=dev).manual_seed(36)
+    with torch.device(dev):
+        whole = nn.ModuleDict({"moe": MoEFFN(cfg)})
+    with torch.no_grad():
+        for name, p in whole.named_parameters():
+            p.normal_(0.0, (cfg.n_inter if name.endswith(".wo")
+                            else cfg.n_embd) ** -0.5, generator=gen)
+    sharded = copy.deepcopy(whole)
+    shard_experts(sharded, Mesh(np.zeros(1, np.int64), ("ep",), device=dev))
+    x = torch.randn(1, cfg.block_size, cfg.n_embd, generator=gen,
+                    device=dev).to(cfg.dtype)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    outs = []
+    for holder in (whole, sharded):
+        xg = x.clone().requires_grad_()
+        y, aux = holder["moe"](xg)
+        ((y.float() * w).sum() + aux).backward()
+        outs.append((y.detach(), aux.detach(), xg.grad,
+                     {n: p.grad for n, p in holder.named_parameters()}))
+        torch.cuda.synchronize()
+    (y0, a0, g0, p0), (y1, a1, g1, p1) = outs
+    equal = {"y": _bit_equal(y0, y1), "aux": _bit_equal(a0, a1),
+             "x_grad": _bit_equal(g0, g1),
+             **{n: _bit_equal(p0[n], p1[n]) for n in p0}}
+    return {"equal": equal, "mesh_held": sharded["moe"].mesh is not None}
+
+
+def parallel_pipeline(dev) -> dict:
+    """pipelined_apply over pp=1 with four microbatches against the stage
+    applied to each microbatch in turn, to the bit."""
+    from raytpu_torch.parallel.mesh import Mesh
+    from raytpu_torch.parallel.pipeline import pipelined_apply
+
+    c = PARALLEL_PIPE
+    gen = torch.Generator(device=dev).manual_seed(37)
+    ws = (torch.randn(1, c["dim"], c["dim"], generator=gen, device=dev)
+          * c["dim"] ** -0.5).to(torch.bfloat16)
+    x = torch.randn(c["batch"], c["dim"], generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mesh = Mesh(np.zeros(1, np.int64), ("pp",), device=dev)
+    out = pipelined_apply(lambda p, h: torch.tanh(h @ p["w"]), {"w": ws}, x,
+                          mesh, n_micro=c["n_micro"])
+    want = torch.cat([torch.tanh(mb @ ws[0])
+                      for mb in x.chunk(c["n_micro"])])
+    return {"equal": _bit_equal(out, want)}
+
+
+def parallel_trainer_loop(config):
+    """Phase 33a (a train loop: it runs in the gang's one worker, world 1
+    on NCCL): the device-plane ops, ring attention and Ulysses, MoELayer,
+    Mixtral's experts over ep and the pipeline; one report with the
+    readings, the Ulysses run's launches and the process's facts."""
+    from raytpu_torch import train
+
+    dev = train.get_context().device
+    t0 = time.perf_counter()
+    out = {"collectives": parallel_mesh_ops(dev)}
+    out["attention"] = parallel_attention(dev)
+    torch.cuda.empty_cache()
+    out["moe"] = parallel_moe(dev)
+    torch.cuda.empty_cache()
+    out["mixtral"] = parallel_mixtral(dev)
+    torch.cuda.empty_cache()
+    out["pipeline"] = parallel_pipeline(dev)
+    out["loop_s"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    train.report({**out, **process_facts()})
+
+
+def host_rank(rank: int, world: int) -> dict:
+    """Phase 33b's task: rank ``rank`` of the host-plane group, each op
+    timed and checked exactly."""
+    from raytpu_torch import collective as col
+
+    col.init_collective_group(world, rank, group_name=HOST_GROUP)
+    times, ok = {}, {}
+
+    def timed(op: str, fn, repeats: int = 5):
+        runs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append(time.perf_counter() - t0)
+        times[op] = runs
+        return out
+
+    total = float(sum(range(1, world + 1)))
+    for size, n in HOST_SIZES.items():
+        mine = np.full(n, float(rank + 1), np.float32)
+        out = timed(f"allreduce_{size}", lambda: col.allreduce(
+            mine.copy(), group_name=HOST_GROUP), HOST_REPEATS[size])
+        ok[f"allreduce_{size}"] = bool((out == total).all()) and \
+            out.shape == (n,)
+    out = timed("allgather", lambda: col.allgather(
+        np.array([rank, 2 * rank]), group_name=HOST_GROUP))
+    ok["allgather"] = [g.tolist() for g in out] == [
+        [r, 2 * r] for r in range(world)]
+    out = timed("broadcast", lambda: col.broadcast(
+        np.array([rank * 10.0]), src_rank=2, group_name=HOST_GROUP))
+    ok["broadcast"] = out.tolist() == [20.0]
+    out = timed("reducescatter", lambda: col.reducescatter(
+        np.ones((2 * world, 2)), group_name=HOST_GROUP))
+    ok["reducescatter"] = out.tolist() == [[float(world)] * 2] * 2
+
+    def ring():
+        col.send(np.array([float(rank)]), (rank + 1) % world,
+                 group_name=HOST_GROUP)
+        return col.recv((rank - 1) % world, group_name=HOST_GROUP,
+                        timeout=PARALLEL_DEADLINE_S)
+
+    out = timed("send_recv", ring)
+    ok["send_recv"] = out.tolist() == [float((rank - 1) % world)]
+    timed("barrier", lambda: col.barrier(group_name=HOST_GROUP,
+                                         timeout=PARALLEL_DEADLINE_S))
+    ok["barrier"] = True
+    ok["in_group"] = col.is_group_initialized(HOST_GROUP)
+    return {"ok": ok, "times": times, "pid": os.getpid(),
+            "forbidden": process_facts()["forbidden"]}
+
+
+def host_group_seen(hold_s: float) -> tuple:
+    """A later task: whether its worker still sees phase 33b's group."""
+    from raytpu_torch import collective as col
+
+    time.sleep(hold_s)  # hold the worker, so that the tasks spread
+    return os.getpid(), col.is_group_initialized(HOST_GROUP)
+
+
+def phase_host_collectives() -> dict:
+    """Phase 33b: four task processes form a host-plane group; each op's
+    p50 ms, the all-reduce's MB/s; then tasks on every worker of the pool
+    see no group."""
+    from raytpu_torch import runtime
+    from raytpu_torch.runtime import api
+
+    own_pool = api._POOL is None
+    if own_pool:
+        runtime.init(num_cpus=HOST_WORLD)
+    try:
+        cpus = runtime.cluster_resources().get("CPU", 0)
+        if cpus < HOST_WORLD:  # the ranks must run at once
+            raise AssertionError(f"phase 33b: the pool has {cpus} CPUs, the "
+                                 f"group needs {HOST_WORLD}")
+        t0 = time.perf_counter()
+        ranks = runtime.get([runtime.remote(host_rank).remote(r, HOST_WORLD)
+                             for r in range(HOST_WORLD)],
+                            timeout=PARALLEL_DEADLINE_S)
+        ops_s = time.perf_counter() - t0
+        seen = runtime.get([runtime.remote(host_group_seen).remote(0.2)
+                            for _ in api.pool_workers()],
+                           timeout=PARALLEL_DEADLINE_S)
+    finally:
+        if own_pool:
+            runtime.shutdown()
+    p50 = {op: float(np.median([r["times"][op] for r in ranks])) * 1e3
+           for op in ranks[0]["times"]}
+    mb_s = {size: n * 4 / 1e6 / (p50[f"allreduce_{size}"] / 1e3)
+            for size, n in HOST_SIZES.items()}
+    group_pids = {r["pid"] for r in ranks}
+    return {"ok": {op: all(r["ok"][op] for r in ranks)
+                   for op in ranks[0]["ok"]},
+            "p50_ms": p50, "allreduce_mb_s": mb_s, "ops_s": ops_s,
+            "reused": sum(pid in group_pids for pid, _ in seen),
+            "stale": [pid for pid, initialized in seen if initialized],
+            "forbidden": [r["forbidden"] for r in ranks if r["forbidden"]],
+            "own_pool": own_pool}
+
+
+def phase_parallel(card_line: str) -> dict:
+    """Phase 33 (see the module docstring): 33a in a one-worker gang on
+    the card, 33b on the task pool. Fails unless every check holds."""
+    import multiprocessing
+
+    t_phase = time.perf_counter()
+    before = {p.pid for p in multiprocessing.active_children()}
+    storage = tempfile.mkdtemp(prefix="parallel-")
+    try:
+        t0 = time.perf_counter()
+        result, _ = fit_in_gang(parallel_trainer_loop, {}, "parallel",
+                                storage)
+        fit_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    a = result.metrics
+    t0 = time.perf_counter()
+    host = phase_host_collectives()
+    host_s = time.perf_counter() - t0
+    left = sorted({p.pid for p in multiprocessing.active_children()}
+                  - before)
+    att, col = a["attention"], a["collectives"]
+    readings = {
+        "collectives": col, "attention": att, "moe": a["moe"],
+        "mixtral": a["mixtral"], "pipeline": a["pipeline"],
+        "worker": {k: a[k] for k in ("pid", "forbidden", "main",
+                                     "launches", "loop_s", "peak_gb")},
+        "host": host, "fit_s": fit_s, "host_s": host_s, "left": left,
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"[parallel] {json.dumps(readings)} | {card_line}")
+    log(f"[parallel] ring max {att['ring']['max']:.4g} (< "
+        f"{PARALLEL_BF16_MAX}) mean {att['ring']['mean']:.4g} (< "
+        f"{PARALLEL_BF16_MEAN}); ulysses max {att['ulysses']['max']:.4g} "
+        f"mean {att['ulysses']['mean']:.4g}; ulysses grads "
+        f"{json.dumps(att['ulysses_grad_rel'])} (< {PARALLEL_GRAD_TOL}); "
+        f"moe rel {a['moe']['rel_err']:.3g} (< {PARALLEL_MOE_REL}); "
+        f"forward ms {json.dumps(att['ms'])}; host p50 ms "
+        f"{json.dumps(host['p50_ms'])}, all-reduce MB/s "
+        f"{json.dumps(host['allreduce_mb_s'])} | {card_line}")
+    bad = [n for n, ok in col["equal"].items() if not ok]
+    if bad or col["cpu_refused"] is None or "nccl" not in col["backend"]:
+        raise AssertionError(f"phase 33a: collectives not at their world-1 "
+                             f"value {bad}, a CPU mesh on the NCCL group "
+                             f"{col['cpu_refused']!r}, backend "
+                             f"{col['backend']}")
+    for name in ("ring", "ulysses"):
+        e = att[name]
+        if not (e["max"] < PARALLEL_BF16_MAX
+                and e["mean"] < PARALLEL_BF16_MEAN
+                and e["dtype"] == "torch.bfloat16"
+                and e["shape"] == list(PARALLEL_ATTN)):
+            raise AssertionError(f"phase 33a: {name} against the reference "
+                                 f"{e}")
+    if max(att["ulysses_grad_rel"].values()) >= PARALLEL_GRAD_TOL:
+        raise AssertionError(f"phase 33a: Ulysses' gradients "
+                             f"{att['ulysses_grad_rel']}")
+    check_launches(att["launches"], {**{k: 0 for k in KERNEL_META},
+                                     "flash_forward": 1, "flash_bwd_dq": 1,
+                                     "flash_bwd_dkv": 1})
+    if not (a["moe"]["rel_err"] < PARALLEL_MOE_REL and a["moe"]["finite"]):
+        raise AssertionError(f"phase 33a: MoELayer {a['moe']}")
+    if not all(a["mixtral"]["equal"].values()) or \
+            not a["mixtral"]["mesh_held"]:
+        raise AssertionError(f"phase 33a: Mixtral over ep=1 {a['mixtral']}")
+    if not a["pipeline"]["equal"]:
+        raise AssertionError("phase 33a: the pipeline against the stages")
+    if not all(host["ok"].values()) or host["stale"] or not host["reused"]:
+        raise AssertionError(f"phase 33b: {host['ok']}, workers seeing the "
+                             f"group after its tasks {host['stale']}, "
+                             f"reused {host['reused']}")
+    if a["forbidden"] or host["forbidden"] or (
+            a["main"][1] == "chip_smoke.py" and a["main"][0] != "__mp_main__"):
+        raise AssertionError(f"phase 33: a process loaded JAX or ran outside "
+                             f"__mp_main__: {a['forbidden']} "
+                             f"{host['forbidden']} {a['main']}")
+    if left:
+        raise AssertionError(f"phase 33: processes left: {left}")
+    readings["launches"] = att["launches"]
+    return readings
+
+
 KERNEL_META = {  # name: (source, the TPU kernel it replaces)
     "flash_forward": ("raytpu_torch/ops/csrc/flash_attention.cu",
                       "raytpu/ops/flash_attention.py:159"),
@@ -8851,6 +9364,12 @@ def main() -> int:
     graphs = timed("graphs", phase_graphs, card_line, gpt2_serve, train)
     check_launches({name: c.count for name, c in counters.items()},
                    graphs["driver_launches"])
+    # The gang's worker launches the flash kernels; this process none.
+    for counter in counters.values():
+        counter.reset()
+    parallel = timed("parallel", phase_parallel, card_line)
+    check_launches({name: c.count for name, c in counters.items()},
+                   {name: 0 for name in counters})
     runs = {"serve": serve["launches"],
             "observability": observability["launches"],
             "deployment": deployment["launches"],
@@ -8865,7 +9384,8 @@ def main() -> int:
             "mixtral_train": mixtral["launches"], "rllib": rllib,
             "trainlib": trainlib["launches"], "tune": tuned["launches"],
             "resources": resources["launches"],
-            "graphs": graphs["launches"]}
+            "graphs": graphs["launches"],
+            "parallel": parallel["launches"]}
     PHASE_SECONDS["total"] = round(time.time() - PYTHON_UP, 1)
     log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(json.dumps(kernel_line(cases, runs)))

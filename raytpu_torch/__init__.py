@@ -62,6 +62,13 @@ runtime's tasks and object store, and the Data library:
   TPE, BOHB, ask/tell), schedulers (FIFO, ASHA, HyperBand, PBT), trials
   as Train worker processes (on the card, sharing it, or on the CPU),
   crash retries from checkpoints, and ``Tuner.restore``;
+- :mod:`raytpu_torch.parallel` and :mod:`raytpu_torch.collective` —
+  meshes of ranks (one process a rank, one ``torch.distributed`` group
+  an axis), the sharding rules for the port's parameter names, ring
+  attention, Ulysses, the pipeline loop and MoE dispatch over
+  ``mesh_ops.group_call`` (``shard_map``'s counterpart, with its
+  gradients), Mixtral's experts over ``ep``, and host collectives
+  between tasks and actors through a coordinator actor;
 - :mod:`raytpu_torch.state`, :mod:`raytpu_torch.dashboard`,
   :mod:`raytpu_torch.job` and ``python -m raytpu_torch`` — the
   operator's surface: every process's records at the driver, the web

@@ -5,7 +5,8 @@ Llama blocks (:class:`~raytpu_torch.models.llama.LlamaAttention`, whose
 attention runs the flash kernels through the GQA repeat, and
 :class:`~raytpu_torch.models.llama.RMSNorm`, the RMSNorm kernel) whose FFN
 is :class:`MoEFFN`: top-k routed experts with a capacity, in the JAX
-package's dense one-hot dispatch formulation, with no collective.
+package's dense one-hot dispatch formulation, with no collective unless
+:func:`shard_experts` spreads the experts over a mesh's ``ep`` axis.
 Parameters are fp32 (Flax's default) and cast to ``config.dtype`` at use;
 the names follow the JAX tree (``layers.{i}.moe.router`` ...), so
 :func:`raytpu_torch.models.convert.mixtral_state_from_jax` maps one onto
@@ -35,11 +36,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raytpu_torch.collective import mesh_ops
 from raytpu_torch.models.common import remat_call
 from raytpu_torch.models.gpt2 import mean_nll
 from raytpu_torch.models.llama import (Linear, Llama, LlamaAttention,
                                        LlamaConfig, RMSNorm, lm_logits)
 from raytpu_torch.models.llama import make_train_step as _llama_step
+from raytpu_torch.parallel.mesh import PartitionSpec as P
+from raytpu_torch.parallel.sharding import TRANSFORMER_RULES
 
 F32 = torch.float32
 
@@ -115,6 +119,17 @@ class MoEFFN(nn.Module):
         self.wi = nn.Parameter(torch.empty(e, d, f))
         self.wg = nn.Parameter(torch.empty(e, d, f))
         self.wo = nn.Parameter(torch.empty(e, f, d))
+        # The mesh whose ``ep`` axis the experts are sharded over (see
+        # shard_experts), else None: all experts here.
+        self.mesh = None
+
+    def _experts(self, expert_in):
+        """The SwiGLU experts this module holds on their rows of the
+        dispatch, [E', C, D] -> [E', C, D]."""
+        dt = self.config.dtype
+        h = (F.silu(torch.bmm(expert_in, self.wg.to(dt)))
+             * torch.bmm(expert_in, self.wi.to(dt)))
+        return torch.bmm(h, self.wo.to(dt))
 
     def route(self, xf) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(probs [N, E], topw [N, k], topi [N, k]) for the rows ``xf``
@@ -143,9 +158,14 @@ class MoEFFN(nn.Module):
         x_rep = xf.to(F32).repeat(k, 1)                      # [kN, D]
         expert_in = torch.mm(dispatch.reshape(k * n, e * cap).t(), x_rep)
         expert_in = expert_in.reshape(e, cap, d).to(dt)
-        h = (F.silu(torch.bmm(expert_in, self.wg.to(dt)))
-             * torch.bmm(expert_in, self.wi.to(dt)))
-        expert_out = torch.bmm(h, self.wo.to(dt))           # [E, C, D]
+        if self.mesh is None:
+            expert_out = self._experts(expert_in)           # [E, C, D]
+        else:
+            # Each rank runs its E / ep experts on their rows of the
+            # dispatch; the outputs are gathered over ep.
+            expert_out = mesh_ops.group_call(
+                self.mesh, self._experts, expert_in, in_specs=P("ep"),
+                out_specs=P("ep"))
         y = torch.mm(combine.reshape(k * n, e * cap),
                      expert_out.to(F32).reshape(e * cap, d))  # [kN, D]
         y = y.reshape(k, n, d).sum(0)
@@ -205,6 +225,47 @@ class Mixtral(Llama):
             auxes.append(aux)
         aux = torch.stack(auxes).sum() / max(1, c.n_layer)
         return lm_logits(self, self.final_norm(x, c.norm_impl)), aux
+
+
+EXPERT_WEIGHTS = ("wi", "wg", "wo")
+
+
+def shard_experts(model: Mixtral, mesh) -> Mixtral:
+    """Shard a built model's experts over the ``ep`` axis of ``mesh`` (a
+    :class:`raytpu_torch.parallel.mesh.Mesh`), in place: each rank keeps
+    the rows of ``wi``, ``wg`` and ``wo`` that the rule table's
+    ``Shard(0)`` gives it (E / ep experts) as plain local parameters, and
+    every other parameter whole. Tokens stay replicated over ``ep``, as in
+    the JAX package's test: the routing and the dispatch run whole on
+    every rank, each rank runs its experts, and their outputs are
+    gathered over the ``ep`` group before the combine
+    (:func:`raytpu_torch.collective.mesh_ops.group_call`). Every rank
+    computes the same loss; its gradients are the unsharded ones, the
+    experts' their rows. A collective: every rank of the mesh calls it.
+    """
+    others = {a: n for a, n in mesh.shape.items() if a != "ep" and n > 1}
+    if others:
+        raise NotImplementedError(
+            f"Mixtral over the mesh axes {others}: the port shards its "
+            f"experts over ep only; tensor-parallel (tp) and fsdp products "
+            f"are ROADMAP.md Queue 1, item 2")
+    if "ep" not in mesh.shape:
+        raise ValueError(f"shard_experts: {mesh} has no ep axis")
+    n, index = mesh.shape["ep"], mesh.axis_index("ep")
+    for name, moe in model.named_modules():
+        if not isinstance(moe, MoEFFN):
+            continue
+        for leaf in EXPERT_WEIGHTS:
+            p = getattr(moe, leaf)
+            spec = TRANSFORMER_RULES.spec_for(f"{name}.{leaf}", p.dim(), mesh)
+            if spec[0] != ("ep" if n > 1 else None) or any(spec[1:]):
+                raise ValueError(f"{name}.{leaf}: the rules give {spec}, "
+                                 f"not the experts' rows over ep")
+            rows = p.shape[0] // n
+            local = p.detach()[index * rows:(index + 1) * rows].clone()
+            setattr(moe, leaf, nn.Parameter(local))
+        moe.mesh = mesh
+    return model
 
 
 def mixtral_loss_fn(model: Mixtral, tokens):

@@ -12,8 +12,9 @@ ends and come back in one copy.
 
 One learner only: the JAX package's ``num_learners > 1`` shards the
 update over a mesh axis with an in-program ``pmean``; the port's
-counterpart, gradients all-reduced over NCCL, waits for the port of the
-parallel package (``ROADMAP.md``), so it raises.
+counterpart, the learners' gradients all-reduced over a mesh's ``dp``
+axis (:mod:`raytpu_torch.collective.mesh_ops`, NCCL on the card), is not
+written yet (``ROADMAP.md``), so it raises.
 """
 
 from __future__ import annotations
@@ -125,9 +126,10 @@ class Learner:
         if self.num_shards > 1:
             raise NotImplementedError(
                 f"num_learners={self.num_shards}: the port has one learner; "
-                f"several learners with gradients all-reduced over NCCL "
-                f"wait for the parallel package's port (ROADMAP.md, "
-                f"Queue 1: multi-learner over NCCL)")
+                f"several learners need their gradients all-reduced over a "
+                f"mesh's dp axis (raytpu_torch.collective.mesh_ops), which "
+                f"the learner does not do yet (ROADMAP.md, Queue 1: "
+                f"multi-learner over NCCL)")
         self.device = resolve_device(self.config.get("device"))
         seed = int(self.config.get("seed", 0))
         self.params = {k: v.requires_grad_() for k, v in

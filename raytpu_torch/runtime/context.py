@@ -8,11 +8,16 @@ start (:func:`set_process`: the actor's id, its attempt, its group) and
 a task worker the task it runs (:func:`set_task`). The job and the node
 are the tree's: derived from its id, so every process names them alike
 without a message. An actor method's context has no task id.
+
+:func:`register_task_scope_reset` and :func:`reset_task_scope` are the
+JAX package's: the task worker runs the registered resets when each task
+ends (the JAX executor between tasks on a reused thread).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -76,6 +81,31 @@ def set_task(task_id: Optional[str],
     """The task this task worker runs (None between tasks)."""
     _PROCESS.update(task_id=task_id, placement_group_id=placement_group_id,
                     capture=capture and task_id is not None)
+
+
+# -- task-scope resets ---------------------------------------------------
+# A task worker runs task after task in one process; modules that keep
+# state for the task that runs (the collective groups it joined) register
+# a reset here, which the worker runs when each task ends, so that one
+# task's state never reaches the next task on the same worker.
+_task_scope_resets: list = []
+
+
+def register_task_scope_reset(fn) -> None:
+    _task_scope_resets.append(fn)
+
+
+def reset_task_scope() -> None:
+    """Called by the task worker when a task ends."""
+    set_task(None)
+    for fn in _task_scope_resets:
+        try:
+            fn()
+        except Exception:
+            # A reset that failed quietly would let one task's state
+            # reach the next: be loud.
+            logging.getLogger("raytpu_torch").exception(
+                "task-scope reset %r failed", fn)
 
 
 def captured_group() -> Optional[str]:

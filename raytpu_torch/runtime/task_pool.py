@@ -591,7 +591,7 @@ def _run(conn, message: tuple, cancelled: set) -> None:
         _run_task(conn, tid, fn_blob, args, opts, cancelled, name, owner,
                   attempt)
     finally:
-        context.set_task(None)
+        context.reset_task_scope()
 
 
 def _run_task(conn, tid, fn_blob, args, opts, cancelled, name, owner,

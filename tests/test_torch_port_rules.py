@@ -93,6 +93,14 @@ GRAPH_MODULES = ("dag/__init__.py", "dag/node.py", "dag/compiled.py",
                  "workflow/api.py", "workflow/executor.py",
                  "workflow/storage.py")
 
+# The parallel package and the collectives, each with its JAX module of
+# the same path.
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/sharding.py", "parallel/ring_attention.py",
+                    "parallel/ulysses.py", "parallel/pipeline.py",
+                    "parallel/moe.py", "collective/__init__.py",
+                    "collective/collective.py", "collective/mesh_ops.py")
+
 # Packages the Data library imports only where a reader or writer needs
 # them (the card's machine may lack them).
 OPTIONAL_PACKAGES = ("cloudpickle", "pyarrow", "pandas", "PIL")
@@ -128,7 +136,7 @@ def test_port_imports_no_jax_and_nothing_of_raytpu():
             + RESOURCE_MODULES + ("_version",)} <= set(loaded)
     assert {"raytpu_torch." + m[:-3].replace("/", ".").replace(
         ".__init__", "") for m in TRAIN_MODULES + SERVE_MODULES
-        + DATA_MODULES + GRAPH_MODULES} <= set(loaded)
+        + DATA_MODULES + GRAPH_MODULES + PARALLEL_MODULES} <= set(loaded)
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -1005,6 +1013,42 @@ def test_graph_modules_are_held_to_the_rules():
 
     assert {"Channel", "ChannelClosed"} <= set(vars(pchannel))
     assert {"Channel", "ChannelClosed"} <= set(vars(jchannel))
+
+
+def test_parallel_modules_are_held_to_the_rules():
+    """Each of the port's modules of the parallel package and the
+    collectives has its JAX module of the same path; the two packages
+    export the JAX package's names."""
+    import importlib
+
+    names = {p.relative_to(REPO / "raytpu_torch").as_posix()
+             for p in PORT_FILES if "raytpu_torch" in p.parts}
+    for name in PARALLEL_MODULES:
+        assert name in names
+        assert (REPO / "raytpu" / name).is_file()
+    for mod in ("parallel", "collective"):
+        jmod = importlib.import_module(f"raytpu.{mod}")
+        pmod = importlib.import_module(f"raytpu_torch.{mod}")
+        assert pmod.__all__ == jmod.__all__
+        assert all(hasattr(pmod, n) for n in pmod.__all__)
+
+
+def test_importing_the_parallel_package_loads_no_jax_and_no_group():
+    """In a fresh interpreter, in either order: no JAX, no process group
+    and no CUDA context."""
+    for first, second in (("parallel", "collective"),
+                          ("collective", "parallel")):
+        code = (f"import json, sys; import raytpu_torch.{first}, "
+                f"raytpu_torch.{second}; import torch, "
+                f"torch.distributed as d; print(json.dumps(["
+                f"sorted(sys.modules), d.is_initialized(), "
+                f"torch.cuda.is_initialized()]))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        loaded, group, cuda = json.loads(out.stdout.strip().splitlines()[-1])
+        assert [m for m in loaded if _forbidden(m)] == []
+        assert not group and not cuda
 
 
 def test_operator_modules_are_held_to_the_rules():
